@@ -1,0 +1,549 @@
+#!/usr/bin/env python3
+"""Run the PyTorch port (``src/repro_torch``) on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (any failure exits non-zero):
+
+1. build: compile every CUDA kernel of the main path from
+   ``src/repro_torch/kernels/csrc`` with nvcc (one process per source, all
+   at once) and print the seconds.
+2. main path: the paper's experiment at the full width of ViT-Tiny
+   (12 blocks, d=192, 3 heads of 64, bf16 compute) with the MoCo v3 heads
+   of ``SSLConfig()``: ``run_fedssl`` with the LW-FedSSL schedule, 4
+   clients, 12 rounds (one per stage, so every stage transition and weight
+   transfer runs), 1 local epoch, batch 256, 4096 synthetic images, then
+   ``linear_eval``. Every kernel launch counter is set to 0 just before and
+   read just after; each kernel must have launched. Losses must be finite
+   and the wire bytes must equal the analytic bytes in every round.
+3. reference: one SSL loss at full width on 8 images, fp32 compute, on the
+   card (kernels) against the CPU (plain PyTorch versions).
+4. kernels: each kernel's wrapper against its plain PyTorch version on the
+   card at the main path's shapes (plus a causal + sliding-window + GQA
+   attention case and the backward of both autograd Functions), with the
+   tolerance stated; then the kernel's time beside its plain version's, one
+   PyTorch library call's where there is one, and the least time the card
+   could take (its bound).
+
+With ``--profile``, a fifth phase traces one local step of the last stage
+with ``torch.profiler`` and prints where its device time goes.
+
+Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
+as its last line ``{"ok": true, "device": {...}}``. TF32 is off throughout,
+so fp32 products are full fp32. Exits non-zero, printing no result, without
+a CUDA GPU or without the repository's ``src/repro_torch`` beside it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import pathlib
+import subprocess
+import sys
+import time
+import traceback
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# NVIDIA H100 SXM data sheet (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
+# fp32 (non-tensor) FLOP/s
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+TPU_SOURCES = {
+    "gather_pack": ("src/repro_torch/kernels/csrc/pack.cu",
+                    "src/repro/kernels/pack.py:55"),
+    "scatter_unpack": ("src/repro_torch/kernels/csrc/pack.cu",
+                       "src/repro/kernels/pack.py:88"),
+    "rmsnorm_rows": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                     "src/repro/kernels/rmsnorm.py:26"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:90"),
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def import_port():
+    """The port from this checkout's ``src/``, never from elsewhere."""
+    if not (SRC / "repro_torch" / "__init__.py").exists():
+        raise SmokeFailure(f"no src/repro_torch beside {__file__}: run this "
+                           f"script from a checkout of the repository")
+    sys.path.insert(0, str(SRC))
+    import repro_torch
+    check(pathlib.Path(repro_torch.__file__).resolve().is_relative_to(SRC),
+          f"repro_torch imported from {repro_torch.__file__}, not {SRC}")
+    return repro_torch
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the main path
+# ---------------------------------------------------------------------------
+def main_path(device, *, model_cfg, ssl_cfg, clients=4, rounds=12,
+              batch=256, samples=4096, eval_epochs=10, seed=0):
+    """LW-FedSSL through ``run_fedssl`` and ``linear_eval`` on ``device``.
+    Returns (state, history, accuracy, per-round seconds, images)."""
+    import torch
+    from repro_torch.configs.base import FLConfig, TrainConfig
+    from repro_torch.convert import subtree
+    from repro_torch.core import ssl as ssl_mod
+    from repro_torch.data.partition import iid_partition
+    from repro_torch.data.synthetic import synthetic_images
+    from repro_torch.federated.driver import run_fedssl
+    from repro_torch.federated.eval import linear_eval
+
+    fl = FLConfig(num_clients=clients, rounds=rounds, local_epochs=1,
+                  schedule="lw_fedssl", seed=seed)
+    tc = TrainConfig(batch_size=batch)
+    gen = torch.Generator(device).manual_seed(seed)
+    images, labels = synthetic_images(gen, samples, 10, 32)
+    idx = iid_partition(samples, clients, seed=seed)
+    aux = images[:int(samples * fl.aux_fraction)]
+    stamps = []
+
+    def log(line):
+        stamps.append(time.perf_counter())
+        print("  " + line, flush=True)
+
+    t0 = time.perf_counter()
+    state, hist = run_fedssl(model_cfg, ssl_cfg, fl, tc, images=images,
+                             client_indices=idx, aux_images=aux, log=log,
+                             device=device)
+    secs = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    half = samples // 2
+    acc = linear_eval(ssl_mod.make_vit_encoder(model_cfg),
+                      subtree(state["online"], "enc"),
+                      images[:half], labels[:half], images[half:],
+                      labels[half:], num_classes=10, epochs=eval_epochs,
+                      batch_size=batch)
+    return state, hist, acc, secs, images
+
+
+def check_history(hist, rounds):
+    check(len(hist.loss) == rounds, f"{len(hist.loss)} rounds of {rounds}")
+    check(all(math.isfinite(x) for x in hist.loss),
+          f"non-finite loss: {hist.loss}")
+    check(hist.wire_download_bytes == hist.download_bytes,
+          "wire download bytes differ from the analytic bytes")
+    check(hist.wire_upload_bytes == hist.upload_bytes,
+          "wire upload bytes differ from the analytic bytes")
+    check(hist.round_stage == list(range(1, rounds + 1)),
+          f"stages {hist.round_stage}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: full-width SSL loss, card against CPU
+# ---------------------------------------------------------------------------
+def reference_check(model_cfg, ssl_cfg, state, images):
+    """ssl_loss with fp32 compute on 8 images: kernels on the card against
+    the plain versions on the CPU, on the trained state. Returns the
+    relative loss difference and the max CLS difference."""
+    import torch
+    from repro_torch.convert import subtree
+    from repro_torch.core import ssl as ssl_mod
+    from repro_torch.data.augment import draw_params, two_views
+
+    cfg = dataclasses.replace(model_cfg, compute_dtype="float32")
+    enc = ssl_mod.make_vit_encoder(cfg)
+    gen = torch.Generator("cpu").manual_seed(1)
+    x = images[:8].cpu()
+    x1, x2 = two_views(x, draw_params(gen, 8, 32, 32),
+                       draw_params(gen, 8, 32, 32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = {b: {k: v.to(dev) for k, v in t.items()}
+              for b, t in state.items()}
+        with torch.no_grad():
+            loss, _ = ssl_mod.ssl_loss(
+                st, x1.to(dev), x2.to(dev), enc, ssl_cfg,
+                sub_layers=cfg.num_layers, active_from=cfg.num_layers - 1,
+                global_enc=subtree(st["online"], "enc"),
+                align_weight=ssl_cfg.align_weight)
+            z = enc.apply(subtree(st["online"], "enc"), x1.to(dev))
+        out[dev] = (float(loss), z.cpu())
+    rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    zerr = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+    return rel, zerr
+
+
+# ---------------------------------------------------------------------------
+# phase 4: kernels against their plain versions, and their times
+# ---------------------------------------------------------------------------
+def time_ms(calls, iters=24) -> float:
+    """Mean device milliseconds of one call. ``calls`` are closures over
+    distinct copies of the inputs, whose bytes together exceed the 50 MB L2
+    cache, and the timed loop cycles through them, so each call finds its
+    inputs in device memory as the main path mostly does. The device first
+    sleeps for about 0.1 s while the host enqueues the timed calls, so the
+    events measure back-to-back device work and not the host's launch
+    overhead (a host slower than that would show up as a longer time)."""
+    import torch
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for i in range(iters):
+        calls[i % len(calls)]()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def copies(nbytes: int) -> int:
+    """Input copies to cycle through so that they exceed the L2 cache."""
+    return max(1, math.ceil(2 * 50e6 / nbytes))
+
+
+def max_err(a, b) -> float:
+    if isinstance(a, (list, tuple)):
+        return max(max_err(x, y) for x, y in zip(a, b))
+    return float((a.float() - b.float()).abs().max())
+
+
+def kernel_checks(state):
+    """Each kernel's wrapper against its plain version at the main path's
+    shapes; returns {name: record} and prints one line per comparison."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import schedule as sched
+    from repro_torch.federated.transport import Transport
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(3)
+    rec = {}
+
+    def line(name, err, tol):
+        print(f"  {name}: max |kernel - plain| = {err:.3e} "
+              f"(tolerance {tol:g})", flush=True)
+        check(err <= tol, f"{name}: error {err} above {tol}")
+
+    # wire pack / unpack: the last stage's payloads of LW-FedSSL
+    online = state["online"]
+    plans = sched.build_schedule(FLConfig(rounds=12, schedule="lw_fedssl"),
+                                 12)
+    specs = Transport().plan_specs(online, plans[-1])
+    err_p = err_u = 0.0
+    for direction in ("download", "upload"):
+        spec = specs[direction]
+        leaves = [online["/".join(s.path)] for s in spec.slots]
+        flat = ops.wire_pack(leaves, spec.layout, spec.total)
+        err = max_err(flat, ref.wire_pack_ref(leaves, spec.layout,
+                                              spec.total))
+        line(f"gather_pack {direction} ({spec.total} floats)", err, 0.0)
+        new = torch.randn(spec.total, generator=gen, device=dev)
+        outs = ops.wire_unpack(new, leaves, spec.layout)
+        err2 = max_err(outs, ref.wire_unpack_ref(new, leaves, spec.layout))
+        line(f"scatter_unpack {direction}", err2, 0.0)
+        err_p, err_u = max(err_p, err), max(err_u, err2)
+    # time the upload (4 a round against one download); its 85 MB in and
+    # 85 MB out exceed the L2 cache by themselves
+    leaves = [online["/".join(s.path)] for s in spec.slots]
+    payload = 4 * spec.total
+    leaf_bytes = 4 * sum(t.numel() for t in leaves)
+    slices = [t.reshape(-1)[a:a + n] for t, (a, _, n) in
+              zip(leaves, spec.layout)]
+    rec["gather_pack"] = dict(
+        max_abs_err=err_p,
+        ms=time_ms([lambda: ops.wire_pack(leaves, spec.layout, spec.total)]),
+        plain_ms=time_ms([lambda: ref.wire_pack_ref(leaves, spec.layout,
+                                                    spec.total)]),
+        library_ms=time_ms([lambda: torch.cat(slices)]),
+        bound_ms=2 * payload / HBM_BPS * 1e3, bound_by="bytes",
+        shape=f"upload payload {spec.total} fp32 in {len(leaves)} slots")
+    rec["scatter_unpack"] = dict(
+        max_abs_err=err_u,
+        ms=time_ms([lambda: ops.wire_unpack(new, leaves, spec.layout)]),
+        plain_ms=time_ms([lambda: ref.wire_unpack_ref(new, leaves,
+                                                      spec.layout)]),
+        library_ms=None,
+        bound_ms=2 * leaf_bytes / HBM_BPS * 1e3, bound_by="bytes",
+        shape=f"upload payload {spec.total} fp32 into "
+              f"{leaf_bytes // 4} leaf elements")
+
+    # RMSNorm: the fp32 residual stream at batch 256
+    R, d = 256 * 65, 192
+    x = torch.randn((R, d), generator=gen, device=dev)
+    scale = online["enc/blocks/ln1/scale"][0]
+    y = ops.rmsnorm(x, scale)
+    err = max_err(y, ref.rmsnorm_ref(x, scale))
+    line(f"rmsnorm_rows ({R}, {d}) fp32", err, 1e-5)
+    nbytes = 4 * (2 * R * d + d)
+    xs = [x] + [torch.randn((R, d), generator=gen, device=dev)
+                for _ in range(copies(nbytes) - 1)]
+
+    def over(fn):
+        return [lambda a=a: fn(a) for a in xs]
+
+    rec["rmsnorm_rows"] = dict(
+        max_abs_err=err, ms=time_ms(over(lambda a: ops.rmsnorm(a, scale))),
+        plain_ms=time_ms(over(lambda a: ref.rmsnorm_ref(a, scale))),
+        library_ms=time_ms(over(lambda a: F.rms_norm(a, (d,), scale,
+                                                     1e-5))),
+        bound_ms=max(nbytes / HBM_BPS, 4 * R * d / FP32_FLOPS) * 1e3,
+        bound_by="bytes" if nbytes / HBM_BPS > 4 * R * d / FP32_FLOPS
+        else "operations",
+        shape=f"x ({R}, {d}) fp32")
+
+    # attention: the ViT's bf16 q, k, v at batch 256
+    B, S, Hh, hd = 256, 65, 3, 64
+    nbytes = 2 * 4 * B * S * Hh * hd
+    flops = 4 * B * Hh * S * S * hd
+    qkvs = [tuple(torch.randn((B, S, Hh, hd), generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(3))
+            for _ in range(copies(nbytes))]
+    q, k, v = qkvs[0]
+
+    def plain(q, k, v):
+        return ref.sdpa_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=False).transpose(1, 2)
+
+    o = ops.flash_attention(q, k, v, causal=False)
+    err = max_err(o, plain(q, k, v))
+    line(f"flash_attention ({B}, {S}, {Hh}, {hd}) bf16", err, 2e-2)
+    bhsd = [tuple(t.transpose(1, 2).contiguous() for t in qkv)
+            for qkv in qkvs]
+    rec["flash_attention"] = dict(
+        max_abs_err=err,
+        ms=time_ms([lambda a=a: ops.flash_attention(*a, causal=False)
+                    for a in qkvs]),
+        plain_ms=time_ms([lambda a=a: plain(*a) for a in qkvs]),
+        library_ms=time_ms([lambda a=a: F.scaled_dot_product_attention(*a)
+                            for a in bhsd]),
+        bound_ms=max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3,
+        bound_by="bytes" if nbytes / HBM_BPS > flops / BF16_FLOPS
+        else "operations",
+        shape=f"q, k, v ({B}, {S}, {Hh}, {hd}) bf16, non-causal")
+
+    # the masks the ViT does not use: causal + window + GQA, and kv_len
+    for (Bc, Sc, Hq, Hkv, hdc, causal, window, kv_len) in (
+            (2, 200, 4, 2, 128, True, 64, None),
+            (2, 130, 8, 1, 64, True, 0, 100)):
+        qc = torch.randn((Bc, Sc, Hq, hdc), generator=gen, device=dev)
+        kc = torch.randn((Bc, Sc, Hkv, hdc), generator=gen, device=dev)
+        vc = torch.randn((Bc, Sc, Hkv, hdc), generator=gen, device=dev)
+        got = ops.flash_attention(qc, kc, vc, causal=causal, window=window,
+                                  kv_len=kv_len)
+        want = ref.sdpa_ref(qc.transpose(1, 2), kc.transpose(1, 2),
+                            vc.transpose(1, 2), causal=causal, window=window,
+                            kv_len=kv_len).transpose(1, 2)
+        line(f"flash_attention fp32 causal window={window} kv_len={kv_len} "
+             f"Hq={Hq} Hkv={Hkv} hd={hdc}", max_err(got, want), 2e-5)
+
+    # the backward of both autograd Functions against autograd through
+    # the plain versions
+    xg = torch.randn((130, d), generator=gen, device=dev).requires_grad_()
+    sg = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)) \
+        .requires_grad_()
+    g = torch.randn((130, d), generator=gen, device=dev)
+    got = torch.autograd.grad(ops.rmsnorm(xg, sg), (xg, sg), g)
+    want = torch.autograd.grad(ref.rmsnorm_ref(xg, sg), (xg, sg), g)
+    line("rmsnorm backward", max_err(got, want), 1e-4)
+    qg, kg, vg = (torch.randn((2, 65, h, 64), generator=gen, device=dev)
+                  .requires_grad_() for h in (4, 2, 2))
+    go = torch.randn((2, 65, 4, 64), generator=gen, device=dev)
+    got = torch.autograd.grad(
+        ops.flash_attention(qg, kg, vg, causal=True), (qg, kg, vg), go)
+    want = torch.autograd.grad(
+        ref.sdpa_ref(qg.transpose(1, 2), kg.transpose(1, 2),
+                     vg.transpose(1, 2), causal=True).transpose(1, 2),
+        (qg, kg, vg), go)
+    line("flash_attention backward (GQA, causal)", max_err(got, want), 1e-4)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 5 (with --profile): where a local step's device time goes
+# ---------------------------------------------------------------------------
+KERNEL_NAMES = {"gather_pack": "gather_pack_kernel",
+                "scatter_unpack": "scatter_unpack_kernel",
+                "rmsnorm_rows": "rmsnorm_rows_kernel",
+                "flash_attention": "flash_fwd_kernel"}
+
+
+def profile_step(model_cfg, ssl_cfg, state, images, steps=3):
+    """``steps`` local steps of the last LW-FedSSL stage (block 12 trained
+    on top of 11 frozen ones, with alignment) at batch 256: their wall time,
+    then under torch.profiler their device time by kernel, and the device's
+    busy share of the unprofiled wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.convert import subtree
+    from repro_torch.core import ssl as ssl_mod
+    from repro_torch.data.augment import draw_params, two_views
+    from repro_torch.federated.client import train_step
+    from repro_torch.optim import make_optimizer
+
+    enc = ssl_mod.make_vit_encoder(model_cfg)
+    opt = make_optimizer(TrainConfig(batch_size=256))
+    gen = torch.Generator("cuda").manual_seed(5)
+    batch = images[:256]
+    L = model_cfg.num_layers
+    genc = subtree(state["online"], "enc")
+
+    def step():
+        st = {"online": state["online"],
+              "target": {k: state["online"][k] for k in state["target"]}}
+        x1, x2 = two_views(batch, draw_params(gen, 256, 32, 32),
+                           draw_params(gen, 256, 32, 32))
+        train_step(st, opt.init(st["online"]), x1, x2, 1e-4, encoder=enc,
+                   ssl_cfg=ssl_cfg, opt=opt, sub_layers=L,
+                   active_from=L - 1, global_enc=genc,
+                   align_weight=ssl_cfg.align_weight)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    # the wall time without the profiler, whose host-side recording slows
+    # the host by far more than the device
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            rows.append((us / 1e3 / steps, e.count // steps, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"  one local step: {wall_ms:.2f} ms wall (unprofiled), "
+          f"{busy:.2f} ms of device time ({100 * busy / wall_ms:.1f}% "
+          f"busy)")
+    for name, kname in KERNEL_NAMES.items():
+        ms = sum(r[0] for r in rows if kname in r[2])
+        n = sum(r[1] for r in rows if kname in r[2])
+        print(f"  {name}: {ms:.3f} ms in {n} launches "
+              f"({100 * ms / max(busy, 1e-9):.1f}% of device time)")
+    for ms, n, key in rows[:15]:
+        print(f"    {ms:8.3f} ms {n:5d}x {key[:90]}")
+    check(busy > 0, "the profiler saw no device time")
+
+
+def run(profile: bool = False) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: this script "
+                           "needs an NVIDIA GPU")
+    import_port()
+    from repro_torch.configs.base import SSLConfig, load_arch
+    from repro_torch.kernels import build, ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    print("[1] build", flush=True)
+    t0 = time.perf_counter()
+    secs = build.build_all()
+    print(f"  built {', '.join(build.SOURCES)} in "
+          f"{time.perf_counter() - t0:.1f}s "
+          f"(per source: {', '.join(f'{k} {v:.1f}s' for k, v in secs.items())})",
+          flush=True)
+    for name in build.SOURCES:
+        log = build.library_path(name).with_suffix(".log")
+        regs = [ln.strip() for ln in log.read_text().splitlines()
+                if "registers" in ln]
+        print(f"  ptxas {name}: {' | '.join(regs)}", flush=True)
+
+    print("[2] main path: LW-FedSSL, full-width ViT-Tiny, 4 clients, "
+          "12 rounds, batch 256, 4096 images; then linear eval", flush=True)
+    model_cfg, ssl_cfg = load_arch("vit-tiny"), SSLConfig()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, hist, acc, secs, images = main_path("cuda", model_cfg=model_cfg,
+                                               ssl_cfg=ssl_cfg)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_history(hist, 12)
+    check(0.0 <= acc <= 1.0, f"accuracy {acc}")
+    print(f"  seconds per round: {[round(s, 3) for s in secs]}")
+    print(f"  wire bytes equal analytic bytes in all {len(hist.loss)} "
+          f"rounds: {sum(hist.wire_download_bytes)} down, "
+          f"{sum(hist.wire_upload_bytes)} up per client")
+    print(f"  linear eval accuracy {acc:.4f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  kernel launches on the main path: {launches}", flush=True)
+    for name in ops.KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the main path")
+
+    print("[3] full-width SSL loss on 8 images, fp32: card kernels against "
+          "CPU plain versions", flush=True)
+    rel, zerr = reference_check(model_cfg, ssl_cfg, state, images)
+    print(f"  loss relative difference {rel:.3e} (tolerance 1e-4); CLS max "
+          f"difference {zerr:.3e} (tolerance 1e-3)", flush=True)
+    check(rel <= 1e-4 and zerr <= 1e-3, "card and CPU disagree")
+
+    print("[4] kernels against their plain versions, and times", flush=True)
+    rec = kernel_checks(state)
+    kernels = []
+    for name in ops.KERNELS:
+        r = rec[name]
+        print(f"  {name} [{r['shape']}]: kernel {r['ms']} ms, plain "
+              f"{r['plain_ms']} ms, library {r['library_ms']} ms, bound "
+              f"{r['bound_ms']} ms ({r['bound_by']})", flush=True)
+        source, replaces = TPU_SOURCES[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    if profile:
+        print("[5] profile of one local step at stage 12", flush=True)
+        profile_step(model_cfg, ssl_cfg, state, images)
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main() -> int:
+    try:
+        return run(profile="--profile" in sys.argv[1:])
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+    except Exception:  # any phase's fault fails the run, with its traceback
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,43 @@
+"""Contrastive losses: InfoNCE (paper Eq. 2) and representation alignment
+(paper Eq. 3) (``repro.core.losses``).
+
+Both take (B, d) vectors with in-batch negatives, in fp32. The
+``info_nce_rows`` kernel of the JAX package serves this loss there; its
+port (with the backward the loss needs) is slice 2, so the loss is plain
+PyTorch here.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    return xf / torch.clamp(torch.linalg.vector_norm(xf, dim=-1,
+                                                     keepdim=True), min=eps)
+
+
+def info_nce(q: torch.Tensor, k: torch.Tensor, tau: float) -> torch.Tensor:
+    """InfoNCE with in-batch negatives (Eq. 2): mean over rows of
+    logsumexp_j(q_i k_j / tau) - q_i k_i / tau. No 2*tau factor (see
+    ``moco_contrastive``)."""
+    q = l2_normalize(q)
+    k = l2_normalize(k)
+    logits = (q @ k.T) / tau
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.diagonal(logits)
+    return torch.mean(logz - gold)
+
+
+def moco_contrastive(q1, k2, q2, k1, tau: float) -> torch.Tensor:
+    """Symmetrized MoCo v3 loss l(q1,k2) + l(q2,k1) (Algorithm 2 line 11).
+    MoCo v3 scales it by 2*tau; the reference keeps the plain sum."""
+    return info_nce(q1, k2.detach(), tau) + info_nce(q2, k1.detach(), tau)
+
+
+def align_loss(z1_local, z2_global, z2_local, z1_global,
+               tau: float) -> torch.Tensor:
+    """Representation alignment (Eq. 3), symmetrized (Algorithm 2 line 12):
+    l(z1_i, z2) + l(z2_i, z1) against the frozen global encoder."""
+    return info_nce(z1_local, z2_global.detach(), tau) + \
+        info_nce(z2_local, z1_global.detach(), tau)

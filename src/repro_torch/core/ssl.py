@@ -1,0 +1,126 @@
+"""MoCo v3 self-supervised learning with representation alignment
+(``repro.core.ssl``; Algorithm 2 of the paper).
+
+State layout, flat dicts keyed by the reference's key paths:
+
+    {"online": {"enc/...", "pred/...", "proj/..."},
+     "target": {"enc/...", "proj/..."}}
+
+The target branch and the alignment loss's global encoder run under
+``torch.no_grad()``: the reference never differentiates them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch.convert import prefixed, subtree
+from repro_torch.core import heads, losses
+from repro_torch.federated.leaves import tree_sorted
+from repro_torch.models import vit as vit_mod
+
+Tree = Dict[str, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class Encoder:
+    init: Callable[..., Tree]     # (generator, device) -> flat params
+    apply: Callable[..., torch.Tensor]  # (params, x, sub_layers,
+    #                                      active_from, layer_gates) -> (B, d)
+    d_repr: int
+    num_stages: int
+
+
+def make_vit_encoder(cfg, image_size: int = 32,
+                     patch_size: int = 4) -> Encoder:
+    model = vit_mod.ViT(cfg, image_size, patch_size)    # meta: shapes only
+
+    def init(generator=None, device="cpu") -> Tree:
+        return vit_mod.init_vit(cfg, generator, device, image_size,
+                                patch_size)
+
+    def apply(params, x, sub_layers=None, active_from=0, layer_gates=None):
+        return model.apply(params, x, sub_layers=sub_layers,
+                           active_from=active_from, layer_gates=layer_gates)
+
+    return Encoder(init, apply, cfg.d_model, cfg.num_layers)
+
+
+def ssl_init(encoder: Encoder, ssl_cfg, generator=None, device="cpu"):
+    """A fresh state; the target branch starts as a copy of the online
+    encoder and projection head."""
+    if ssl_cfg.method != "moco_v3":
+        raise NotImplementedError(
+            f"SSL method '{ssl_cfg.method}' is not ported yet (the port has "
+            f"moco_v3; simclr and byol come with a later slice)")
+    enc = encoder.init(generator, device)
+    proj = heads.init_head(heads.proj_dims(encoder.d_repr,
+                                           ssl_cfg.proj_hidden,
+                                           ssl_cfg.proj_dim),
+                           generator, device)
+    pred = heads.init_head(heads.pred_dims(ssl_cfg.proj_dim,
+                                           ssl_cfg.pred_hidden,
+                                           ssl_cfg.proj_dim),
+                           generator, device)
+    online = tree_sorted({**prefixed("enc", enc), **prefixed("proj", proj),
+                          **prefixed("pred", pred)})
+    target = tree_sorted({k: v.clone() for k, v in online.items()
+                          if not k.startswith("pred/")})
+    return {"online": online, "target": target}
+
+
+def momentum_update(state, mu: float):
+    """target <- mu * target + (1 - mu) * online (Algorithm 2, line 15)."""
+    o = state["online"]
+    target = {k: mu * t + (1.0 - mu) * o[k].to(t.dtype)
+              for k, t in state["target"].items()}
+    return {**state, "target": target}
+
+
+def _branch(enc, proj, pred, x, encoder: Encoder, sub_layers, active_from,
+            layer_gates=None):
+    z = encoder.apply(enc, x, sub_layers, active_from, layer_gates)
+    p = heads.head_apply(proj, z)
+    if pred is not None:
+        p = heads.head_apply(pred, p)
+    return z, p
+
+
+def ssl_loss(state, x1, x2, encoder: Encoder, ssl_cfg, *,
+             sub_layers: Optional[int] = None, active_from: int = 0,
+             layer_gates=None, global_enc: Optional[Tree] = None,
+             align_weight: float = 0.0):
+    """Local SSL loss for a pair of views (Algorithm 2, lines 6-13).
+    Returns (loss, metrics). ``global_enc`` (the broadcast global encoder)
+    is needed only when ``align_weight > 0`` (alignment, Eq. 3)."""
+    if ssl_cfg.method != "moco_v3":
+        raise NotImplementedError(
+            f"SSL method '{ssl_cfg.method}' is not ported yet")
+    tau = ssl_cfg.temperature
+    o = state["online"]
+    enc, proj, pred = subtree(o, "enc"), subtree(o, "proj"), subtree(o, "pred")
+    z1, q1 = _branch(enc, proj, pred, x1, encoder, sub_layers, active_from,
+                     layer_gates)
+    z2, q2 = _branch(enc, proj, pred, x2, encoder, sub_layers, active_from,
+                     layer_gates)
+    t = state["target"]
+    t_enc, t_proj = subtree(t, "enc"), subtree(t, "proj")
+    frozen = sub_layers or encoder.num_stages
+    with torch.no_grad():
+        _, k1 = _branch(t_enc, t_proj, None, x1, encoder, sub_layers, frozen)
+        _, k2 = _branch(t_enc, t_proj, None, x2, encoder, sub_layers, frozen)
+    loss = losses.moco_contrastive(q1, k2, q2, k1, tau)
+    metrics = {"con": loss}
+    if align_weight > 0.0:
+        if global_enc is None:
+            raise ValueError("alignment needs the global encoder")
+        with torch.no_grad():
+            zg1 = encoder.apply(global_enc, x1, sub_layers, 0)
+            zg2 = encoder.apply(global_enc, x2, sub_layers, 0)
+        la = losses.align_loss(z1, zg2, z2, zg1, tau)
+        loss = loss + align_weight * la
+        metrics["align"] = la
+    metrics["loss"] = loss
+    return loss, metrics

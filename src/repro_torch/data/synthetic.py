@@ -1,0 +1,41 @@
+"""Synthetic images standing in for STL-10 / CIFAR
+(``repro.data.synthetic.synthetic_images``).
+
+Each class is a procedural texture (frequency, orientation and colour
+signature) under a random phase, plus Gaussian noise. The formula is the
+reference's; the draws come from a ``torch.Generator``, so the images are
+not the reference's images for the same seed.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def synthetic_images(generator: torch.Generator, n: int,
+                     num_classes: int = 10, size: int = 32):
+    """Returns (images (n, size, size, 3) float32 in [0, 1], labels (n,)
+    int64), both on the generator's device."""
+    dev = generator.device
+    labels = torch.randint(0, num_classes, (n,), generator=generator,
+                           device=dev)
+    cls = torch.arange(num_classes, dtype=torch.float32, device=dev)
+    freqs = 1.0 + cls % 5
+    orient = cls * (math.pi / num_classes)
+    # fixed class colours: one generator of their own, as the reference
+    # draws them from a fixed key
+    colors = 0.2 + 0.8 * torch.rand(
+        (num_classes, 3), generator=torch.Generator(dev).manual_seed(7),
+        device=dev)
+    ax = torch.arange(size, dtype=torch.float32, device=dev)
+    yy, xx = torch.meshgrid(ax, ax, indexing="ij")
+    phases = torch.rand(n, generator=generator, device=dev) * (2 * math.pi)
+    noise = torch.randn((n, size, size, 3), generator=generator, device=dev)
+    f = freqs[labels][:, None, None]
+    th = orient[labels][:, None, None]
+    wave = torch.sin(2 * math.pi * f / size
+                     * (xx * torch.cos(th) + yy * torch.sin(th))
+                     + phases[:, None, None])
+    img = (0.5 + 0.35 * wave)[..., None] * colors[labels][:, None, None, :]
+    return torch.clamp(img + 0.08 * noise, 0.0, 1.0), labels

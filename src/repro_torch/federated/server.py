@@ -1,0 +1,48 @@
+"""Server-side mechanisms (``repro.federated.server``): calibration (paper
+Algorithm 1 line 7), stage transitions with weight transfer, the download
+broadcast and client sampling."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import schedule as sched
+from repro_torch.data.augment import two_views
+from repro_torch.federated.client import train_step
+
+
+def server_calibrate(state, aux_images: torch.Tensor, draws, opt, *,
+                     encoder, ssl_cfg, sub_layers: int, epochs: int,
+                     batch_size: int, lr: float):
+    """Train the aggregated sub-model end to end (``active_from=0``) on D_g,
+    with a fresh optimizer state, as the clients have."""
+    opt_state = opt.init(state["online"])
+    n, H, W, _ = aux_images.shape
+    for idx, handle in draws.batch_plan(n, epochs, min(batch_size, n),
+                                        calibration=True):
+        batch = aux_images[idx]
+        x1, x2 = two_views(batch, *draws.views(handle, batch.shape[0], H, W))
+        state, opt_state, _ = train_step(
+            state, opt_state, x1, x2, lr, encoder=encoder, ssl_cfg=ssl_cfg,
+            opt=opt, sub_layers=sub_layers, active_from=0)
+    return state
+
+
+def broadcast_download(state, plan, transport):
+    """Server -> clients (paper Fig. 1 step i): push the plan's download
+    payload over the wire; returns (the state clients train from, stats)."""
+    view, stats = transport.broadcast(state["online"], plan)
+    return {**state, "online": view}, stats
+
+
+def begin_stage(state, stage: int, *, weight_transfer: bool):
+    """Stage-transition housekeeping: L_{s-1} -> L_s weight transfer in the
+    online and target encoders."""
+    if not weight_transfer or stage < 2:
+        return state
+    return {"online": sched.transfer_model(state["online"], stage, "enc/"),
+            "target": sched.transfer_model(state["target"], stage, "enc/")}
+
+
+def sample_clients(draws, num_clients: int, clients_per_round: int):
+    """The round's cohort (everyone when ``clients_per_round`` is 0)."""
+    return draws.cohort(num_clients, clients_per_round or num_clients)

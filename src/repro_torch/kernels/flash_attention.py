@@ -1,0 +1,83 @@
+"""Hopper flash attention forward (GQA; causal, sliding-window and kv_len
+masks).
+
+Replaces ``src/repro/kernels/flash_attention.py::flash_attention_bhsd``
+(``pallas_call`` at :106) and the padding wrapper
+``src/repro/kernels/ops.py:54``. The kernel is ``csrc/flash_attention.cu``;
+its header gives the bound on the H100 (bytes at the ViT's shapes) and the
+design: one block per (batch, q head, 64-row q tile), K/V tiles staged in
+shared memory, fp32 running max, sum, accumulator and p. Unlike the TPU
+wrapper it pads nothing: ragged sequence ends are masked in the kernel and
+the head dim is used as it is (64 or 128).
+
+CUDA tensors only; ``repro_torch.kernels.ops.flash_attention`` counts
+launches, sends CPU tensors to ``ref.sdpa_ref`` and adds the backward.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+_c = ctypes.c_void_p
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)
+
+
+def _declare(lib) -> None:
+    i = ctypes.c_int
+    lib.flash_attention_launch.argtypes = [
+        _c, _c, _c, _c, i, i, i, i, i, i, i,
+        ctypes.POINTER(ctypes.c_longlong), i, i, i, ctypes.c_float, _c]
+    lib.flash_attention_launch.restype = ctypes.c_int
+    lib.attention_error_string.argtypes = [ctypes.c_int]
+    lib.attention_error_string.restype = ctypes.c_char_p
+
+
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool, window: int = 0,
+                         kv_len: Optional[int] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, S, Hq, hd); k, v: (B, T, Hkv, hd), all on CUDA in one dtype
+    (float32 or bfloat16) with a contiguous head dim (other strides are
+    free). Returns a contiguous (B, S, Hq, hd) tensor of q's dtype.
+    ``kv_len`` masks keys at positions >= kv_len; ``scale`` defaults to
+    1/sqrt(hd)."""
+    B, S, Hq, hd = q.shape
+    Bk, T, Hkv, hdk = k.shape
+    if q.device.type != "cuda" or k.device != q.device \
+            or v.device != q.device:
+        raise ValueError("flash_attention_bshd takes CUDA tensors on one "
+                         "device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bshd: q, k, v must share a "
+                         f"float32/bfloat16 dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if hd not in HEAD_DIMS or hdk != hd or v.shape != k.shape or Bk != B:
+        raise ValueError(f"flash_attention_bshd: head dim must be one of "
+                         f"{HEAD_DIMS} and shapes must agree, got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention_bshd: Hq={Hq} is not a multiple "
+                         f"of Hkv={Hkv}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention_bshd: head dim must be contiguous")
+    o = torch.empty((B, S, Hq, hd), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *(st for t in (q, k, v, o)
+          for st in (t.stride(0), t.stride(1), t.stride(2))))
+    scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
+    kv_len = T if kv_len is None else int(kv_len)
+    lib = build.load("flash_attention", _declare)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    build.check(lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        _DTYPES[q.dtype], hd, B, Hq, Hkv, S, T, strides, int(causal),
+        int(window), kv_len, scale, stream),
+        lib.attention_error_string, "flash_attention")
+    return o

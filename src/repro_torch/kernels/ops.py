@@ -1,0 +1,145 @@
+"""Public wrappers around the port's kernels.
+
+Each wrapper looks at the device of the tensors it is given: CPU tensors go
+to the plain version in ``ref.py``; CUDA tensors go to the hand-written
+kernel, which either launches or raises (there is no fallback). Every
+kernel launch adds one to ``LAUNCHES[name]``, so a run can show that its
+main path went through the kernels.
+
+``rmsnorm`` and ``flash_attention`` are ``torch.autograd.Function``s: the
+forward is the kernel (or the plain version on the CPU), the backward is
+the closed-form gradient in plain PyTorch (``ref.*_bwd_ref``), recomputed
+from the saved inputs, the same code on every device.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import pack, ref
+from repro_torch.kernels import rmsnorm as rn
+
+KERNELS = ("gather_pack", "scatter_unpack", "rmsnorm_rows", "flash_attention")
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def _device_kind(*tensors: torch.Tensor) -> str:
+    kinds = {t.device.type for t in tensors}
+    if len(kinds) != 1:
+        raise ValueError(f"tensors on mixed devices: {sorted(kinds)}")
+    kind = kinds.pop()
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device type '{kind}'")
+    return kind
+
+
+# -- wire pack / unpack -------------------------------------------------------
+def wire_pack(srcs: Sequence[torch.Tensor],
+              layout: Sequence[Tuple[int, int, int]],
+              total: int) -> torch.Tensor:
+    """Slot-table gather of raveled fp32 leaves into a (total,) buffer."""
+    if _device_kind(*srcs) == "cpu":
+        return ref.wire_pack_ref(srcs, layout, total)
+    out = pack.gather_pack(srcs, layout, total)
+    LAUNCHES["gather_pack"] += 1
+    return out
+
+
+def wire_unpack(flat: torch.Tensor, bases: Sequence[torch.Tensor],
+                layout: Sequence[Tuple[int, int, int]]
+                ) -> List[torch.Tensor]:
+    """Slot-table scatter of ``flat`` over copies of the raveled bases."""
+    if _device_kind(flat, *bases) == "cpu":
+        return ref.wire_unpack_ref(flat, bases, layout)
+    outs = pack.scatter_unpack(flat, bases, layout)
+    LAUNCHES["scatter_unpack"] += 1
+    return outs
+
+
+# -- RMSNorm -------------------------------------------------------------------
+def _rmsnorm_fwd(x2: torch.Tensor, scale: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    if _device_kind(x2, scale) == "cpu":
+        return ref.rmsnorm_ref(x2, scale, eps)
+    y = rn.rmsnorm_rows(x2.contiguous(), scale.to(torch.float32).contiguous(),
+                        eps)
+    LAUNCHES["rmsnorm_rows"] += 1
+    return y
+
+
+class RMSNormFn(torch.autograd.Function):
+    """y = x * rsqrt(mean(x^2) + eps) * scale over the last dim."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        d = x.shape[-1]
+        return _rmsnorm_fwd(x.reshape(-1, d), scale, eps).reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        gx, gs = ref.rmsnorm_bwd_ref(x, scale, g, ctx.eps)
+        return gx, gs, None
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """x: (..., d); scale: (d,). fp32 math, output in x's dtype."""
+    return RMSNormFn.apply(x, scale, eps)
+
+
+# -- attention -----------------------------------------------------------------
+def _attention_fwd(q, k, v, causal, window, kv_len, scale):
+    if _device_kind(q, k, v) == "cpu":
+        out = ref.sdpa_ref(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal=causal, window=window,
+                           kv_len=kv_len, scale=scale)
+        return out.transpose(1, 2)
+    out = fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                  kv_len=kv_len, scale=scale)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention over BSHD tensors with GQA and causal / window / kv_len
+    masks; the backward recomputes the probabilities in fp32."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_len, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = (causal, window, kv_len, scale)
+        return _attention_fwd(q, k, v, causal, window, kv_len, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        causal, window, kv_len, scale = ctx.cfg
+        dq, dk, dv = ref.sdpa_bwd_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            g.transpose(1, 2), causal=causal, window=window, kv_len=kv_len,
+            scale=scale)
+        return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
+                None, None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    kv_len: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,S,Hq,hd); k,v: (B,T,Hkv,hd) -> (B,S,Hq,hd) (BSHD layout, as
+    the JAX package's ``ops.flash_attention``)."""
+    return FlashAttentionFn.apply(q, k, v, causal, window, kv_len, scale)

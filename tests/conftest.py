@@ -27,6 +27,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running FL integration test "
         "(deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (skips without one)")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,95 @@
+"""The port's wire transport against the JAX package's: for every plan of
+every schedule, the same payload slots (paths, offsets, sizes), fp32 flat
+buffers and unpacked trees bit for bit, and wire bytes equal to the
+analytic ``comm.round_comm_bytes``."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.core import schedule as jsched
+from repro.core import ssl as jssl
+from repro.federated import comm as jcomm
+from repro.federated import transport as jtransport
+from repro_torch import convert
+from repro_torch.configs import base as tbase
+from repro_torch.core import schedule as sched
+from repro_torch.federated import aggregate, comm
+from repro_torch.federated.transport import (Transport, pack_stage_payload,
+                                             unpack_stage_payload)
+
+torch.set_num_threads(2)
+
+JCFG = jbase.ModelConfig("t-vit", "dense", 3, 32, 2, 2, 64, 0, causal=False,
+                         compute_dtype="float32", act="gelu")
+SSL = dict(proj_hidden=48, pred_hidden=48, proj_dim=16)
+
+
+@pytest.fixture(scope="module")
+def online():
+    enc = jssl.make_vit_encoder(JCFG)
+    state = jssl.ssl_init(jax.random.PRNGKey(0), enc, jbase.SSLConfig(**SSL))
+    return state["online"]
+
+
+@pytest.mark.parametrize("schedule", jsched.SCHEDULES)
+@pytest.mark.parametrize("include_heads", [True, False])
+def test_payloads_match_reference(online, schedule, include_heads):
+    kw = dict(rounds=6, schedule=schedule, include_heads=include_heads)
+    jplans = jsched.build_schedule(jbase.FLConfig(**kw), 3)
+    plans = sched.build_schedule(tbase.FLConfig(**kw), 3)
+    jwire = jtransport.Transport("fp32", include_heads=include_heads)
+    wire = Transport(include_heads=include_heads)
+    tonline = convert.from_numpy_tree(jax.device_get(online))
+    rng = np.random.default_rng(1)
+    for jplan, plan in zip(jplans, plans):
+        jspecs = jwire.plan_specs(online, jplan)
+        specs = wire.plan_specs(tonline, plan)
+        cb = comm.round_comm_bytes(tonline, plan, include_heads=include_heads)
+        assert cb == jcomm.round_comm_bytes(online, jplan,
+                                            include_heads=include_heads)
+        for d in ("download", "upload"):
+            js, s = jspecs[d], specs[d]
+            assert [(x.path, x.kind, x.lo, x.hi, x.shape, x.offset, x.size)
+                    for x in s.slots] == \
+                [(x.path, x.kind, x.lo, x.hi, x.shape, x.offset, x.size)
+                 for x in js.slots]
+            assert s.layout == jtransport.slot_pack_layout(js)
+            assert wire.wire_bytes(s) == jwire.wire_bytes(js) == cb[d]
+            flat = pack_stage_payload(tonline, s)
+            jflat = np.asarray(jtransport.pack_stage_payload(online, js))
+            np.testing.assert_array_equal(flat.numpy(), jflat)
+            new = rng.standard_normal(s.total).astype(np.float32)
+            got = unpack_stage_payload(tonline, torch.from_numpy(new), s)
+            want = convert.flatten_tree(jax.device_get(
+                jtransport.unpack_stage_payload(online, new, js)))
+            assert list(got) == list(want)
+            for k in want:
+                np.testing.assert_array_equal(got[k].numpy(), want[k])
+
+
+def test_uploads_leave_the_server_tree_alone_and_average(online):
+    """Every client's upload scatters into a copy of the server's tree, so
+    one client's payload never reaches the next one's base."""
+    plan = sched.build_schedule(tbase.FLConfig(rounds=3,
+                                               schedule="lw_fedssl"), 3)[1]
+    server = convert.from_numpy_tree(jax.device_get(online))
+    before = {k: v.clone() for k, v in server.items()}
+    outs = [{k: v + (i + 1) for k, v in server.items()} for i in range(2)]
+    w = aggregate.client_weights([30, 10])
+    new, stats = Transport().aggregate_uploads(server, outs, plan, w)
+    spec = Transport().plan_specs(server, plan)["upload"]
+    assert stats["wire_bytes"] == spec.payload_bytes
+    for k, v in server.items():
+        assert torch.equal(v, before[k])
+    moved = {"/".join(s.path) for s in spec.slots}
+    for k, v in new.items():
+        if k in moved and "blocks" not in k:
+            torch.testing.assert_close(v, server[k] + 1.25)
+        elif k not in moved:
+            torch.testing.assert_close(v, server[k])
+    # the uploaded stage row moved, the others kept the server's values
+    wq = new["enc/blocks/attn/wq"]
+    torch.testing.assert_close(wq[1], server["enc/blocks/attn/wq"][1] + 1.25)
+    torch.testing.assert_close(wq[0], server["enc/blocks/attn/wq"][0])
