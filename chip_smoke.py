@@ -16,6 +16,14 @@ Phases, each of which must pass (any failure exits non-zero):
    ``linear_eval``. Every kernel launch counter is set to 0 just before and
    read just after; each kernel must have launched. Losses must be finite
    and the wire bytes must equal the analytic bytes in every round.
+2b. codec paths: the same model, heads, schedule, clients and batch through
+   the compressing wire codecs, without linear eval: ``codec="int8"`` for
+   12 rounds, and ``codec="topk"`` (fraction 0.1) with rounds per stage
+   (1,) * 11 + (3,), so that stage 12 runs a dense re-sync, two delta
+   downloads and two carried error-feedback residuals. The counters are set
+   to 0 before each path and read after it; the path's codec kernels must
+   have launched, and the wire bytes must equal the codec's exact count in
+   every round (the payload's in a top-k re-sync round).
 3. reference: one SSL loss at full width on 8 images, fp32 compute, on the
    card (kernels) against the CPU (plain PyTorch versions).
 4. kernels: each kernel's wrapper against its plain PyTorch version on the
@@ -23,7 +31,10 @@ Phases, each of which must pass (any failure exits non-zero):
    attention case and the backward of both autograd Functions), with the
    tolerance stated; then the kernel's time beside its plain version's, one
    PyTorch library call's where there is one, and the least time the card
-   could take (its bound).
+   could take (its bound). The codec kernels run on the stage-12 upload of
+   the trained model (21,177,920 floats in 24 slots; top-k keeps
+   k = 2,117,792), bit-identical to their plain versions, plus a top-k case
+   whose threshold is 0 with ties over the whole payload.
 
 With ``--profile``, a fifth phase traces one local step of the last stage
 with ``torch.profiler`` and prints where its device time goes.
@@ -62,7 +73,23 @@ TPU_SOURCES = {
                      "src/repro/kernels/rmsnorm.py:26"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:90"),
+    "int8_quant_matrix": ("src/repro_torch/kernels/csrc/wire_codecs.cu",
+                          "src/repro/kernels/wire_codecs.py:75"),
+    "int8_dequant_matrix": ("src/repro_torch/kernels/csrc/wire_codecs.cu",
+                            "src/repro/kernels/wire_codecs.py:104"),
+    "compensate": ("src/repro_torch/kernels/csrc/wire_codecs.cu",
+                   "src/repro/kernels/wire_codecs.py:135"),
+    "topk_ef_update": ("src/repro_torch/kernels/csrc/wire_codecs.cu",
+                       "src/repro/kernels/wire_codecs.py:191"),
 }
+# the path each kernel's launch count is read from
+PATH_KERNELS = {
+    "fp32": ("gather_pack", "scatter_unpack", "rmsnorm_rows",
+             "flash_attention"),
+    "int8": ("int8_quant_matrix", "int8_dequant_matrix"),
+    "topk": ("compensate", "topk_ef_update"),
+}
+TOPK_ROUNDS_PER_STAGE = (1,) * 11 + (3,)
 
 
 class SmokeFailure(Exception):
@@ -98,9 +125,11 @@ def card_line() -> str:
 # phase 2: the main path
 # ---------------------------------------------------------------------------
 def main_path(device, *, model_cfg, ssl_cfg, clients=4, rounds=12,
-              batch=256, samples=4096, eval_epochs=10, seed=0):
-    """LW-FedSSL through ``run_fedssl`` and ``linear_eval`` on ``device``.
-    Returns (state, history, accuracy, per-round seconds, images)."""
+              batch=256, samples=4096, eval_epochs=10, seed=0, codec="fp32",
+              rounds_per_stage=()):
+    """LW-FedSSL through ``run_fedssl`` (and ``linear_eval`` unless
+    ``eval_epochs`` is 0) on ``device``. Returns (state, history, accuracy
+    or None, per-round seconds, images)."""
     import torch
     from repro_torch.configs.base import FLConfig, TrainConfig
     from repro_torch.convert import subtree
@@ -111,7 +140,8 @@ def main_path(device, *, model_cfg, ssl_cfg, clients=4, rounds=12,
     from repro_torch.federated.eval import linear_eval
 
     fl = FLConfig(num_clients=clients, rounds=rounds, local_epochs=1,
-                  schedule="lw_fedssl", seed=seed)
+                  schedule="lw_fedssl", seed=seed,
+                  rounds_per_stage=rounds_per_stage)
     tc = TrainConfig(batch_size=batch)
     gen = torch.Generator(device).manual_seed(seed)
     images, labels = synthetic_images(gen, samples, 10, 32)
@@ -126,8 +156,10 @@ def main_path(device, *, model_cfg, ssl_cfg, clients=4, rounds=12,
     t0 = time.perf_counter()
     state, hist = run_fedssl(model_cfg, ssl_cfg, fl, tc, images=images,
                              client_indices=idx, aux_images=aux, log=log,
-                             device=device)
+                             device=device, codec=codec)
     secs = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    if not eval_epochs:
+        return state, hist, None, secs, images
     half = samples // 2
     acc = linear_eval(ssl_mod.make_vit_encoder(model_cfg),
                       subtree(state["online"], "enc"),
@@ -137,16 +169,48 @@ def main_path(device, *, model_cfg, ssl_cfg, clients=4, rounds=12,
     return state, hist, acc, secs, images
 
 
-def check_history(hist, rounds):
+def expected_wire_bytes(online, codec, rounds, rounds_per_stage=()):
+    """Per-round (download, upload) wire bytes of one client under
+    ``codec``: the codec's exact byte count of each payload, and the
+    payload's own bytes in a delta codec's dense re-sync (the first round
+    under a download layout). Returns (stages, downloads, uploads)."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import schedule as sched
+    from repro_torch.federated.transport import Transport
+
+    wire = Transport(codec)
+    plans = sched.build_schedule(
+        FLConfig(rounds=rounds, schedule="lw_fedssl",
+                 rounds_per_stage=rounds_per_stage), 12)
+    down, up, prev = [], [], None
+    for plan in plans:
+        specs = wire.plan_specs(online, plan)
+        d = specs["download"]
+        down.append(d.payload_bytes if wire.codec.delta and d != prev
+                    else wire.wire_bytes(d))
+        up.append(wire.wire_bytes(specs["upload"]))
+        prev = d
+    return [p.stage for p in plans], down, up
+
+
+def check_history(hist, online, codec="fp32", rounds=12,
+                  rounds_per_stage=()):
+    stages, down, up = expected_wire_bytes(online, codec, rounds,
+                                           rounds_per_stage)
     check(len(hist.loss) == rounds, f"{len(hist.loss)} rounds of {rounds}")
     check(all(math.isfinite(x) for x in hist.loss),
           f"non-finite loss: {hist.loss}")
-    check(hist.wire_download_bytes == hist.download_bytes,
-          "wire download bytes differ from the analytic bytes")
-    check(hist.wire_upload_bytes == hist.upload_bytes,
-          "wire upload bytes differ from the analytic bytes")
-    check(hist.round_stage == list(range(1, rounds + 1)),
-          f"stages {hist.round_stage}")
+    check(hist.round_stage == stages, f"stages {hist.round_stage}")
+    check(hist.wire_download_bytes == down,
+          f"{codec}: wire download bytes {hist.wire_download_bytes}, "
+          f"expected {down}")
+    check(hist.wire_upload_bytes == up,
+          f"{codec}: wire upload bytes {hist.wire_upload_bytes}, "
+          f"expected {up}")
+    if codec == "fp32":
+        check(hist.wire_download_bytes == hist.download_bytes
+              and hist.wire_upload_bytes == hist.upload_bytes,
+              "fp32 wire bytes differ from the analytic bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -374,13 +438,126 @@ def kernel_checks(state):
     return rec
 
 
+def codec_kernel_checks(state, fraction=0.1):
+    """The four codec kernels against their plain versions on the stage-12
+    upload of ``state`` (the payload FedAvg receives from each client in
+    the last LW-FedSSL stage); returns {name: record}. No single PyTorch
+    call computes any of the four functions, so ``library_ms`` is None."""
+    import torch
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import schedule as sched
+    from repro_torch.federated.transport import (Transport, int8_segs,
+                                                 pack_stage_payload)
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wire_codecs as wc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(4)
+    online = state["online"]
+    plan = sched.build_schedule(FLConfig(rounds=12, schedule="lw_fedssl"),
+                                12)[-1]
+    spec = Transport().plan_specs(online, plan)["upload"]
+    n = spec.total
+    k = max(1, min(n, int(round(n * fraction))))
+    segs, nscales = int8_segs(spec)
+    flat = pack_stage_payload(online, spec)
+    print(f"  stage-12 upload: {n} floats in {len(spec.slots)} slots, "
+          f"{nscales} int8 scales, top-k k = {k}", flush=True)
+    rec = {}
+
+    def line(name, ok, what):
+        print(f"  {name}: {what}", flush=True)
+        check(ok, f"{name}: {what}")
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # int8 quant and dequant: bit-identical (IEEE division and rint on both)
+    q, scales = ops.wire_int8_encode(flat, segs, nscales)
+    wq, ws = ref.int8_encode_ref(flat, segs, nscales)
+    line("int8_quant_matrix", equal((q, scales), (wq, ws)),
+         "q and scales bit-identical to the plain version")
+    dec = ops.wire_int8_decode(q, scales, segs, n)
+    wdec = ref.int8_decode_ref(q, scales, segs, n)
+    line("int8_dequant_matrix", torch.equal(dec, wdec),
+         "bit-identical to the plain version")
+    rec["int8_quant_matrix"] = dict(
+        max_abs_err=float((q.int() - wq.int()).abs().max()),
+        ms=time_ms([lambda: ops.wire_int8_encode(flat, segs, nscales)]),
+        plain_ms=time_ms([lambda: ref.int8_encode_ref(flat, segs,
+                                                      nscales)]),
+        library_ms=None, bound_ms=(5 * n + 4 * nscales) / HBM_BPS * 1e3,
+        bound_by="bytes",
+        shape=f"{n} fp32 in {len(segs)} segments, {nscales} scales")
+    rec["int8_dequant_matrix"] = dict(
+        max_abs_err=max_err(dec, wdec),
+        ms=time_ms([lambda: ops.wire_int8_decode(q, scales, segs, n)]),
+        plain_ms=time_ms([lambda: ref.int8_decode_ref(q, scales, segs, n)]),
+        library_ms=None, bound_ms=(5 * n + 4 * nscales) / HBM_BPS * 1e3,
+        bound_by="bytes", shape=f"{n} int8 in {len(segs)} segments")
+
+    # compensate and the EF update: a client's trained payload against the
+    # downloaded one, with a carried residual
+    trained = flat + 1e-3 * torch.randn(n, generator=gen, device=dev)
+    res = 1e-4 * torch.randn(n, generator=gen, device=dev)
+    c, a = ops.compensate(trained, flat, res)
+    wc_, wa = ref.compensate_ref(trained, flat, res)
+    line("compensate", equal((c, a), (wc_, wa)),
+         "c and |c| bit-identical to the plain version")
+    rec["compensate"] = dict(
+        max_abs_err=max(max_err(c, wc_), max_err(a, wa)),
+        ms=time_ms([lambda: ops.compensate(trained, flat, res)]),
+        plain_ms=time_ms([lambda: ref.compensate_ref(trained, flat, res)]),
+        library_ms=None, bound_ms=20 * n / HBM_BPS * 1e3, bound_by="bytes",
+        shape=f"flat, ref, res ({n},) fp32")
+    topk_ms = time_ms([lambda: ref.topk_threshold(a, k)])
+    thresh, needed = ref.topk_threshold(a, k)
+    errs = []
+    cases = [("upload delta", c, a)]
+    # a delta that is 95% exact zeros, as a download against the mirror is
+    # mostly: the threshold is 0 and its ties run over the whole payload
+    z = torch.where(torch.rand(n, generator=gen, device=dev) < 0.95,
+                    torch.zeros_like(c), c)
+    cases.append(("zero threshold", z, z.abs()))
+    for what, comp, absc in cases:
+        th, nd = ref.topk_threshold(absc, k)
+        sel = torch.empty(1, dtype=torch.int64, device=dev)
+        got = wc.topk_ef_update(comp, th.reshape(1), nd.reshape(1), k,
+                                selected=sel)
+        want = ref.topk_ef_update_ref(comp, th, nd)
+        line(f"topk_ef_update ({what}: thresh {float(th):.3e}, "
+             f"{int(nd)} ties kept)",
+             int(sel) == k and equal(got, want),
+             f"{int(sel)} selected of k = {k}; residual, idx and val "
+             f"bit-identical to the plain version")
+        errs.append(max(max_err(g, w) for g, w in zip(got, want)))
+    rec["topk_ef_update"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms([lambda: ops.topk_ef_update(c, thresh, needed, k)]),
+        plain_ms=time_ms([lambda: ref.topk_ef_update_ref(c, thresh,
+                                                         needed)]),
+        library_ms=None, bound_ms=(8 * n + 8 * k) / HBM_BPS * 1e3,
+        bound_by="bytes",
+        shape=f"comp ({n},) fp32, k = {k}; threshold by torch.topk "
+              f"{topk_ms:.4f} ms (not part of the kernel)")
+    print(f"  torch.topk threshold of {n} magnitudes at k = {k}: "
+          f"{topk_ms:.4f} ms", flush=True)
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phase 5 (with --profile): where a local step's device time goes
 # ---------------------------------------------------------------------------
-KERNEL_NAMES = {"gather_pack": "gather_pack_kernel",
-                "scatter_unpack": "scatter_unpack_kernel",
-                "rmsnorm_rows": "rmsnorm_rows_kernel",
-                "flash_attention": "flash_fwd_kernel"}
+KERNEL_NAMES = {"gather_pack": ("gather_pack_kernel",),
+                "scatter_unpack": ("scatter_unpack_kernel",),
+                "rmsnorm_rows": ("rmsnorm_rows_kernel",),
+                "flash_attention": ("flash_fwd_kernel",),
+                "int8_quant_matrix": ("int8_absmax_kernel",
+                                      "int8_quant_kernel"),
+                "int8_dequant_matrix": ("int8_dequant_kernel",),
+                "compensate": ("compensate_kernel",),
+                "topk_ef_update": ("ef_count_kernel", "ef_scan_kernel",
+                                   "ef_select_kernel")}
 
 
 def profile_step(model_cfg, ssl_cfg, state, images, steps=3):
@@ -441,9 +618,10 @@ def profile_step(model_cfg, ssl_cfg, state, images, steps=3):
     print(f"  one local step: {wall_ms:.2f} ms wall (unprofiled), "
           f"{busy:.2f} ms of device time ({100 * busy / wall_ms:.1f}% "
           f"busy)")
-    for name, kname in KERNEL_NAMES.items():
-        ms = sum(r[0] for r in rows if kname in r[2])
-        n = sum(r[1] for r in rows if kname in r[2])
+    for name, knames in KERNEL_NAMES.items():
+        mine = [r for r in rows if any(kn in r[2] for kn in knames)]
+        ms = sum(r[0] for r in mine)
+        n = sum(r[1] for r in mine)
         print(f"  {name}: {ms:.3f} ms in {n} launches "
               f"({100 * ms / max(busy, 1e-9):.1f}% of device time)")
     for ms, n, key in rows[:15]:
@@ -487,8 +665,8 @@ def run(profile: bool = False) -> int:
     state, hist, acc, secs, images = main_path("cuda", model_cfg=model_cfg,
                                                ssl_cfg=ssl_cfg)
     torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    check_history(hist, 12)
+    launches = {"fp32": ops.launch_counts()}
+    check_history(hist, state["online"])
     check(0.0 <= acc <= 1.0, f"accuracy {acc}")
     print(f"  seconds per round: {[round(s, 3) for s in secs]}")
     print(f"  wire bytes equal analytic bytes in all {len(hist.loss)} "
@@ -496,9 +674,36 @@ def run(profile: bool = False) -> int:
           f"{sum(hist.wire_upload_bytes)} up per client")
     print(f"  linear eval accuracy {acc:.4f}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"  kernel launches on the main path: {launches}", flush=True)
-    for name in ops.KERNELS:
-        check(launches[name] > 0, f"{name} never launched on the main path")
+    print(f"  kernel launches on the main path: {launches['fp32']}",
+          flush=True)
+
+    print("[2b] codec paths: the same run on the int8 wire (12 rounds) and "
+          "the top-k wire (fraction 0.1, rounds per stage "
+          f"{TOPK_ROUNDS_PER_STAGE}); no linear eval", flush=True)
+    for codec, kw in (("int8", {}),
+                      ("topk", {"rounds": sum(TOPK_ROUNDS_PER_STAGE),
+                                "rounds_per_stage": TOPK_ROUNDS_PER_STAGE})):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        cstate, chist, _, csecs, _ = main_path(
+            "cuda", model_cfg=model_cfg, ssl_cfg=ssl_cfg, eval_epochs=0,
+            codec=codec, **kw)
+        torch.cuda.synchronize()
+        launches[codec] = ops.launch_counts()
+        check_history(chist, cstate["online"], codec, **kw)
+        print(f"  {codec}: seconds per round "
+              f"{[round(x, 3) for x in csecs]}")
+        print(f"  {codec}: wire bytes equal the codec's count in all "
+              f"{len(chist.loss)} rounds: {sum(chist.wire_download_bytes)} "
+              f"down, {sum(chist.wire_upload_bytes)} up per client; "
+              f"compression ratio {chist.compression_ratio:.4f}; losses "
+              f"{chist.loss[0]:.4f} -> {chist.loss[-1]:.4f}; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        print(f"  {codec}: kernel launches {launches[codec]}", flush=True)
+    for path, names in PATH_KERNELS.items():
+        for name in names:
+            check(launches[path][name] > 0,
+                  f"{name} never launched on the {path} path")
 
     print("[3] full-width SSL loss on 8 images, fp32: card kernels against "
           "CPU plain versions", flush=True)
@@ -509,7 +714,9 @@ def run(profile: bool = False) -> int:
 
     print("[4] kernels against their plain versions, and times", flush=True)
     rec = kernel_checks(state)
+    rec.update(codec_kernel_checks(state))
     kernels = []
+    path_of = {n: p for p, names in PATH_KERNELS.items() for n in names}
     for name in ops.KERNELS:
         r = rec[name]
         print(f"  {name} [{r['shape']}]: kernel {r['ms']} ms, plain "
@@ -518,7 +725,8 @@ def run(profile: bool = False) -> int:
         source, replaces = TPU_SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches[path_of[name]][name], "path": path_of[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

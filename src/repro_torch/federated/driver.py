@@ -2,8 +2,8 @@
 ``repro.federated.driver``).
 
 Simulates the FL process on one device: per-round client sampling, local
-MoCo v3 training under the stage schedule, FedAvg over the fp32 wire
-transport, server-side calibration and communication accounting.
+MoCo v3 training under the stage schedule, FedAvg over the wire transport
+and its codec, server-side calibration and communication accounting.
 ``FLHistory`` is the reference's, with the same versioned ``to_dict``, so
 two histories compare field by field; the fleet-simulation and privacy
 fields stay empty until those features are ported.
@@ -25,6 +25,9 @@ from repro_torch.federated.engine import SequentialEngine
 from repro_torch.federated.transport import Transport
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.schedules import learning_rate, scaled_base_lr
+
+# the reference's wire engines; the port has one wire path for both
+TRANSPORT_KERNELS = ("xla", "pallas")
 
 HISTORY_VERSION = 2
 _COMPAT_VERSIONS = (1, 2)
@@ -113,14 +116,23 @@ def resolve_device(device) -> torch.device:
 
 def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                aux_images=None, draws=None, encoder=None,
-               image_size: int = 32, log=None, device="cuda"):
+               image_size: int = 32, log=None, device="cuda",
+               codec: str = "fp32", transport_kernels: str = "xla"):
     """Run the FL process; returns (final state, FLHistory).
 
     images: (n, H, W, 3) training pool; client_indices: one index array
     per client; aux_images: D_g for server calibration; draws: the source
     of every random draw (default ``TorchDraws(fl.seed, device)``). Tensors
-    are moved to ``device``, which defaults to the card.
+    are moved to ``device``, which defaults to the card. codec: the wire
+    compression (``transport.CODECS``: fp32, fp16, bf16, int8,
+    topk[:fraction]); transport_kernels: the reference's wire-engine name
+    (``xla`` or ``pallas``), accepted so that its calls carry over: both
+    select the port's one wire path, the kernels on the card and their
+    plain versions on the CPU.
     """
+    if transport_kernels not in TRANSPORT_KERNELS:
+        raise ValueError(f"unknown transport kernels '{transport_kernels}'; "
+                         f"one of {TRANSPORT_KERNELS}")
     device = resolve_device(device)
     draws = draws if draws is not None else TorchDraws(fl.seed, device)
     if encoder is None:
@@ -135,7 +147,7 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
     plans = sched.build_schedule(fl, encoder.num_stages)
     base_lr = scaled_base_lr(train_cfg.base_lr, train_cfg.batch_size)
     hist = FLHistory()
-    wire = Transport(include_heads=fl.include_heads)
+    wire = Transport(codec, include_heads=fl.include_heads)
     eng = SequentialEngine(encoder=encoder, ssl_cfg=ssl_cfg, opt=opt, fl=fl,
                            images=images, client_indices=client_indices,
                            transport=wire, draws=draws)

@@ -26,7 +26,9 @@ class SequentialEngine:
                   global_enc, server_online):
         """Train ``participants`` from the broadcast ``state`` along their
         ``batch_plans``; returns (aggregated online tree, per-client last
-        losses, upload stats)."""
+        losses, upload stats). The participants' indices are the client
+        ids of the transport's error-feedback residuals, and the broadcast
+        tree is the reference its delta codecs subtract."""
         outs, losses = [], []
         for i, bplan in zip(participants, batch_plans):
             online_i, m = client_mod.local_train(
@@ -39,5 +41,6 @@ class SequentialEngine:
             losses.append(m["loss"])
         w = aggregate.client_weights([self.counts[i] for i in participants])
         new_online, stats = self.transport.aggregate_uploads(
-            server_online, outs, plan, w)
+            server_online, outs, list(participants), plan, w,
+            ref_online=state["online"])
         return new_online, [float(x) for x in losses], stats

@@ -1,26 +1,42 @@
-"""Wire-level transport of stage payloads, fp32 codec
-(``repro.federated.transport``, its ``PayloadSpec`` layout and pack /
-unpack path).
+"""Wire-level transport of stage payloads through a compression codec
+(``repro.federated.transport``: its ``PayloadSpec`` layout, codecs,
+error-feedback residuals and download mirror).
 
 A round plan's stage range is cut out of every stacked / embed / head
-leaf into one flat fp32 buffer (``pack_stage_payload``) and scattered back
-into a model tree (``unpack_stage_payload``). Both directions of the FL
-loop go through here: the download (server tree -> payload -> the tree
-clients train from) and each client's upload (trained tree -> payload ->
-the tree FedAvg consumes). The layout is the reference's: slots in
+leaf into one flat fp32 buffer (``pack_stage_payload``), pushed through a
+codec (encode, decode) and scattered back into a model tree
+(``unpack_stage_payload``). Both directions of the FL loop go through
+here: the download (server tree -> payload -> wire -> the tree clients
+train from, so codec error reaches training) and each client's upload
+(trained tree -> payload -> wire -> the tree FedAvg consumes, never the
+in-memory original). The layout is the reference's: slots in
 ``jax.tree_util`` leaf order, so the flat buffers are bit-identical to the
 reference's ``pack_stage_payload``.
 
-The fp32 codec is the identity and both reference engines (``xla``,
-``pallas``) give the same bits for it, so the port has one wire path: the
-slot-table kernels (``kernels.ops.wire_pack`` / ``wire_unpack``) on the
-card, their plain versions on the CPU. Compressing codecs (fp16, bf16,
-int8, top-k) come with a later slice.
+Codecs (``make_codec``), with the reference's semantics and wire bytes:
+
+  fp32       identity; wire bytes equal ``comm.round_comm_bytes``.
+  fp16/bf16  cast on the wire, 2 bytes an element.
+  int8       per-channel symmetric quantization (``_int8_channels``), one
+             byte an element plus one fp32 scale per channel.
+  topk[:f]   top-k of *deltas* against a reference both ends hold, as
+             (int32 index, fp32 value) pairs: uploads against the
+             downloaded model, with a per-client error-feedback residual
+             that resets when the payload layout changes; downloads
+             against the server's mirror of what clients hold, with a dense
+             fp32 re-sync in the first round under a layout.
+
+The reference has two wire engines (``xla``, ``pallas``) that agree within
+the parity contract (``docs/kernels.md``). The port has one wire path: the
+kernels of ``kernels.ops`` (slot-table pack / unpack, int8 quant / dequant
+over a segment table, compensate and the top-k EF update) on the card,
+their plain versions on the CPU. Casts and the top-k decode are plain
+PyTorch on both, as in the reference.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,6 +45,7 @@ from repro_torch.federated.leaves import classify_leaf, path_keys
 from repro_torch.kernels import ops
 
 WIRE_DTYPE = torch.float32
+CODECS = ("fp32", "fp16", "bf16", "int8", "topk")
 Tree = Dict[str, torch.Tensor]
 
 
@@ -134,13 +151,156 @@ def unpack_stage_payload(base: Tree, flat: torch.Tensor,
     return {k: new.get(k, v) for k, v in base.items()}
 
 
-class Transport:
-    """One per FL run: the per-direction payload specs and the measured
-    wire bytes the driver records in ``FLHistory``."""
+# -- codecs: encode / decode over the flat payload --------------------------
+class Fp32Codec:
+    """Identity codec: the uncompressed wire format."""
 
-    def __init__(self, *, include_heads: bool = True):
+    name = "fp32"
+    error_feedback = False
+    delta = False
+
+    def encode(self, flat, spec):
+        return {"q": flat}
+
+    def decode(self, wire, spec):
+        return wire["q"]
+
+    def wire_bytes(self, spec: PayloadSpec) -> int:
+        return 4 * spec.total
+
+
+class CastCodec:
+    """Cast on the wire: an fp16 or bf16 payload, decoded back to fp32."""
+
+    error_feedback = False
+    delta = False
+
+    def __init__(self, name: str):
+        self.name = name
+        self.dtype = torch.float16 if name == "fp16" else torch.bfloat16
+
+    def encode(self, flat, spec):
+        return {"q": ops.wire_cast_encode(flat, self.dtype)}
+
+    def decode(self, wire, spec):
+        return ops.wire_cast_decode(wire["q"])
+
+    def wire_bytes(self, spec: PayloadSpec) -> int:
+        return 2 * spec.total
+
+
+def _int8_channels(slot: LeafSlot) -> int:
+    """Channels of a slot for per-channel scales: the last axis when the
+    slot is a proper matrix or stack (>= 4 rows), else one per-tensor
+    scale."""
+    if len(slot.shape) >= 2:
+        ch = slot.shape[-1]
+        if slot.size // max(1, ch) >= 4:
+            return ch
+    return 1
+
+
+def int8_segs(spec: PayloadSpec) -> Tuple[Tuple[Tuple[int, int, int, int],
+                                                ...], int]:
+    """(((offset, size, channels, scale_offset), ...), n_scales): the
+    segment table of ``ops.wire_int8_encode`` / ``wire_int8_decode``."""
+    segs, soff = [], 0
+    for s in spec.slots:
+        ch = _int8_channels(s)
+        segs.append((s.offset, s.size, ch, soff))
+        soff += ch
+    return tuple(segs), soff
+
+
+class Int8Codec:
+    """Symmetric per-channel int8: q = round(x / s), s = amax_channel / 127.
+    The wire carries the int8 payload and one fp32 scale per channel."""
+
+    name = "int8"
+    error_feedback = False
+    delta = False
+
+    def encode(self, flat, spec):
+        q, scales = ops.wire_int8_encode(flat, *int8_segs(spec))
+        return {"q": q, "scale": scales}
+
+    def decode(self, wire, spec):
+        return ops.wire_int8_decode(wire["q"], wire["scale"],
+                                    int8_segs(spec)[0], spec.total)
+
+    def wire_bytes(self, spec: PayloadSpec) -> int:
+        return spec.total + 4 * int8_segs(spec)[1]
+
+
+class TopKCodec:
+    """Magnitude top-k of deltas with error feedback: keeps the
+    ``fraction`` largest |x| as (int32 index, fp32 value) pairs. The
+    transport applies it to differences against a reference both ends hold
+    (``delta``), adding each client's dropped mass back into its next
+    upload (``error_feedback``)."""
+
+    error_feedback = True
+    delta = True
+
+    def __init__(self, fraction: float = 0.1):
+        if not 0.0 < fraction <= 1.0:
+            raise ValueError(f"topk fraction must be in (0, 1]: {fraction}")
+        self.fraction = fraction
+        self.name = f"topk:{fraction:g}"
+
+    def k_for(self, spec: PayloadSpec) -> int:
+        return max(1, min(spec.total, int(round(spec.total * self.fraction))))
+
+    def encode_delta(self, flat, ref_flat, res, spec):
+        """(wire {"idx", "val"}, new residual) of ``flat - ref_flat (+
+        res)``."""
+        idx, val, new_res = ops.wire_topk_encode_ef(flat, ref_flat, res,
+                                                    self.k_for(spec))
+        return {"idx": idx, "val": val}, new_res
+
+    def decode(self, wire, spec):
+        return ops.wire_topk_decode(wire["idx"], wire["val"], spec.total)
+
+    def wire_bytes(self, spec: PayloadSpec) -> int:
+        return 8 * self.k_for(spec)
+
+
+def make_codec(name: str):
+    """Codec registry. ``topk`` takes an optional fraction: ``topk:0.05``."""
+    if name == "fp32":
+        return Fp32Codec()
+    if name in ("fp16", "bf16"):
+        return CastCodec(name)
+    if name == "int8":
+        return Int8Codec()
+    if name == "topk" or name.startswith("topk:"):
+        return TopKCodec(float(name.split(":", 1)[1]) if ":" in name
+                         else 0.1)
+    raise ValueError(f"unknown codec '{name}'; one of {CODECS} "
+                     f"(topk takes an optional fraction, e.g. topk:0.05)")
+
+
+def _sparse_add(base_flat: torch.Tensor, wire) -> torch.Tensor:
+    """base + scatter(idx, val), without the dense decoded delta: each
+    selected entry gets one fp32 add, as ``base + decode(wire)`` does."""
+    out = base_flat.clone()
+    out.index_add_(0, wire["idx"].long(), wire["val"])
+    return out
+
+
+# -- the transport --------------------------------------------------------------
+class Transport:
+    """One per FL run: the codec, the per-direction payload specs, the
+    per-client error-feedback residuals, the server's download mirror and
+    the wire bytes ``run_fedssl`` records in ``FLHistory``."""
+
+    def __init__(self, codec="fp32", *, include_heads: bool = True):
+        self.codec = make_codec(codec) if isinstance(codec, str) else codec
         self.include_heads = include_heads
         self._specs: Dict[Tuple, PayloadSpec] = {}
+        # client id -> (spec the residual was made under, residual)
+        self._resid: Dict[object, Tuple[PayloadSpec, torch.Tensor]] = {}
+        self._mirror: Optional[Tuple[PayloadSpec, torch.Tensor]] = None
 
     def spec(self, params: Tree, stage_range, include_embed: bool
              ) -> PayloadSpec:
@@ -158,37 +318,103 @@ class Transport:
         return {d: self.spec(params, rng, include_embed=emb)
                 for d, (rng, emb) in comm.plan_payloads(plan).items()}
 
-    @staticmethod
-    def wire_bytes(spec: PayloadSpec) -> int:
-        """Bytes on the wire: the fp32 buffer itself."""
-        return spec.payload_bytes
+    def wire_bytes(self, spec: PayloadSpec) -> int:
+        """Bytes of the arrays the codec puts on the wire for ``spec``."""
+        return self.codec.wire_bytes(spec)
 
-    def stats(self, spec: PayloadSpec) -> Dict[str, int]:
-        return {"wire_bytes": self.wire_bytes(spec),
+    def stats(self, spec: PayloadSpec, wire_bytes=None) -> Dict[str, int]:
+        return {"wire_bytes": self.wire_bytes(spec) if wire_bytes is None
+                else wire_bytes,
                 "payload_bytes": spec.payload_bytes}
 
+    def _roundtrip(self, flat: torch.Tensor, spec: PayloadSpec):
+        codec = self.codec
+        return codec.decode(codec.encode(flat, spec), spec)
+
+    # -- error-feedback residuals -------------------------------------------
+    def gather_residuals(self, client_ids, spec: PayloadSpec, device
+                         ) -> List[Optional[torch.Tensor]]:
+        """Each client's residual under ``spec``: zeros for a new client or
+        after the payload layout changed (a stage transition resets error
+        feedback); None for codecs without error feedback."""
+        if not self.codec.error_feedback:
+            return [None] * len(client_ids)
+        rows = []
+        for cid in client_ids:
+            held = self._resid.get(cid)
+            rows.append(held[1] if held is not None and held[0] == spec
+                        else torch.zeros(spec.total, dtype=WIRE_DTYPE,
+                                         device=device))
+        return rows
+
+    def store_residuals(self, client_ids, spec: PayloadSpec,
+                        residuals) -> None:
+        if not self.codec.error_feedback:
+            return
+        for cid, r in zip(client_ids, residuals):
+            self._resid[cid] = (spec, r)
+
+    # -- driver-facing operations -------------------------------------------
     def broadcast(self, online: Tree, plan):
         """Server -> clients: (the tree clients train from, stats). Leaves
         outside the payload keep the server's tensors; they stand in for
-        the client's cached copy, which the plan says is current."""
+        the client's cached copy, which the plan says is current.
+
+        Delta codecs (topk) need a shared reference: the first round under
+        a payload layout (run start, stage transition) is a dense fp32
+        re-sync that seeds the mirror, and its wire bytes are the payload's;
+        later rounds ship the top-k of (model - mirror) and advance the
+        mirror by what was sent, so what a round drops stays in the next
+        round's delta."""
         spec = self.plan_specs(online, plan)["download"]
-        view = unpack_stage_payload(online, pack_stage_payload(online, spec),
-                                    spec)
-        return view, self.stats(spec)
+        flat = pack_stage_payload(online, spec)
+        wire_bytes = None
+        if not self.codec.delta:
+            dec = self._roundtrip(flat, spec)
+        else:
+            held = self._mirror
+            if held is None or held[0] != spec:
+                dec, wire_bytes = flat, spec.payload_bytes
+            else:
+                wire, _ = self.codec.encode_delta(flat, held[1], None, spec)
+                dec = _sparse_add(held[1], wire)
+            self._mirror = (spec, dec)
+        view = unpack_stage_payload(online, dec, spec)
+        return view, self.stats(spec, wire_bytes)
 
     def decode_uploads(self, server_online: Tree, outs: Sequence[Tree],
-                       plan) -> Tuple[List[Tree], Dict[str, int]]:
+                       client_ids, plan, ref_online: Optional[Tree] = None
+                       ) -> Tuple[List[Tree], Dict[str, int]]:
         """Clients -> server, without aggregation: each client's payload
-        scattered onto the server's tree."""
+        through the wire (and its error-feedback residual), scattered onto
+        the server's tree. ``ref_online`` is the downloaded tree the
+        clients started from, the reference delta codecs subtract (default:
+        the server's tree)."""
         spec = self.plan_specs(server_online, plan)["upload"]
-        trees = [unpack_stage_payload(server_online,
-                                      pack_stage_payload(out, spec), spec)
-                 for out in outs]
+        ref_online = server_online if ref_online is None else ref_online
+        codec = self.codec
+        ref_flat = (pack_stage_payload(ref_online, spec) if codec.delta
+                    else None)
+        device = next(iter(server_online.values())).device
+        residuals = self.gather_residuals(client_ids, spec, device)
+        trees, new_res = [], []
+        for out, res in zip(outs, residuals):
+            flat = pack_stage_payload(out, spec)
+            if codec.delta:
+                wire, res = codec.encode_delta(flat, ref_flat, res, spec)
+                full = _sparse_add(ref_flat, wire)
+            else:
+                full = self._roundtrip(flat, spec)
+            trees.append(unpack_stage_payload(server_online, full, spec))
+            new_res.append(res)
+        self.store_residuals(client_ids, spec, new_res)
         return trees, self.stats(spec)
 
     def aggregate_uploads(self, server_online: Tree, outs: Sequence[Tree],
-                          plan, weights: torch.Tensor):
+                          client_ids, plan, weights: torch.Tensor,
+                          ref_online: Optional[Tree] = None):
         """Clients -> server: FedAvg over the decoded uploads. Returns
         (aggregated tree, per-client upload stats)."""
-        trees, stats = self.decode_uploads(server_online, outs, plan)
+        trees, stats = self.decode_uploads(server_online, outs, client_ids,
+                                           plan, ref_online=ref_online)
         return aggregate.fedavg(trees, weights), stats

@@ -10,6 +10,10 @@ main path went through the kernels.
 forward is the kernel (or the plain version on the CPU), the backward is
 the closed-form gradient in plain PyTorch (``ref.*_bwd_ref``), recomputed
 from the saved inputs, the same code on every device.
+
+``wire_cast_encode`` / ``wire_cast_decode`` and ``wire_topk_decode`` are
+plain PyTorch on every device: in the reference they are not Pallas
+kernels either.
 """
 from __future__ import annotations
 
@@ -20,8 +24,11 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import pack, ref
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import wire_codecs as wc
 
-KERNELS = ("gather_pack", "scatter_unpack", "rmsnorm_rows", "flash_attention")
+KERNELS = ("gather_pack", "scatter_unpack", "rmsnorm_rows", "flash_attention",
+           "int8_quant_matrix", "int8_dequant_matrix", "compensate",
+           "topk_ef_update")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -65,6 +72,86 @@ def wire_unpack(flat: torch.Tensor, bases: Sequence[torch.Tensor],
     outs = pack.scatter_unpack(flat, bases, layout)
     LAUNCHES["scatter_unpack"] += 1
     return outs
+
+
+# -- wire codecs ----------------------------------------------------------------
+def wire_cast_encode(flat: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp16 / bf16 cast-on-the-wire (round to nearest even); a plain cast,
+    as in the reference, where it is not a Pallas kernel either."""
+    return flat.to(dtype)
+
+
+def wire_cast_decode(wire: torch.Tensor) -> torch.Tensor:
+    return wire.to(torch.float32)
+
+
+def wire_int8_encode(flat: torch.Tensor, segs, nscales: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-segment int8 of the flat payload; ``segs`` rows are ``(offset,
+    size, channels, scale_offset)``. Returns (q int8 of ``flat``'s length,
+    scales fp32 (nscales,)). One kernel call for the whole table."""
+    if _device_kind(flat) == "cpu":
+        return ref.int8_encode_ref(flat, segs, nscales)
+    out = wc.int8_quant(flat, segs, nscales)
+    LAUNCHES["int8_quant_matrix"] += 1
+    return out
+
+
+def wire_int8_decode(q: torch.Tensor, scales: torch.Tensor, segs,
+                     total: int) -> torch.Tensor:
+    if _device_kind(q, scales) == "cpu":
+        return ref.int8_decode_ref(q, scales, segs, total)
+    out = wc.int8_dequant(q, scales, segs, total)
+    LAUNCHES["int8_dequant_matrix"] += 1
+    return out
+
+
+def compensate(flat: torch.Tensor, ref_flat: torch.Tensor,
+               res: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(c, |c|), c = flat - ref_flat + res (``res`` None: zeros)."""
+    tensors = (flat, ref_flat) if res is None else (flat, ref_flat, res)
+    if _device_kind(*tensors) == "cpu":
+        return ref.compensate_ref(flat, ref_flat, res)
+    out = wc.compensate(flat, ref_flat, res)
+    LAUNCHES["compensate"] += 1
+    return out
+
+
+def topk_ef_update(comp: torch.Tensor, thresh: torch.Tensor,
+                   needed: torch.Tensor, k: int):
+    """(new residual, idx int32 (k,), val (k,)) of the k entries top-k
+    selects at ``thresh`` with ``needed`` ties, idx in position order."""
+    if _device_kind(comp, thresh, needed) == "cpu":
+        return ref.topk_ef_update_ref(comp, thresh, needed)
+    out = wc.topk_ef_update(comp, thresh.reshape(1).to(torch.float32),
+                            needed.reshape(1).to(torch.int64), k)
+    LAUNCHES["topk_ef_update"] += 1
+    return out
+
+
+def wire_topk_encode_ef(flat: torch.Tensor, ref_flat: torch.Tensor,
+                        res: Optional[torch.Tensor], k: int):
+    """Top-k delta sparsification with error feedback: compensated delta
+    ``flat - ref_flat (+ res)``, the exact ``lax.top_k`` set (ties at the
+    threshold broken lowest index first), residual = the unselected mass.
+    ``res`` None: the mirror path, no carried residual. Returns (idx int32
+    (k,), val fp32 (k,), new residual (n,)); idx is in position order, the
+    reference's is in magnitude order: the set is the same.
+
+    The threshold value comes from ``torch.topk`` (the reference takes it
+    from ``lax.top_k`` in XLA, not from a Pallas kernel); the selected set
+    comes from the threshold and the tie rank, never from its indices."""
+    comp, absc = compensate(flat, ref_flat, res)
+    thresh, needed = ref.topk_threshold(absc, k)
+    new_res, idx, val = topk_ef_update(comp, thresh, needed, k)
+    return idx, val, new_res
+
+
+def wire_topk_decode(idx: torch.Tensor, val: torch.Tensor,
+                     total: int) -> torch.Tensor:
+    """Dense (total,) payload with ``val`` at ``idx``: a plain scatter."""
+    return ref.topk_decode_ref(idx, val, total)
 
 
 # -- RMSNorm -------------------------------------------------------------------

@@ -43,6 +43,97 @@ def wire_unpack_ref(flat: torch.Tensor, bases: Sequence[torch.Tensor],
     return outs
 
 
+# -- wire codecs: int8 ---------------------------------------------------------
+def int8_quant_ref(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (R, C) fp32 -> (q int8 (R, C), per-column scale fp32 (C,)): the
+    exact ``Int8Codec`` math, true division and round-half-to-even. Both
+    divisors are tensors: on the card PyTorch divides by a Python scalar
+    as a multiply by its reciprocal, which can differ in the last bit."""
+    amax = torch.amax(torch.abs(x), dim=0)
+    scale = torch.clamp(amax, min=1e-12) / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def int8_dequant_ref(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def int8_encode_ref(flat: torch.Tensor, segs, nscales: int):
+    """Segment-table int8 over the flat payload; ``segs`` rows are
+    ``(offset, size, channels, scale_offset)``. Returns (q int8 of
+    ``flat``'s length, scales fp32 (nscales,))."""
+    q = torch.empty(flat.shape[0], dtype=torch.int8, device=flat.device)
+    scales = torch.empty(nscales, dtype=torch.float32, device=flat.device)
+    for off, size, ch, soff in segs:
+        qs, s = int8_quant_ref(flat[off:off + size].reshape(-1, ch))
+        q[off:off + size] = qs.reshape(-1)
+        scales[soff:soff + ch] = s
+    return q, scales
+
+
+def int8_decode_ref(q: torch.Tensor, scales: torch.Tensor, segs,
+                    total: int) -> torch.Tensor:
+    out = torch.empty(total, dtype=torch.float32, device=q.device)
+    for off, size, ch, soff in segs:
+        out[off:off + size] = int8_dequant_ref(
+            q[off:off + size].reshape(-1, ch),
+            scales[soff:soff + ch]).reshape(-1)
+    return out
+
+
+# -- wire codecs: top-k with error feedback -------------------------------------
+def compensate_ref(flat: torch.Tensor, ref: torch.Tensor,
+                   res: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(c, |c|) with c = flat - ref + res, in that order; ``res`` None is
+    a residual of zeros (the mirror path)."""
+    c = (flat - ref) + (torch.zeros_like(flat) if res is None else res)
+    return c, torch.abs(c)
+
+
+def topk_threshold(absc: torch.Tensor, k: int):
+    """The k-th largest magnitude (0-d) and ``needed``, the number of
+    ``== thresh`` entries that top-k keeps (0-d int64). The value comes
+    from ``torch.topk``; its indices are not used, since it promises no
+    order among ties."""
+    thresh = torch.topk(absc, k, sorted=False).values.min()
+    needed = k - torch.count_nonzero(absc > thresh)
+    return thresh, needed
+
+
+def topk_ef_update_ref(comp: torch.Tensor, thresh: torch.Tensor,
+                       needed: torch.Tensor):
+    """Select every ``|c| > thresh`` and the ``needed`` lowest-index
+    ``|c| == thresh`` entries (``lax.top_k``'s tie order). Returns
+    (new residual: ``comp`` with the selected entries zeroed, idx int32 of
+    the selected entries in position order, their values)."""
+    a = torch.abs(comp)
+    eq = a == thresh
+    rank = torch.cumsum(eq.to(torch.int64), 0)          # 1-based tie rank
+    sel = (a > thresh) | (eq & (rank <= needed))
+    new_res = torch.where(sel, torch.zeros_like(comp), comp)
+    idx = torch.nonzero(sel).reshape(-1)
+    return new_res, idx.to(torch.int32), comp[idx]
+
+
+def topk_ef_ref(flat: torch.Tensor, ref: torch.Tensor,
+                res: Optional[torch.Tensor], k: int):
+    """The whole top-k upload: compensated delta, exact top-k set,
+    error-feedback residual and the decoded dense payload. Returns
+    (idx, val, new_res, dec)."""
+    comp, absc = compensate_ref(flat, ref, res)
+    new_res, idx, val = topk_ef_update_ref(comp, *topk_threshold(absc, k))
+    return idx, val, new_res, topk_decode_ref(idx, val, comp.shape[0])
+
+
+def topk_decode_ref(idx: torch.Tensor, val: torch.Tensor,
+                    total: int) -> torch.Tensor:
+    out = torch.zeros(total, dtype=torch.float32, device=val.device)
+    out[idx.long()] = val
+    return out
+
+
 # -- RMSNorm -----------------------------------------------------------------
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:

@@ -4,10 +4,17 @@ images under any of the five schedules, then a linear probe.
 
 It runs on the card (``--device cuda``, the default) and raises without
 one; ``--device cpu`` runs the plain PyTorch versions of the kernels.
+``--codec`` picks the wire compression (fp32, fp16, bf16, int8,
+topk[:fraction]); ``--transport-kernels xla|pallas`` is accepted so that
+the reference's command lines parse, and both select the port's one wire
+path.
 
-Example:
+Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit \\
       --schedule lw_fedssl --rounds 12 --clients 4 --batch 64
+  PYTHONPATH=src python -m repro_torch.launch.train --mode vit --codec int8
+  PYTHONPATH=src python -m repro_torch.launch.train --mode vit \\
+      --codec topk:0.1 --transport-kernels pallas
 """
 from __future__ import annotations
 
@@ -24,16 +31,15 @@ from repro_torch.core import ssl as ssl_mod
 from repro_torch.data.partition import dirichlet_partition, iid_partition
 from repro_torch.data.synthetic import synthetic_images
 from repro_torch.federated import eval as fl_eval
-from repro_torch.federated.driver import resolve_device, run_fedssl
+from repro_torch.federated.driver import (TRANSPORT_KERNELS, resolve_device,
+                                          run_fedssl)
+from repro_torch.federated.transport import make_codec
 
 # flags of the reference launcher whose features the port does not have
 # yet: flag -> (the value that means "off", what is missing)
 NOT_PORTED = {
     "mode": ("vit", "--mode lm (the LM family)"),
     "engine": ("sequential", "the vmap engine"),
-    "codec": ("fp32", "the compressing wire codecs"),
-    "transport_kernels": ("", "a wire-engine selector (the port has one "
-                              "wire path)"),
     "fleet": ("", "fleet simulation"),
     "round_policy": ("synchronous", "fleet round policies"),
     "dp_clip": (0.0, "differential privacy"),
@@ -72,11 +78,12 @@ def train_vit(args):
     t0 = time.time()
     state, hist = run_fedssl(cfg, ssl_cfg, fl, tc, images=images,
                              client_indices=idx, aux_images=aux, log=print,
-                             device=device)
+                             device=device, codec=args.codec,
+                             transport_kernels=args.transport_kernels)
     print(f"training done in {time.time() - t0:.1f}s; "
           f"total comm {hist.total_comm / 1e6:.2f} MB analytic, "
           f"{hist.total_wire / 1e6:.2f} MB on the wire "
-          f"(fp32: {hist.compression_ratio:.2f}x)")
+          f"({args.codec}: {hist.compression_ratio:.2f}x)")
     enc = ssl_mod.make_vit_encoder(cfg)
     n_eval = min(args.samples // 2, 512)
     acc = fl_eval.linear_eval(
@@ -105,11 +112,16 @@ def main(argv=None):
     ap.add_argument("--depth-dropout", type=float, default=0.0)
     ap.add_argument("--dirichlet-beta", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--codec", default="fp32",
+                    help="wire codec: fp32, fp16, bf16, int8 or "
+                         "topk[:fraction] (default fraction 0.1)")
+    ap.add_argument("--transport-kernels", default="xla",
+                    choices=TRANSPORT_KERNELS,
+                    help="the reference's wire-engine names; both select "
+                         "the port's one wire path")
     # accepted so that the reference's command lines parse; any value
     # other than "off" is refused below
     ap.add_argument("--engine", default="sequential")
-    ap.add_argument("--codec", default="fp32")
-    ap.add_argument("--transport-kernels", default="")
     ap.add_argument("--fleet", default="")
     ap.add_argument("--round-policy", default="synchronous")
     ap.add_argument("--dp-clip", type=float, default=0.0)
@@ -125,6 +137,10 @@ def main(argv=None):
         if getattr(args, name) != off:
             ap.error(f"--{name.replace('_', '-')} {getattr(args, name)}: "
                      f"{what} is not ported to repro_torch yet")
+    try:
+        make_codec(args.codec)
+    except ValueError as e:
+        ap.error(f"--codec {args.codec}: {e}")
     return train_vit(args)
 
 

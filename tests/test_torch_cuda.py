@@ -121,3 +121,108 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):
         ops.wire_pack([torch.zeros(4, dtype=torch.float64, device=dev)],
                       [(0, 0, 4)], 4)
+
+
+# -- wire codecs ----------------------------------------------------------------
+# int8 segments (offset, size, channels, scale_offset) from a 192-vector with
+# one scale to the 4096-wide head matrix: narrow and wide columns, a width
+# that does not divide the block, and slots longer than one chunk
+INT8_SHAPES = [(192, 1), (40000, 1), (64, 8), (192, 768), (33, 300),
+               (4, 192), (4096, 4096)]
+
+
+def _int8_segs(shapes):
+    segs, off, soff = [], 0, 0
+    for rows, ch in shapes:
+        segs.append((off, rows * ch, ch, soff))
+        off += rows * ch
+        soff += ch
+    return tuple(segs), off, soff
+
+
+def test_int8_quant_dequant_bit_exact(dev):
+    segs, total, nscales = _int8_segs(INT8_SHAPES)
+    before = ops.launch_counts()
+    # the second call's smaller values would expose a stale absmax scratch
+    for seed, spread in ((0, 3.0), (1, 0.01)):
+        flat = spread * _rand((total,), torch.float32, dev, seed)
+        q, s = ops.wire_int8_encode(flat, segs, nscales)
+        wq, ws = ref.int8_encode_ref(flat, segs, nscales)
+        assert torch.equal(q, wq) and torch.equal(s, ws)
+        cq, cs = ref.int8_encode_ref(flat.cpu(), segs, nscales)
+        assert torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs)
+        dec = ops.wire_int8_decode(q, s, segs, total)
+        assert torch.equal(dec, ref.int8_decode_ref(wq, ws, segs, total))
+    after = ops.launch_counts()
+    assert after["int8_quant_matrix"] == before["int8_quant_matrix"] + 2
+    assert after["int8_dequant_matrix"] == before["int8_dequant_matrix"] + 2
+
+
+@pytest.mark.parametrize("n,offset", [(21177920, 0), (1001, 1), (7, 0)])
+@pytest.mark.parametrize("with_res", [True, False])
+def test_compensate_bit_exact(dev, n, offset, with_res):
+    # offset 1: views that are not 16-byte aligned take the scalar path
+    f, r, e = (_rand((n + offset,), torch.float32, dev, i)[offset:]
+               for i in range(3))
+    res = e if with_res else None
+    c, a = ops.compensate(f, r, res)
+    wc, wa = ref.compensate_ref(f, r, res)
+    assert torch.equal(c, wc) and torch.equal(a, wa)
+
+
+def _topk_cases(dev):
+    rng = np.random.default_rng(4)
+    tie = np.tile(np.asarray([5.0, -3.0, 3.0, 1.0, 3.0, -5.0], np.float32),
+                  40)
+    # a delta that is mostly exact zeros: thresh == 0, and the tie set runs
+    # over many of the kernel's 2048-element blocks
+    zeros = np.zeros(300_000, np.float32)
+    hot = rng.choice(zeros.size, 5000, replace=False)
+    zeros[hot] = rng.standard_normal(5000).astype(np.float32)
+    big = rng.standard_normal(21177920).astype(np.float32)
+    return [(torch.from_numpy(tie).to(dev), 100),
+            (torch.from_numpy(zeros).to(dev), 60_000),
+            (torch.from_numpy(rng.standard_normal(700).astype(np.float32))
+             .to(dev), 70),
+            (torch.from_numpy(big).to(dev), 2117792)]
+
+
+def test_topk_ef_update_bit_exact(dev):
+    from repro_torch.kernels import wire_codecs
+    for comp, k in _topk_cases(dev):
+        absc = comp.abs()
+        thresh, needed = ref.topk_threshold(absc, k)
+        selected = torch.empty(1, dtype=torch.int64, device=dev)
+        res, idx, val = wire_codecs.topk_ef_update(
+            comp, thresh.reshape(1), needed.reshape(1), k, selected=selected)
+        wres, widx, wval = ref.topk_ef_update_ref(comp, thresh, needed)
+        assert int(selected) == k == widx.numel()
+        assert torch.equal(idx, widx) and torch.equal(val, wval)
+        assert torch.equal(res, wres)
+
+
+def test_topk_encode_matches_plain_on_card(dev):
+    for comp, k in _topk_cases(dev)[:3]:
+        ref_flat = _rand(comp.shape, torch.float32, dev, 5)
+        flat = comp + ref_flat
+        res = 0.1 * _rand(comp.shape, torch.float32, dev, 6)
+        for r in (None, res):
+            idx, val, new_res = ops.wire_topk_encode_ef(flat, ref_flat, r, k)
+            widx, wval, wres, wdec = ref.topk_ef_ref(flat, ref_flat, r, k)
+            assert torch.equal(idx, widx) and torch.equal(val, wval)
+            assert torch.equal(new_res, wres)
+            assert torch.equal(ops.wire_topk_decode(idx, val, comp.numel()),
+                               wdec)
+
+
+def test_codec_wrappers_raise_instead_of_falling_back(dev):
+    x = torch.zeros(8, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError):
+        ops.wire_int8_encode(x, ((0, 8, 1, 0),), 1)
+    with pytest.raises(ValueError):
+        ops.wire_int8_encode(x.float(), ((0, 6, 2, 0),), 2)   # uncovered
+    with pytest.raises(ValueError):
+        ops.compensate(x.float(), torch.zeros(7, device=dev), None)
+    with pytest.raises(ValueError):
+        ops.topk_ef_update(x.float(), torch.zeros(()), torch.zeros(
+            (), dtype=torch.int64), 2)                        # mixed devices

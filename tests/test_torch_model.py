@@ -1,6 +1,8 @@
 """The port's model, SSL core, optimizer, augmentation and schedules against
 the JAX package, at a small size on the CPU. Parameters are made by the
 reference and converted through numpy (``repro_torch.convert``)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -228,3 +230,60 @@ def test_weight_transfer_and_gates_match_reference():
     gates = sched.depth_dropout_gates(
         torch.from_numpy(np.array(jax.random.uniform(key, (6,)))), 3, 0.5)
     np.testing.assert_array_equal(gates.numpy(), np.asarray(jgates))
+
+
+# bf16: bfloat16 keeps 8 significant bits, a unit roundoff of U = 2^-8
+BF16_U = 2.0 ** -8
+
+
+def test_bf16_forward_and_ssl_loss_match_reference():
+    """The main path's compute dtype. Both packages round every matmul
+    output to bf16; the reference's ``sdpa_dense`` also rounds the q.k
+    logits and the softmax probabilities to bf16, where the port's
+    attention keeps both in fp32. Each rounding moves a value by at most U
+    of its size, so over 2 blocks (q/k/v, logits, probabilities, attention
+    output, wo, MLP up and down in each) the encoder outputs may differ by a
+    few U of their largest value: 4 U.
+
+    The SSL loss sees the features through the heads' BatchNorm, which
+    divides by their spread over the batch of 8; on these inputs that
+    spread is small against their size, so the rounding is amplified there
+    in both packages alike. Two bf16 evaluations of the loss each differ
+    from the fp32 loss by about the reference's own bf16 error e, so from
+    each other by up to 2 e: they are held to 3 e, relative."""
+    cfg32, cfg16 = (dataclasses.replace(JCFG, compute_dtype=d)
+                    for d in ("float32", "bfloat16"))
+    tcfg16 = dataclasses.replace(TCFG, compute_dtype="bfloat16")
+    jenc, enc = jssl.make_vit_encoder(cfg16), tssl.make_vit_encoder(tcfg16)
+    jssl_cfg = jbase.SSLConfig(**SSL)
+    jstate = jssl.ssl_init(jax.random.PRNGKey(4), jenc, jssl_cfg)
+    state = convert.state_from_numpy(jax.device_get(jstate))
+    genc = jstate["online"]["enc"]
+    x = _images(8, 0)
+    jout = np.asarray(jvit.vit_forward(genc, jnp.asarray(x), cfg16,
+                                       sub_layers=2, active_from=0),
+                      np.float32)
+    out = enc.apply(convert.subtree(state["online"], "enc"),
+                    torch.from_numpy(x), 2, 0, None)
+    assert out.dtype == torch.float32
+    _assert_close(out, jout, atol=4 * BF16_U * np.abs(jout).max(), rtol=0)
+
+    x1, x2 = _images(8, 5), _images(8, 6)
+    kw = dict(sub_layers=2, active_from=1, global_enc=genc,
+              align_weight=0.01)
+    jl16, jm = jssl.ssl_loss(jstate, jnp.asarray(x1), jnp.asarray(x2), jenc,
+                             jssl_cfg, **kw)
+    jl32, _ = jssl.ssl_loss(jstate, jnp.asarray(x1), jnp.asarray(x2),
+                            jssl.make_vit_encoder(cfg32), jssl_cfg, **kw)
+    with torch.no_grad():
+        _, m = tssl.ssl_loss(
+            state, torch.from_numpy(x1), torch.from_numpy(x2), enc,
+            tbase.SSLConfig(**SSL), sub_layers=2, active_from=1,
+            global_enc=convert.subtree(state["online"], "enc"),
+            align_weight=0.01)
+    e = abs(float(jl16) - float(jl32)) / abs(float(jl16))
+    assert e > 0.0                   # bf16 did round
+    for name in ("con", "loss"):
+        _assert_close(m[name], jm[name], atol=0, rtol=3 * e, msg=name)
+    _assert_close(m["align"], jm["align"], atol=0, rtol=4 * BF16_U,
+                  msg="align")

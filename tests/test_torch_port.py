@@ -74,7 +74,27 @@ def test_cli_runs_to_linear_eval_on_cpu():
     assert "linear evaluation accuracy" in out.stdout
 
 
-@pytest.mark.parametrize("flag", [["--engine", "vmap"], ["--codec", "int8"],
+@pytest.mark.parametrize("extra", [["--codec", "int8"],
+                                   ["--codec", "topk:0.2",
+                                    "--transport-kernels", "pallas"]])
+def test_cli_codecs_run_to_linear_eval_on_cpu(extra):
+    out = _run(["-m", "repro_torch.launch.train", "--mode", "vit",
+                "--device", "cpu", "--rounds", "2", "--clients", "2",
+                "--batch", "8", "--samples", "64", "--layers", "2",
+                "--d-model", "32", *extra])
+    assert out.returncode == 0, out.stderr
+    assert "round 2/2 stage 2" in out.stdout
+    assert f"({extra[1]}: " in out.stdout       # the compression ratio
+    assert "linear evaluation accuracy" in out.stdout
+
+
+def test_cli_rejects_unknown_codec(capsys):
+    with pytest.raises(SystemExit) as e:
+        train.main(["--device", "cpu", "--codec", "int4"])
+    assert e.value.code == 2 and "unknown codec" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [["--engine", "vmap"], ["--fleet", "uniform"],
                                   ["--mode", "lm"], ["--trace"]])
 def test_cli_rejects_features_not_ported(flag, capsys):
     with pytest.raises(SystemExit) as e:
