@@ -24,6 +24,14 @@ Phases, each of which must pass (any failure exits non-zero):
    to 0 before each path and read after it; the path's codec kernels must
    have launched, and the wire bytes must equal the codec's exact count in
    every round (the payload's in a top-k re-sync round).
+2c. vmap path: the main path of phase 2 (fp32 wire, 12 rounds, no linear
+   eval) on the vectorised engine (``engine="vmap"``: the four clients'
+   local steps batched with ``torch.func.vmap``), with the same checks,
+   its seconds per round and peak memory; then a short comparison of the
+   two engines from one seed at fp32 compute (full width, depth cut to 2
+   blocks, 2 rounds of one local step): the first round's losses, and the
+   per-client losses of three batched steps against the sequential step
+   from the same states, within 1e-4 (their gradients are printed).
 3. reference: one SSL loss at full width on 8 images, fp32 compute, on the
    card (kernels) against the CPU (plain PyTorch versions).
 4. kernels: each kernel's wrapper against its plain PyTorch version on the
@@ -34,10 +42,16 @@ Phases, each of which must pass (any failure exits non-zero):
    could take (its bound). The codec kernels run on the stage-12 upload of
    the trained model (21,177,920 floats in 24 slots; top-k keeps
    k = 2,117,792), bit-identical to their plain versions, plus a top-k case
-   whose threshold is 0 with ties over the whole payload.
+   whose threshold is 0 with ties over the whole payload. The InfoNCE
+   forward, dq and dk kernels run at (C, B, d) = (1, 256, 256) (the main
+   path's MoCo terms), (1, 256, 192) (its alignment terms), (4, 256, 256)
+   (the vmap path's) and a ragged (2, 96, 200), within 1e-5 of the largest
+   value; ``torch.matmul`` + ``F.cross_entropy`` is timed beside the
+   forward for context (two calls, so not a library time).
 
 With ``--profile``, a fifth phase traces one local step of the last stage
-with ``torch.profiler`` and prints where its device time goes.
+with ``torch.profiler``, of one client and of four at once (the vmap
+engine's step), and prints where its device time goes.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. TF32 is off throughout,
@@ -81,13 +95,24 @@ TPU_SOURCES = {
                    "src/repro/kernels/wire_codecs.py:135"),
     "topk_ef_update": ("src/repro_torch/kernels/csrc/wire_codecs.cu",
                        "src/repro/kernels/wire_codecs.py:191"),
+    "info_nce_rows": ("src/repro_torch/kernels/csrc/infonce.cu",
+                      "src/repro/kernels/infonce.py:65"),
+    "info_nce_rows_dq": ("src/repro_torch/kernels/csrc/infonce.cu",
+                         "src/repro/kernels/infonce.py:65"),
+    "info_nce_rows_dk": ("src/repro_torch/kernels/csrc/infonce.cu",
+                         "src/repro/kernels/infonce.py:65"),
 }
-# the path each kernel's launch count is read from
+# the kernels each path must launch; a kernel's "launches" in the kernels
+# line is its count on the first path that lists it. info_nce_rows_dk is on
+# no path: every negative of the loss is detached, so only chip_smoke's
+# check launches it.
+MAIN_KERNELS = ("gather_pack", "scatter_unpack", "rmsnorm_rows",
+                "flash_attention", "info_nce_rows", "info_nce_rows_dq")
 PATH_KERNELS = {
-    "fp32": ("gather_pack", "scatter_unpack", "rmsnorm_rows",
-             "flash_attention"),
+    "fp32": MAIN_KERNELS,
     "int8": ("int8_quant_matrix", "int8_dequant_matrix"),
     "topk": ("compensate", "topk_ef_update"),
+    "vmap": MAIN_KERNELS,
 }
 TOPK_ROUNDS_PER_STAGE = (1,) * 11 + (3,)
 
@@ -126,7 +151,7 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 def main_path(device, *, model_cfg, ssl_cfg, clients=4, rounds=12,
               batch=256, samples=4096, eval_epochs=10, seed=0, codec="fp32",
-              rounds_per_stage=()):
+              rounds_per_stage=(), engine="sequential"):
     """LW-FedSSL through ``run_fedssl`` (and ``linear_eval`` unless
     ``eval_epochs`` is 0) on ``device``. Returns (state, history, accuracy
     or None, per-round seconds, images)."""
@@ -156,7 +181,7 @@ def main_path(device, *, model_cfg, ssl_cfg, clients=4, rounds=12,
     t0 = time.perf_counter()
     state, hist = run_fedssl(model_cfg, ssl_cfg, fl, tc, images=images,
                              client_indices=idx, aux_images=aux, log=log,
-                             device=device, codec=codec)
+                             device=device, codec=codec, engine=engine)
     secs = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
     if not eval_epochs:
         return state, hist, None, secs, images
@@ -211,6 +236,95 @@ def check_history(hist, online, codec="fp32", rounds=12,
         check(hist.wire_download_bytes == hist.download_bytes
               and hist.wire_upload_bytes == hist.upload_bytes,
               "fp32 wire bytes differ from the analytic bytes")
+
+
+def engine_comparison(model_cfg, ssl_cfg, layers=2, steps=3):
+    """Both engines from one seed at full width, depth cut to ``layers``
+    blocks, fp32 compute, 2 rounds of one local step per client (1024
+    images). Returns (sequential losses, vmap losses, largest parameter
+    difference, the largest per-step loss difference of a lockstep run,
+    and there the largest gradient difference over the largest gradient
+    and the largest relative L2 difference of a client's gradient).
+
+    Only the first round's losses can be held to a tight tolerance: from
+    the second on, each engine trains from parameters that differ by
+    rounding, which AdamW's normalised step turns into updates of up to
+    the rate on coordinates whose gradient is near zero. So the lockstep
+    part feeds both engines' steps the same state, ``steps`` times in a
+    row at stage 2 (alignment on, block 1 frozen): ``stacked_train_step``
+    for the four clients against ``train_step`` for each client, on the
+    same views, continuing from the batched step's result. The gradients
+    there, ``vmap`` of ``grad`` against each client's ``grad``, are
+    printed and not checked: a ReLU input that lands within rounding of 0
+    takes the other subgradient under another summation order, which
+    changes a whole client's gradient by far more than rounding (the CPU
+    shows it too, between two thread counts of the same code)."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.convert import subtree
+    from repro_torch.core import ssl as ssl_mod
+    from repro_torch.data.augment import draw_params, two_views
+    from repro_torch.federated.client import stacked_train_step, train_step
+    from repro_torch.optim import make_optimizer
+
+    cfg = dataclasses.replace(model_cfg, num_layers=layers,
+                              compute_dtype="float32")
+    runs = {}
+    for engine in ("sequential", "vmap"):
+        state, hist, _, _, images = main_path(
+            "cuda", model_cfg=cfg, ssl_cfg=ssl_cfg, rounds=2, samples=1024,
+            eval_epochs=0, engine=engine)
+        runs[engine] = (state, hist.loss)
+    (seq, seq_loss), (vm, vm_loss) = runs["sequential"], runs["vmap"]
+    perr = max(float((seq["online"][k] - vm["online"][k]).abs().max())
+               for k in seq["online"])
+
+    C, B = 4, 256
+    enc = ssl_mod.make_vit_encoder(cfg)
+    opt = make_optimizer(TrainConfig(batch_size=B))
+    gen = torch.Generator("cuda").manual_seed(7)
+    on = {k: v.expand(C, *v.shape) for k, v in vm["online"].items()}
+    st = {"online": on, "target": {k: on[k] for k in vm["target"]}}
+    opt_state = opt.init(on)
+    kw = dict(encoder=enc, ssl_cfg=ssl_cfg, opt=opt, sub_layers=layers,
+              active_from=layers - 1,
+              global_enc=subtree(vm["online"], "enc"),
+              align_weight=ssl_cfg.align_weight)
+    def grads(st, x1, x2):
+        def loss(online):
+            return ssl_mod.ssl_loss(
+                {**st, "online": online}, x1, x2, enc, ssl_cfg,
+                sub_layers=layers, active_from=layers - 1,
+                global_enc=kw["global_enc"],
+                align_weight=ssl_cfg.align_weight)[0]
+        return torch.func.grad(loss)(st["online"])
+
+    lock = gerr = gl2 = 0.0
+    for _ in range(steps):
+        x1, x2 = two_views(images[:C * B], draw_params(gen, C * B, 32, 32),
+                           draw_params(gen, C * B, 32, 32))
+        gv = torch.func.vmap(grads)(st, x1.unflatten(0, (C, B)),
+                                    x2.unflatten(0, (C, B)))
+        new_st, new_opt, losses = stacked_train_step(
+            st, opt_state, x1.unflatten(0, (C, B)), x2.unflatten(0, (C, B)),
+            1e-4, **kw)
+        for c in range(C):
+            one = {b: {k: v[c] for k, v in t.items()} for b, t in st.items()}
+            one_opt = {"mu": {k: v[c] for k, v in opt_state["mu"].items()},
+                       "nu": {k: v[c] for k, v in opt_state["nu"].items()},
+                       "count": opt_state["count"]}
+            _, _, m = train_step(one, one_opt, x1[c * B:(c + 1) * B],
+                                 x2[c * B:(c + 1) * B], 1e-4, **kw)
+            lock = max(lock, abs(float(m["loss"]) - float(losses[c])))
+            gs = grads(one, x1[c * B:(c + 1) * B], x2[c * B:(c + 1) * B])
+            gerr = max(gerr, max(float((gv[k][c] - g).abs().max())
+                                 for k, g in gs.items())
+                       / max(float(g.abs().max()) for g in gs.values()))
+            gl2 = max(gl2, math.sqrt(
+                sum(float(((gv[k][c] - g) ** 2).sum()) for k, g in gs.items())
+                / sum(float((g ** 2).sum()) for g in gs.values())))
+        st, opt_state = new_st, new_opt
+    return seq_loss, vm_loss, perr, lock, gerr, gl2
 
 
 # ---------------------------------------------------------------------------
@@ -545,6 +659,107 @@ def codec_kernel_checks(state, fraction=0.1):
     return rec
 
 
+def infonce_kernel_checks(tau=0.2):
+    """The InfoNCE forward, dq and dk kernels against their plain versions
+    (1e-5 of the largest value, fp32) at the main path's shapes and a
+    ragged one; times at (C, B, d) = (1, 256, 256), the MoCo terms of a
+    sequential step, and (4, 256, 256), the vmap path's. Returns {name:
+    record}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import infonce as nce
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(6)
+
+    def unit(shape):
+        return F.normalize(torch.randn(shape, generator=gen, device=dev),
+                           dim=-1)
+
+    def errors(pairs):
+        """(largest absolute error, largest error over the largest plain
+        value) of (kernel, plain) pairs."""
+        ab = max(float((a - b).abs().max()) for a, b in pairs)
+        return ab, ab / max(max(float(b.abs().max()) for _, b in pairs),
+                            1e-30)
+
+    errs = {"info_nce_rows": 0.0, "info_nce_rows_dq": 0.0,
+            "info_nce_rows_dk": 0.0}     # largest absolute errors
+    for C, B, d in ((1, 256, 256), (1, 256, 192), (4, 256, 256),
+                    (2, 96, 200)):
+        q, k = unit((C, B, d)), unit((C, B, d))
+        g = torch.randn((C, B), generator=gen, device=dev) / B
+        loss, lse = nce.info_nce_fwd(q, k, tau)
+        wloss, wlse = ref.info_nce_rows_ref(q, k, tau)
+        e = {"info_nce_rows": errors(((loss, wloss), (lse, wlse)))}
+        for name, wrt_k in (("info_nce_rows_dq", False),
+                            ("info_nce_rows_dk", True)):
+            e[name] = errors(((nce.info_nce_bwd(q, k, wlse, g, tau, wrt_k),
+                               ref.info_nce_rows_bwd_ref(q, k, wlse, g, tau,
+                                                         wrt_k)),))
+        for name, (ab, err) in e.items():
+            print(f"  {name} ({C}, {B}, {d}): max |kernel - plain| = "
+                  f"{ab:.3e}, over max |plain| = {err:.3e} (tolerance "
+                  f"1e-5)", flush=True)
+            check(err <= 1e-5, f"{name} ({C}, {B}, {d}): error {err}")
+            errs[name] = max(errs[name], ab)
+    rec = {}
+    for C in (1, 4):
+        B = d = 256
+        nbytes = 4 * (2 * C * B * d + 2 * C * B)
+        sets = [(unit((C, B, d)), unit((C, B, d)),
+                 torch.randn((C, B), generator=gen, device=dev) / B)
+                for _ in range(copies(nbytes))]
+        lses = [ref.info_nce_rows_ref(q, k, tau)[1] for q, k, _ in sets]
+        labels = torch.arange(B, device=dev).repeat(C)
+
+        def two_calls(q, k):
+            logits = torch.matmul(q, k.transpose(-1, -2)) / tau
+            return F.cross_entropy(logits.reshape(C * B, B), labels,
+                                   reduction="none")
+
+        fwd = dict(
+            ms=time_ms([lambda a=a: nce.info_nce_fwd(a[0], a[1], tau)
+                        for a in sets]),
+            plain_ms=time_ms([lambda a=a: ref.info_nce_rows_ref(
+                a[0], a[1], tau) for a in sets]),
+            context_ms=time_ms([lambda a=a: two_calls(a[0], a[1])
+                                for a in sets]),
+            flops=2 * C * B * B * d, nbytes=nbytes)
+        print(f"  info_nce_rows ({C}, {B}, {d}): kernel {fwd['ms']} ms, "
+              f"plain {fwd['plain_ms']} ms, matmul + cross_entropy "
+              f"{fwd['context_ms']} ms", flush=True)
+        recs = {"info_nce_rows": fwd}
+        for name, wrt_k in (("info_nce_rows_dq", False),
+                            ("info_nce_rows_dk", True)):
+            recs[name] = dict(
+                ms=time_ms([lambda a=a, z=z: nce.info_nce_bwd(
+                    a[0], a[1], z, a[2], tau, wrt_k)
+                    for a, z in zip(sets, lses)]),
+                plain_ms=time_ms([lambda a=a, z=z: ref.info_nce_rows_bwd_ref(
+                    a[0], a[1], z, a[2], tau, wrt_k)
+                    for a, z in zip(sets, lses)]),
+                flops=4 * C * B * B * d,
+                nbytes=4 * (3 * C * B * d + 2 * C * B))
+            print(f"  {name} ({C}, {B}, {d}): kernel {recs[name]['ms']} ms, "
+                  f"plain {recs[name]['plain_ms']} ms", flush=True)
+        for name, r in recs.items():
+            tb, tf = r["nbytes"] / HBM_BPS, r["flops"] / FP32_FLOPS
+            r.update(bound_ms=max(tb, tf) * 1e3,
+                     bound_by="bytes" if tb > tf else "operations")
+            if C == 1:
+                rec[name] = dict(
+                    r, max_abs_err=errs[name], library_ms=None,
+                    shape=f"q, k (1, {B}, {d}) fp32 (a MoCo term)"
+                    + (f"; matmul + cross_entropy {r['context_ms']} ms "
+                       f"(two calls)" if "context_ms" in r else ""))
+            else:
+                rec[name]["c4"] = {k: r[k] for k in ("ms", "plain_ms",
+                                                     "bound_ms")}
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phase 5 (with --profile): where a local step's device time goes
 # ---------------------------------------------------------------------------
@@ -557,13 +772,18 @@ KERNEL_NAMES = {"gather_pack": ("gather_pack_kernel",),
                 "int8_dequant_matrix": ("int8_dequant_kernel",),
                 "compensate": ("compensate_kernel",),
                 "topk_ef_update": ("ef_count_kernel", "ef_scan_kernel",
-                                   "ef_select_kernel")}
+                                   "ef_select_kernel"),
+                "info_nce_rows": ("info_nce_fwd_kernel",),
+                "info_nce_rows_dq": ("info_nce_bwd_kernel<false>",),
+                "info_nce_rows_dk": ("info_nce_bwd_kernel<true>",)}
 
 
-def profile_step(model_cfg, ssl_cfg, state, images, steps=3):
+def profile_step(model_cfg, ssl_cfg, state, images, clients=1, steps=3):
     """``steps`` local steps of the last LW-FedSSL stage (block 12 trained
-    on top of 11 frozen ones, with alignment) at batch 256: their wall time,
-    then under torch.profiler their device time by kernel, and the device's
+    on top of 11 frozen ones, with alignment) at batch 256, of one client
+    (``train_step``, the sequential engine's) or of ``clients`` clients at
+    once (``stacked_train_step``, the vmap engine's): their wall time, then
+    under torch.profiler their device time by kernel, and the device's
     busy share of the unprofiled wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -571,25 +791,32 @@ def profile_step(model_cfg, ssl_cfg, state, images, steps=3):
     from repro_torch.convert import subtree
     from repro_torch.core import ssl as ssl_mod
     from repro_torch.data.augment import draw_params, two_views
-    from repro_torch.federated.client import train_step
+    from repro_torch.federated.client import stacked_train_step, train_step
     from repro_torch.optim import make_optimizer
 
     enc = ssl_mod.make_vit_encoder(model_cfg)
     opt = make_optimizer(TrainConfig(batch_size=256))
     gen = torch.Generator("cuda").manual_seed(5)
-    batch = images[:256]
+    n = 256 * clients
+    batch = images[:n]
     L = model_cfg.num_layers
     genc = subtree(state["online"], "enc")
+    kw = dict(encoder=enc, ssl_cfg=ssl_cfg, opt=opt, sub_layers=L,
+              active_from=L - 1, global_enc=genc,
+              align_weight=ssl_cfg.align_weight)
 
     def step():
-        st = {"online": state["online"],
-              "target": {k: state["online"][k] for k in state["target"]}}
-        x1, x2 = two_views(batch, draw_params(gen, 256, 32, 32),
-                           draw_params(gen, 256, 32, 32))
-        train_step(st, opt.init(st["online"]), x1, x2, 1e-4, encoder=enc,
-                   ssl_cfg=ssl_cfg, opt=opt, sub_layers=L,
-                   active_from=L - 1, global_enc=genc,
-                   align_weight=ssl_cfg.align_weight)
+        on = state["online"]
+        x1, x2 = two_views(batch, draw_params(gen, n, 32, 32),
+                           draw_params(gen, n, 32, 32))
+        if clients == 1:
+            st = {"online": on, "target": {k: on[k] for k in state["target"]}}
+            train_step(st, opt.init(on), x1, x2, 1e-4, **kw)
+            return
+        on = {k: v.expand(clients, *v.shape) for k, v in on.items()}
+        st = {"online": on, "target": {k: on[k] for k in state["target"]}}
+        stacked_train_step(st, opt.init(on), x1.unflatten(0, (clients, -1)),
+                           x2.unflatten(0, (clients, -1)), 1e-4, **kw)
 
     for _ in range(2):
         step()
@@ -615,7 +842,8 @@ def profile_step(model_cfg, ssl_cfg, state, images, steps=3):
             rows.append((us / 1e3 / steps, e.count // steps, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"  one local step: {wall_ms:.2f} ms wall (unprofiled), "
+    print(f"  one local step of {clients} client(s): {wall_ms:.2f} ms wall "
+          f"(unprofiled), "
           f"{busy:.2f} ms of device time ({100 * busy / wall_ms:.1f}% "
           f"busy)")
     for name, knames in KERNEL_NAMES.items():
@@ -700,10 +928,43 @@ def run(profile: bool = False) -> int:
               f"{chist.loss[0]:.4f} -> {chist.loss[-1]:.4f}; peak device "
               f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         print(f"  {codec}: kernel launches {launches[codec]}", flush=True)
+
+    print("[2c] vmap path: phase 2's run on the vectorised engine (12 "
+          "rounds, fp32 wire, no linear eval)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    vstate, vhist, _, vsecs, _ = main_path(
+        "cuda", model_cfg=model_cfg, ssl_cfg=ssl_cfg, eval_epochs=0,
+        engine="vmap")
+    torch.cuda.synchronize()
+    launches["vmap"] = ops.launch_counts()
+    check_history(vhist, vstate["online"])
+    print(f"  vmap: seconds per round {[round(x, 3) for x in vsecs]} "
+          f"(sequential: {[round(x, 3) for x in secs]})")
+    print(f"  vmap: wire bytes equal analytic bytes in all "
+          f"{len(vhist.loss)} rounds; losses {vhist.loss[0]:.4f} -> "
+          f"{vhist.loss[-1]:.4f} (sequential {hist.loss[0]:.4f} -> "
+          f"{hist.loss[-1]:.4f}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  vmap: kernel launches {launches['vmap']}", flush=True)
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(launches[path][name] > 0,
                   f"{name} never launched on the {path} path")
+    seq_loss, vm_loss, perr, lock, gerr, gl2 = engine_comparison(model_cfg,
+                                                                 ssl_cfg)
+    first = abs(seq_loss[0] - vm_loss[0])
+    print(f"  engines from one seed, fp32 compute, 2 blocks, 2 rounds of "
+          f"one local step: sequential losses {seq_loss}, vmap {vm_loss}; "
+          f"round 1 difference {first:.3e} (tolerance 1e-4), round 2 "
+          f"{abs(seq_loss[1] - vm_loss[1]):.3e} and parameters "
+          f"{perr:.3e} after a round of training (not checked); "
+          f"lockstep steps from the same state: largest per-client loss "
+          f"difference {lock:.3e} (tolerance 1e-4); gradients: largest "
+          f"difference over the largest gradient {gerr:.3e}, relative L2 "
+          f"{gl2:.3e} (not checked)", flush=True)
+    check(first <= 1e-4 and lock <= 1e-4,
+          f"engines disagree: {seq_loss} vs {vm_loss}, lockstep {lock}")
 
     print("[3] full-width SSL loss on 8 images, fp32: card kernels against "
           "CPU plain versions", flush=True)
@@ -715,8 +976,12 @@ def run(profile: bool = False) -> int:
     print("[4] kernels against their plain versions, and times", flush=True)
     rec = kernel_checks(state)
     rec.update(codec_kernel_checks(state))
+    rec.update(infonce_kernel_checks())
     kernels = []
-    path_of = {n: p for p, names in PATH_KERNELS.items() for n in names}
+    path_of = {}
+    for p, names in PATH_KERNELS.items():
+        for n in names:
+            path_of.setdefault(n, p)
     for name in ops.KERNELS:
         r = rec[name]
         print(f"  {name} [{r['shape']}]: kernel {r['ms']} ms, plain "
@@ -726,14 +991,20 @@ def run(profile: bool = False) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches[path_of[name]][name], "path": path_of[name],
+            "launches": launches[path_of[name]][name] if name in path_of
+            else 0, "path": path_of.get(name),
+            "launches_by_path": {p: c[name] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            **({"at_c4": r["c4"]} if "c4" in r else {})})
     if profile:
-        print("[5] profile of one local step at stage 12", flush=True)
+        print("[5] profile of one local step at stage 12: one client "
+              "(sequential engine), then four at once (vmap engine)",
+              flush=True)
         profile_step(model_cfg, ssl_cfg, state, images)
+        profile_step(model_cfg, ssl_cfg, state, images, clients=4)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

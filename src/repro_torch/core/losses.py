@@ -1,14 +1,17 @@
 """Contrastive losses: InfoNCE (paper Eq. 2) and representation alignment
 (paper Eq. 3) (``repro.core.losses``).
 
-Both take (B, d) vectors with in-batch negatives, in fp32. The
-``info_nce_rows`` kernel of the JAX package serves this loss there; its
-port (with the backward the loss needs) is slice 2, so the loss is plain
-PyTorch here.
+Both take (B, d) vectors with in-batch negatives, in fp32. As in the JAX
+package's ``ops.fused_info_nce``, the rows are L2-normalised in plain
+PyTorch and the per-row loss is the InfoNCE kernel
+(``kernels.ops.info_nce_rows``: the CUDA forward and gradient kernels on
+the card, their plain versions on the CPU), under ``vmap`` too.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import ops
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -21,12 +24,8 @@ def info_nce(q: torch.Tensor, k: torch.Tensor, tau: float) -> torch.Tensor:
     """InfoNCE with in-batch negatives (Eq. 2): mean over rows of
     logsumexp_j(q_i k_j / tau) - q_i k_i / tau. No 2*tau factor (see
     ``moco_contrastive``)."""
-    q = l2_normalize(q)
-    k = l2_normalize(k)
-    logits = (q @ k.T) / tau
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.diagonal(logits)
-    return torch.mean(logz - gold)
+    return torch.mean(ops.info_nce_rows(l2_normalize(q), l2_normalize(k),
+                                        tau))
 
 
 def moco_contrastive(q1, k2, q2, k1, tau: float) -> torch.Tensor:

@@ -5,12 +5,15 @@
 a client's batch plan over its shard. The online branch, target branch and
 optimizer state are local to the client for the round; the target branch
 starts from the downloaded global model (Algorithm 2, lines 2-3).
+``stacked_train_step`` is the same step for a stack of clients at once (the
+vectorised engine's): ``torch.func.vmap`` over ``torch.func.grad_and_value``.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+from torch.func import grad_and_value, vmap
 
 from repro_torch.core import schedule as sched
 from repro_torch.core import ssl as ssl_mod
@@ -37,12 +40,57 @@ def train_step(state, opt_state, x1, x2, lr: float, *, encoder, ssl_cfg,
     # a leaf the loss does not reach (frozen embedding) has a zero gradient
     grads = {k: torch.zeros_like(v) if g is None else g
              for (k, v), g in zip(state["online"].items(), grads)}
+    state, opt_state = _apply_update(state, opt_state, grads, lr,
+                                     ssl_cfg=ssl_cfg, opt=opt,
+                                     sub_layers=sub_layers,
+                                     active_from=active_from)
+    return state, opt_state, {k: v.detach() for k, v in metrics.items()}
+
+
+def _apply_update(state, opt_state, grads, lr, *, ssl_cfg, opt,
+                  sub_layers: int, active_from: int):
+    """The masked optimizer step on the online branch, then the target
+    EMA (Algorithm 2, lines 14-15)."""
     mask = stage_update_mask(state["online"], sub_layers, active_from)
     new_online, opt_state = opt.update(grads, opt_state, state["online"], lr,
                                        mask)
     state = ssl_mod.momentum_update({**state, "online": new_online},
                                     ssl_cfg.momentum)
-    return state, opt_state, {k: v.detach() for k, v in metrics.items()}
+    return state, opt_state
+
+
+def stacked_train_step(state, opt_state, x1, x2, lr: float, *, encoder,
+                       ssl_cfg, opt, sub_layers: int, active_from: int,
+                       layer_gates=None, global_enc: Optional[Tree] = None,
+                       align_weight: float = 0.0):
+    """``train_step`` for C clients in one call: one ``torch.func.vmap``
+    over ``torch.func.grad_and_value``. Every tensor of ``state`` and
+    ``opt_state``, the views (C, B, H, W, 3) and ``layer_gates`` (C, L)
+    carry a leading client axis; ``global_enc``, ``lr`` and the optimizer's
+    step count are shared. Returns (state, opt_state, losses (C,))."""
+    count = opt_state["count"]
+
+    def one(state, moments, x1, x2, gates):
+        def loss_fn(online):
+            return ssl_mod.ssl_loss(
+                {**state, "online": online}, x1, x2, encoder, ssl_cfg,
+                sub_layers=sub_layers, active_from=active_from,
+                layer_gates=gates, global_enc=global_enc,
+                align_weight=align_weight)
+
+        grads, (loss, _) = grad_and_value(loss_fn, has_aux=True)(
+            state["online"])
+        state, new_opt = _apply_update(
+            state, {**moments, "count": count}, grads, lr, ssl_cfg=ssl_cfg,
+            opt=opt, sub_layers=sub_layers, active_from=active_from)
+        return state, {k: v for k, v in new_opt.items() if k != "count"}, \
+            loss
+
+    moments = {k: v for k, v in opt_state.items() if k != "count"}
+    gates_dim = None if layer_gates is None else 0
+    state, moments, losses = vmap(one, in_dims=(0, 0, 0, 0, gates_dim))(
+        state, moments, x1, x2, layer_gates)
+    return state, {**moments, "count": count + 1}, losses
 
 
 def local_train(global_state, images: torch.Tensor, plan, draws, opt, *,

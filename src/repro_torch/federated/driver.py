@@ -21,7 +21,7 @@ from repro_torch.core import schedule as sched
 from repro_torch.core import ssl as ssl_mod
 from repro_torch.federated import comm, server
 from repro_torch.federated.draws import TorchDraws
-from repro_torch.federated.engine import SequentialEngine
+from repro_torch.federated.engine import make_engine
 from repro_torch.federated.transport import Transport
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.schedules import learning_rate, scaled_base_lr
@@ -117,13 +117,17 @@ def resolve_device(device) -> torch.device:
 def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                aux_images=None, draws=None, encoder=None,
                image_size: int = 32, log=None, device="cuda",
-               codec: str = "fp32", transport_kernels: str = "xla"):
+               engine: str = "sequential", codec: str = "fp32",
+               transport_kernels: str = "xla"):
     """Run the FL process; returns (final state, FLHistory).
 
     images: (n, H, W, 3) training pool; client_indices: one index array
     per client; aux_images: D_g for server calibration; draws: the source
     of every random draw (default ``TorchDraws(fl.seed, device)``). Tensors
-    are moved to ``device``, which defaults to the card. codec: the wire
+    are moved to ``device``, which defaults to the card. engine: the round
+    engine (``engine.ENGINES``: ``sequential``, or ``vmap``, which trains
+    the round's participants together, one batched step at a time;
+    it needs every shard to hold a batch). codec: the wire
     compression (``transport.CODECS``: fp32, fp16, bf16, int8,
     topk[:fraction]); transport_kernels: the reference's wire-engine name
     (``xla`` or ``pallas``), accepted so that its calls carry over: both
@@ -148,9 +152,10 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
     base_lr = scaled_base_lr(train_cfg.base_lr, train_cfg.batch_size)
     hist = FLHistory()
     wire = Transport(codec, include_heads=fl.include_heads)
-    eng = SequentialEngine(encoder=encoder, ssl_cfg=ssl_cfg, opt=opt, fl=fl,
-                           images=images, client_indices=client_indices,
-                           transport=wire, draws=draws)
+    eng = make_engine(engine, encoder=encoder, ssl_cfg=ssl_cfg, opt=opt,
+                      fl=fl, images=images, client_indices=client_indices,
+                      transport=wire, draws=draws,
+                      batch_size=train_cfg.batch_size)
 
     # stage-relative step counters for the cyclic LR strategy
     stage_start: Dict[int, int] = {}

@@ -6,10 +6,17 @@ kernel, which either launches or raises (there is no fallback). Every
 kernel launch adds one to ``LAUNCHES[name]``, so a run can show that its
 main path went through the kernels.
 
-``rmsnorm`` and ``flash_attention`` are ``torch.autograd.Function``s: the
-forward is the kernel (or the plain version on the CPU), the backward is
-the closed-form gradient in plain PyTorch (``ref.*_bwd_ref``), recomputed
-from the saved inputs, the same code on every device.
+``rmsnorm``, ``flash_attention`` and ``info_nce_rows`` are
+``torch.autograd.Function``s whose forward is the kernel (or the plain
+version on the CPU). The backward of the first two is the closed-form
+gradient in plain PyTorch (``ref.*_bwd_ref``), recomputed from the saved
+inputs, the same code on every device; InfoNCE's backward is a kernel too
+(``InfoNCEGradFn``). Every Function has the ``setup_context`` form and a
+``vmap`` rule, so the vectorised engine can run them under
+``torch.func.vmap`` / ``grad``: the rule moves the vmapped (client) axis to
+the front and hands it to the kernel in one launch, folded into the rows
+(RMSNorm, with a per-client scale), into the batch (attention), or as the
+kernel's own client axis (InfoNCE, whose negatives must stay per client).
 
 ``wire_cast_encode`` / ``wire_cast_decode`` and ``wire_topk_decode`` are
 plain PyTorch on every device: in the reference they are not Pallas
@@ -22,13 +29,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import infonce as nce
 from repro_torch.kernels import pack, ref
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import wire_codecs as wc
 
 KERNELS = ("gather_pack", "scatter_unpack", "rmsnorm_rows", "flash_attention",
            "int8_quant_matrix", "int8_dequant_matrix", "compensate",
-           "topk_ef_update")
+           "topk_ef_update", "info_nce_rows", "info_nce_rows_dq",
+           "info_nce_rows_dk")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -154,32 +163,55 @@ def wire_topk_decode(idx: torch.Tensor, val: torch.Tensor,
     return ref.topk_decode_ref(idx, val, total)
 
 
+def _front(x: torch.Tensor, bdim: Optional[int], size: int) -> torch.Tensor:
+    """A vmapped operand with its vmapped axis first; an operand that is
+    not vmapped (``bdim`` None) is broadcast along a new first axis."""
+    if bdim is None:
+        return x.expand(size, *x.shape)
+    return x.movedim(bdim, 0)
+
+
 # -- RMSNorm -------------------------------------------------------------------
-def _rmsnorm_fwd(x2: torch.Tensor, scale: torch.Tensor,
+def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
                  eps: float) -> torch.Tensor:
-    if _device_kind(x2, scale) == "cpu":
-        return ref.rmsnorm_ref(x2, scale, eps)
-    y = rn.rmsnorm_rows(x2.contiguous(), scale.to(torch.float32).contiguous(),
-                        eps)
+    if _device_kind(x, scale) == "cpu":
+        return ref.rmsnorm_ref(x, scale, eps)
+    d = x.shape[-1]
+    y = rn.rmsnorm_rows(x.reshape(-1, d).contiguous(),
+                        scale.to(torch.float32).contiguous(), eps)
     LAUNCHES["rmsnorm_rows"] += 1
-    return y
+    return y.reshape(x.shape)
 
 
 class RMSNormFn(torch.autograd.Function):
-    """y = x * rsqrt(mean(x^2) + eps) * scale over the last dim."""
+    """y = x * rsqrt(mean(x^2) + eps) * scale over the last dim. scale is
+    (d,), or (G, d) with one row per index of x's leading axis (the form
+    the ``vmap`` rule hands on for a per-client scale)."""
 
     @staticmethod
-    def forward(ctx, x, scale, eps):
+    def forward(x, scale, eps):
+        return _rmsnorm_fwd(x, scale, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, eps = inputs
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
-        d = x.shape[-1]
-        return _rmsnorm_fwd(x.reshape(-1, d), scale, eps).reshape(x.shape)
 
     @staticmethod
     def backward(ctx, g):
         x, scale = ctx.saved_tensors
         gx, gs = ref.rmsnorm_bwd_ref(x, scale, g, ctx.eps)
         return gx, gs, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, scale, eps):
+        if scale.dim() - (in_dims[1] is not None) != 1:
+            raise ValueError("rmsnorm under vmap takes a (d,) scale")
+        x = _front(x, in_dims[0], info.batch_size)
+        if in_dims[1] is not None:
+            scale = scale.movedim(in_dims[1], 0)
+        return RMSNormFn.apply(x, scale, eps), 0
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -206,10 +238,14 @@ class FlashAttentionFn(torch.autograd.Function):
     masks; the backward recomputes the probabilities in fp32."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, kv_len, scale):
-        ctx.save_for_backward(q, k, v)
-        ctx.cfg = (causal, window, kv_len, scale)
+    def forward(q, k, v, causal, window, kv_len, scale):
         return _attention_fwd(q, k, v, causal, window, kv_len, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, *cfg = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = tuple(cfg)
 
     @staticmethod
     def backward(ctx, g):
@@ -222,6 +258,14 @@ class FlashAttentionFn(torch.autograd.Function):
         return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
                 None, None, None, None)
 
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, kv_len, scale):
+        n = info.batch_size
+        q, k, v = (_front(t, d, n).flatten(0, 1)
+                   for t, d in zip((q, k, v), in_dims))
+        out = FlashAttentionFn.apply(q, k, v, causal, window, kv_len, scale)
+        return out.unflatten(0, (n, -1)), 0
+
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
@@ -230,3 +274,97 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,S,Hq,hd); k,v: (B,T,Hkv,hd) -> (B,S,Hq,hd) (BSHD layout, as
     the JAX package's ``ops.flash_attention``)."""
     return FlashAttentionFn.apply(q, k, v, causal, window, kv_len, scale)
+
+
+# -- InfoNCE -------------------------------------------------------------------
+def _info_nce_fwd(q, k, tau):
+    if _device_kind(q, k) == "cpu":
+        return ref.info_nce_rows_ref(q, k, tau)
+    out = nce.info_nce_fwd(q.contiguous(), k.contiguous(), tau)
+    LAUNCHES["info_nce_rows"] += 1
+    return out
+
+
+def _info_nce_bwd(q, k, lse, g, tau, wrt_k):
+    if _device_kind(q, k, lse, g) == "cpu":
+        return ref.info_nce_rows_bwd_ref(q, k, lse, g, tau, wrt_k)
+    out = nce.info_nce_bwd(q.contiguous(), k.contiguous(), lse.contiguous(),
+                           g.to(torch.float32).contiguous(), tau, wrt_k)
+    LAUNCHES["info_nce_rows_dk" if wrt_k else "info_nce_rows_dq"] += 1
+    return out
+
+
+def _fold_clients(info, in_dims, *tensors):
+    """Operands of a vmapped InfoNCE Function with the vmapped axis folded
+    into their own client axis: (n, C, ...) -> (n * C, ...)."""
+    return [_front(t, d, info.batch_size).flatten(0, 1)
+            for t, d in zip(tensors, in_dims)]
+
+
+class InfoNCEFn(torch.autograd.Function):
+    """Per-row InfoNCE of (C, B, d) L2-normalised q, k with in-batch
+    negatives per client: returns (loss, lse), both (C, B); lse is saved
+    for the backward and is not differentiable."""
+
+    @staticmethod
+    def forward(q, k, tau):
+        return _info_nce_fwd(q, k, tau)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, tau = inputs
+        _, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, lse)
+        ctx.tau = tau
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, lse = ctx.saved_tensors
+        dq = dk = None
+        if ctx.needs_input_grad[0]:
+            dq = InfoNCEGradFn.apply(q, k, lse, g, ctx.tau, False)
+        if ctx.needs_input_grad[1]:
+            dk = InfoNCEGradFn.apply(q, k, lse, g, ctx.tau, True)
+        return dq, dk, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, tau):
+        n = info.batch_size
+        loss, lse = InfoNCEFn.apply(*_fold_clients(info, in_dims[:2], q, k),
+                                    tau)
+        return (loss.unflatten(0, (n, -1)), lse.unflatten(0, (n, -1))), (0, 0)
+
+
+class InfoNCEGradFn(torch.autograd.Function):
+    """The InfoNCE gradient kernels (dq, or dk with ``wrt_k``) as a Function
+    of their own, so that the backward also runs under ``vmap``; it is not
+    differentiable again."""
+
+    @staticmethod
+    def forward(q, k, lse, g, tau, wrt_k):
+        return _info_nce_bwd(q, k, lse, g, tau, wrt_k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, _g):
+        raise RuntimeError("the InfoNCE gradient is not differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, lse, g, tau, wrt_k):
+        out = InfoNCEGradFn.apply(
+            *_fold_clients(info, in_dims[:4], q, k, lse, g), tau, wrt_k)
+        return out.unflatten(0, (info.batch_size, -1)), 0
+
+
+def info_nce_rows(q: torch.Tensor, k: torch.Tensor,
+                  tau: float) -> torch.Tensor:
+    """Per-row InfoNCE losses ``logsumexp_j(q_i k_j / tau) - q_i k_i /
+    tau`` of L2-normalised fp32 rows, differentiable in q and k. q, k:
+    (B, d) -> (B,), or (C, B, d) -> (C, B) with negatives per client."""
+    if q.dim() == 2:
+        return InfoNCEFn.apply(q[None], k[None], float(tau))[0][0]
+    return InfoNCEFn.apply(q, k, float(tau))[0]

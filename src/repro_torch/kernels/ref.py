@@ -135,27 +135,71 @@ def topk_decode_ref(idx: torch.Tensor, val: torch.Tensor,
 
 
 # -- RMSNorm -----------------------------------------------------------------
+def _scale_like(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A (d,) scale as it is; a grouped (G, d) scale, one row per index of
+    x's leading axis, shaped to broadcast against x."""
+    if scale.dim() == 1:
+        return scale
+    return scale.reshape(scale.shape[0], *([1] * (x.dim() - 2)),
+                         scale.shape[-1])
+
+
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
+    """x: (..., d); scale: (d,), or (G, d) with x: (G, ..., d)."""
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * scale.to(torch.float32)).to(x.dtype)
+    return (y * _scale_like(scale, x).to(torch.float32)).to(x.dtype)
 
 
 def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
                     eps: float = 1e-5):
     """Gradients of ``rmsnorm_ref`` wrt (x, scale), recomputed from x:
     gx = r (gy - x_hat mean(gy x_hat)), gscale = sum(g x_hat) with
-    r = rsqrt(mean(x^2) + eps), x_hat = x r, gy = g scale."""
+    r = rsqrt(mean(x^2) + eps), x_hat = x r, gy = g scale (summed per
+    group for a grouped scale)."""
     xf = x.to(torch.float32)
     gf = g.to(torch.float32)
     r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     xhat = xf * r
-    gscale = (gf * xhat).reshape(-1, x.shape[-1]).sum(0)
-    gy = gf * scale.to(torch.float32)
+    gscale = (gf * xhat).reshape(-1, x.shape[-1]).sum(0) \
+        if scale.dim() == 1 else \
+        (gf * xhat).reshape(scale.shape[0], -1, x.shape[-1]).sum(1)
+    gy = gf * _scale_like(scale, x).to(torch.float32)
     gx = r * (gy - xhat * torch.mean(gy * xhat, dim=-1, keepdim=True))
     return gx.to(x.dtype), gscale.to(scale.dtype)
+
+
+# -- InfoNCE -------------------------------------------------------------------
+def info_nce_rows_ref(q: torch.Tensor, k: torch.Tensor, tau: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row InfoNCE with in-batch negatives over L2-normalised rows.
+    q, k: (..., B, d), a leading axis per client (each client's rows see
+    only its own negatives). Returns (loss, lse), both (..., B) fp32:
+    lse_i = logsumexp_j(q_i k_j / tau), loss_i = lse_i - q_i k_i / tau."""
+    logits = torch.matmul(q.to(torch.float32),
+                          k.to(torch.float32).transpose(-1, -2)) / tau
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.diagonal(logits, dim1=-2, dim2=-1)
+    return lse - gold, lse
+
+
+def info_nce_rows_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                          lse: torch.Tensor, g: torch.Tensor, tau: float,
+                          wrt_k: bool) -> torch.Tensor:
+    """Gradient of ``sum(g * loss)`` wrt q (``wrt_k`` False) or k (True),
+    with the probabilities p_ij = exp(q_i k_j / tau - lse_i) recomputed:
+    dq_i = (g_i / tau) (sum_j p_ij k_j - k_i),
+    dk_j = (1 / tau) (sum_i g_i p_ij q_i - g_j q_j)."""
+    qf, kf = q.to(torch.float32), k.to(torch.float32)
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) / tau
+    p = torch.exp(logits - lse[..., None])
+    if wrt_k:
+        pg = p * g[..., None]
+        return (torch.matmul(pg.transpose(-1, -2), qf)
+                - g[..., None] * qf) / tau
+    return (g / tau)[..., None] * (torch.matmul(p, kf) - kf)
 
 
 # -- attention ---------------------------------------------------------------

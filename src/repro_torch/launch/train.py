@@ -4,6 +4,8 @@ images under any of the five schedules, then a linear probe.
 
 It runs on the card (``--device cuda``, the default) and raises without
 one; ``--device cpu`` runs the plain PyTorch versions of the kernels.
+``--engine`` picks the round engine (``sequential``, or ``vmap``: the
+round's participants train together, one batched step at a time).
 ``--codec`` picks the wire compression (fp32, fp16, bf16, int8,
 topk[:fraction]); ``--transport-kernels xla|pallas`` is accepted so that
 the reference's command lines parse, and both select the port's one wire
@@ -12,6 +14,7 @@ path.
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit \\
       --schedule lw_fedssl --rounds 12 --clients 4 --batch 64
+  PYTHONPATH=src python -m repro_torch.launch.train --mode vit --engine vmap
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit --codec int8
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit \\
       --codec topk:0.1 --transport-kernels pallas
@@ -33,13 +36,13 @@ from repro_torch.data.synthetic import synthetic_images
 from repro_torch.federated import eval as fl_eval
 from repro_torch.federated.driver import (TRANSPORT_KERNELS, resolve_device,
                                           run_fedssl)
+from repro_torch.federated.engine import ENGINES
 from repro_torch.federated.transport import make_codec
 
 # flags of the reference launcher whose features the port does not have
 # yet: flag -> (the value that means "off", what is missing)
 NOT_PORTED = {
     "mode": ("vit", "--mode lm (the LM family)"),
-    "engine": ("sequential", "the vmap engine"),
     "fleet": ("", "fleet simulation"),
     "round_policy": ("synchronous", "fleet round policies"),
     "dp_clip": (0.0, "differential privacy"),
@@ -78,7 +81,8 @@ def train_vit(args):
     t0 = time.time()
     state, hist = run_fedssl(cfg, ssl_cfg, fl, tc, images=images,
                              client_indices=idx, aux_images=aux, log=print,
-                             device=device, codec=args.codec,
+                             device=device, engine=args.engine,
+                             codec=args.codec,
                              transport_kernels=args.transport_kernels)
     print(f"training done in {time.time() - t0:.1f}s; "
           f"total comm {hist.total_comm / 1e6:.2f} MB analytic, "
@@ -112,6 +116,9 @@ def main(argv=None):
     ap.add_argument("--depth-dropout", type=float, default=0.0)
     ap.add_argument("--dirichlet-beta", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine", default="sequential", choices=ENGINES,
+                    help="round engine: sequential, or vmap (the round's "
+                         "participants in one batched step)")
     ap.add_argument("--codec", default="fp32",
                     help="wire codec: fp32, fp16, bf16, int8 or "
                          "topk[:fraction] (default fraction 0.1)")
@@ -121,7 +128,6 @@ def main(argv=None):
                          "the port's one wire path")
     # accepted so that the reference's command lines parse; any value
     # other than "off" is refused below
-    ap.add_argument("--engine", default="sequential")
     ap.add_argument("--fleet", default="")
     ap.add_argument("--round-policy", default="synchronous")
     ap.add_argument("--dp-clip", type=float, default=0.0)

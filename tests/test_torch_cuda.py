@@ -226,3 +226,79 @@ def test_codec_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):
         ops.topk_ef_update(x.float(), torch.zeros(()), torch.zeros(
             (), dtype=torch.int64), 2)                        # mixed devices
+
+
+# -- InfoNCE and the vmap rules ---------------------------------------------------
+def _unit(shape, dev, seed):
+    return torch.nn.functional.normalize(_rand(shape, torch.float32, dev,
+                                               seed), dim=-1)
+
+
+@pytest.mark.parametrize("C,B,d", [(1, 256, 256), (1, 256, 192),
+                                   (4, 256, 256), (2, 96, 200), (1, 1, 7),
+                                   (3, 33, 1024)])
+def test_info_nce_kernels(dev, C, B, d):
+    """Forward (loss, lse), dq and dk against their plain versions, 1e-5
+    relative to the largest value, or absolute where that is below 1 (fp32;
+    the same sums in another order). At B = 1 the exact loss and gradients
+    are 0 and both versions are left with rounding of the lse."""
+    from repro_torch.kernels import infonce
+    q, k = _unit((C, B, d), dev, 0), _unit((C, B, d), dev, 1)
+    g = _rand((C, B), torch.float32, dev, 2)
+    before = ops.launch_counts()
+    got = ops.InfoNCEFn.apply(q, k, 0.2)
+    want = ref.info_nce_rows_ref(q, k, 0.2)
+
+    def close(a, b):
+        scale = max(b.abs().max().item(), 1.0)
+        return (a - b).abs().max().item() <= 1e-5 * scale
+
+    assert all(close(a, b) for a, b in zip(got, want))
+    for wrt_k in (False, True):
+        assert close(infonce.info_nce_bwd(q, k, want[1], g, 0.2, wrt_k),
+                     ref.info_nce_rows_bwd_ref(q, k, want[1], g, 0.2, wrt_k))
+    assert ops.launch_counts()["info_nce_rows"] == \
+        before["info_nce_rows"] + 1
+
+
+def test_info_nce_backward_launches_dq_only_for_detached_k(dev):
+    q = _unit((256, 256), dev, 3).requires_grad_()
+    k = _unit((256, 256), dev, 4)
+    before = ops.launch_counts()
+    ops.info_nce_rows(q, k, 0.2).mean().backward()
+    after = ops.launch_counts()
+    assert after["info_nce_rows_dq"] == before["info_nce_rows_dq"] + 1
+    assert after["info_nce_rows_dk"] == before["info_nce_rows_dk"]
+
+
+def test_vmap_rules_on_card(dev):
+    """vmap over grad of each Function: one kernel launch for all clients,
+    equal to a loop over clients."""
+    C = 4
+    x = _rand((C, 256, 65, 192), torch.float32, dev, 0)
+    s = 1.0 + 0.1 * _rand((C, 192), torch.float32, dev, 1)
+    q, k = _unit((C, 256, 256), dev, 2), _unit((C, 256, 256), dev, 3)
+    a = [_rand((C, 8, 65, 3, 64), torch.float32, dev, i) for i in (4, 5, 6)]
+    cases = [(lambda x, s: (ops.rmsnorm(x, s) ** 2).sum(), (x, s),
+              "rmsnorm_rows"),
+             (lambda q, k: ops.info_nce_rows(q, k.detach(), 0.2).mean(),
+              (q, k), "info_nce_rows"),
+             (lambda q, k, v: (ops.flash_attention(q, k, v, causal=False)
+                               ** 2).sum(), a, "flash_attention")]
+    for fn, args, name in cases:
+        step = torch.func.grad_and_value(fn)
+        before = ops.launch_counts()[name]
+        grads, vals = torch.func.vmap(step)(*args)
+        assert ops.launch_counts()[name] == before + 1
+        for c in range(C):
+            wg, wv = step(*(t[c] for t in args))
+            assert torch.allclose(vals[c], wv, rtol=1e-5, atol=1e-5)
+            assert torch.allclose(grads[c], wg, rtol=1e-4, atol=1e-5)
+
+
+def test_info_nce_wrapper_raises_instead_of_falling_back(dev):
+    q = torch.zeros((1, 8, 2048), device=dev)              # d > 1024
+    with pytest.raises(ValueError):
+        ops.info_nce_rows(q, q, 0.2)
+    with pytest.raises(ValueError):
+        ops.info_nce_rows(q[..., :8].double(), q[..., :8].double(), 0.2)

@@ -149,6 +149,23 @@ def test_rmsnorm_backward():
                                    rtol=1e-5)
 
 
+def test_rmsnorm_grouped_scale_matches_per_group():
+    """A (G, d) scale (the form RMSNormFn's vmap rule hands on) normalises
+    x[g] with scale[g]; values and gradients equal a loop over g."""
+    x = torch.from_numpy(_np((3, 10, 7, 48), 10)).requires_grad_()
+    s = torch.from_numpy(1.0 + 0.1 * _np((3, 48), 11)).requires_grad_()
+    g = torch.from_numpy(_np((3, 10, 7, 48), 12))
+    got = ops.RMSNormFn.apply(x, s, 1e-5)
+    gx, gs = torch.autograd.grad(got, (x, s), g)
+    for i in range(3):
+        xi, si = x[i].detach().requires_grad_(), s[i].detach().requires_grad_()
+        want = ops.rmsnorm(xi, si)
+        wx, ws = torch.autograd.grad(want, (xi, si), g[i])
+        torch.testing.assert_close(got[i], want, rtol=0, atol=1e-6)
+        torch.testing.assert_close(gx[i], wx, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(gs[i], ws, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 8)])
 def test_flash_attention_backward(causal, window):
     B, S, Hq, Hkv, hd = 2, 33, 4, 2, 16
@@ -183,4 +200,49 @@ def test_wrappers_count_only_kernel_launches():
     leaves, layout, total = _layout()
     ops.wire_pack([torch.from_numpy(x) for x in leaves], layout, total)
     ops.rmsnorm(torch.ones(4, 8), torch.ones(8))
+    ops.info_nce_rows(torch.ones(4, 8), torch.ones(4, 8), 0.2)
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+
+
+def _loss_rmsnorm(x, s):
+    return (ops.rmsnorm(x, s) ** 2).sum()
+
+
+def _loss_attention(q, k, v):
+    return (ops.flash_attention(q, k, v, causal=False) ** 2).sum()
+
+
+def _loss_info_nce(q, k):
+    return ops.info_nce_rows(q, k, 0.2).mean()
+
+
+# Function -> (per-client loss, per-client input shapes, vmapped inputs)
+VMAP_CASES = {
+    "rmsnorm": (_loss_rmsnorm, [(5, 7, 16), (16,)], (0, 0)),
+    "rmsnorm_shared_scale": (_loss_rmsnorm, [(5, 7, 16), (16,)], (0, None)),
+    "flash_attention": (_loss_attention,
+                        [(2, 9, 4, 8), (2, 9, 2, 8), (2, 9, 2, 8)],
+                        (0, 0, 0)),
+    "info_nce": (_loss_info_nce, [(24, 16), (24, 16)], (0, 0)),
+    "info_nce_shared_k": (_loss_info_nce, [(24, 16), (24, 16)], (0, None)),
+}
+
+
+@pytest.mark.parametrize("case", list(VMAP_CASES))
+def test_vmap_rule_matches_client_loop(case):
+    """``torch.func.vmap`` over ``grad_and_value`` of each Function (its
+    ``vmap`` rule hands the client axis to one kernel call) equals a loop
+    over the clients, values and gradients with respect to every input."""
+    fn, shapes, in_dims = VMAP_CASES[case]
+    C = 3
+    args = [torch.from_numpy(_np((C,) + s if d is not None else s, i))
+            for i, (s, d) in enumerate(zip(shapes, in_dims))]
+    argnums = tuple(range(len(args)))
+    step = torch.func.grad_and_value(fn, argnums=argnums)
+    grads, values = torch.func.vmap(step, in_dims=in_dims)(*args)
+    for c in range(C):
+        one = [a[c] if d is not None else a for a, d in zip(args, in_dims)]
+        want_g, want_v = step(*one)
+        torch.testing.assert_close(values[c], want_v, rtol=1e-6, atol=1e-6)
+        for got, want in zip(grads, want_g):
+            torch.testing.assert_close(got[c], want, rtol=1e-6, atol=1e-6)

@@ -88,13 +88,29 @@ def test_cli_codecs_run_to_linear_eval_on_cpu(extra):
     assert "linear evaluation accuracy" in out.stdout
 
 
+def test_cli_runs_vmap_engine_to_linear_eval_on_cpu():
+    out = _run(["-m", "repro_torch.launch.train", "--mode", "vit",
+                "--engine", "vmap", "--device", "cpu", "--rounds", "2",
+                "--clients", "2", "--batch", "8", "--samples", "64",
+                "--layers", "2", "--d-model", "32"])
+    assert out.returncode == 0, out.stderr
+    assert "round 2/2 stage 2" in out.stdout
+    assert "linear evaluation accuracy" in out.stdout
+
+
+def test_cli_vmap_engine_refuses_to_fall_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--engine", "vmap", "--rounds", "2", "--layers", "2"])
+
+
 def test_cli_rejects_unknown_codec(capsys):
     with pytest.raises(SystemExit) as e:
         train.main(["--device", "cpu", "--codec", "int4"])
     assert e.value.code == 2 and "unknown codec" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--engine", "vmap"], ["--fleet", "uniform"],
+@pytest.mark.parametrize("flag", [["--secure-agg"], ["--fleet", "uniform"],
                                   ["--mode", "lm"], ["--trace"]])
 def test_cli_rejects_features_not_ported(flag, capsys):
     with pytest.raises(SystemExit) as e:
