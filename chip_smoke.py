@@ -32,8 +32,26 @@ Phases, each of which must pass (any failure exits non-zero):
    blocks, 2 rounds of one local step): the first round's losses, and the
    per-client losses of three batched steps against the sequential step
    from the same states, within 1e-4 (their gradients are printed).
+2d. LM path: LW-FedSSL on the zamba2-2.7b LM at its published widths
+   (d 2560, 32 heads of 80, SwiGLU d_ff 10240, vocab 32000, Mamba2 state 64,
+   head dim 64, expand 2, chunk 256, bf16 compute, fp32 params), depth cut
+   from 54 Mamba2 blocks to 12 (2 stage groups of 6, each followed by the
+   shared attention block): ``run_lm_fedssl``, 4 clients, 4 rounds (2 a
+   stage), batch 4 x 1024 tokens, 64 synthetic sequences (4 local steps a
+   client and round), fp32 wire. Counters set to 0 before, read after;
+   losses finite, wire bytes equal to the analytic bytes in every round,
+   and the ``ssd_scan`` and ``flash_attention`` launches equal to the counts
+   the plan implies (12 s scans and 2 s attentions a local step at stage
+   s: the online forward, frozen groups included, and the global model's);
+   seconds per round and peak memory. Then ``gather_pack`` and
+   ``scatter_unpack`` are held bit-identical to their plain versions on
+   every download and upload layout of the run's plan over the trained
+   tree (up to 747,364,160 floats, 2.99 GB), and timed at the largest.
 3. reference: one SSL loss at full width on 8 images, fp32 compute, on the
-   card (kernels) against the CPU (plain PyTorch versions).
+   card (kernels) against the CPU (plain PyTorch versions); then one
+   ``lm_ssl_loss`` with alignment on the trained zamba2 model, one stage
+   group, 2 x 512 tokens (two SSD chunks, so the carried state runs), fp32
+   compute, the same way.
 4. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the main path's shapes (plus a causal + sliding-window + GQA
    attention case and the backward of both autograd Functions), with the
@@ -47,11 +65,16 @@ Phases, each of which must pass (any failure exits non-zero):
    path's MoCo terms), (1, 256, 192) (its alignment terms), (4, 256, 256)
    (the vmap path's) and a ragged (2, 96, 200), within 1e-5 of the largest
    value; ``torch.matmul`` + ``F.cross_entropy`` is timed beside the
-   forward for context (two calls, so not a library time).
+   forward for context (two calls, so not a library time). The LM path's
+   shapes: the SSD scan at (4, 1024, 80, 64), N 64, chunk 256, a small case
+   with another chunk and its backward; causal attention at (4, 1024, 32,
+   80) bf16; RMSNorm at (4096, 2560) and (4096, 5120); InfoNCE at (1, 4,
+   2560) and at a width above 4096.
 
 With ``--profile``, a fifth phase traces one local step of the last stage
 with ``torch.profiler``, of one client and of four at once (the vmap
-engine's step), and prints where its device time goes.
+engine's step), and one local step of the LM path at stage 2, and prints
+where their device time goes.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. TF32 is off throughout,
@@ -101,6 +124,8 @@ TPU_SOURCES = {
                          "src/repro/kernels/infonce.py:65"),
     "info_nce_rows_dk": ("src/repro_torch/kernels/csrc/infonce.cu",
                          "src/repro/kernels/infonce.py:65"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/mamba2_scan.py:67"),
 }
 # the kernels each path must launch; a kernel's "launches" in the kernels
 # line is its count on the first path that lists it. info_nce_rows_dk is on
@@ -113,8 +138,12 @@ PATH_KERNELS = {
     "int8": ("int8_quant_matrix", "int8_dequant_matrix"),
     "topk": ("compensate", "topk_ef_update"),
     "vmap": MAIN_KERNELS,
+    "lm": MAIN_KERNELS + ("ssd_scan",),
 }
 TOPK_ROUNDS_PER_STAGE = (1,) * 11 + (3,)
+# phase 2d: zamba2-2.7b at full width, 2 stage groups of 6 Mamba2 blocks
+LM_ARCH, LM_GROUPS = "zamba2-2.7b", 2
+LM_RUN = dict(clients=4, rounds=4, batch=4, seq_len=1024, samples=64)
 
 
 class SmokeFailure(Exception):
@@ -328,6 +357,141 @@ def engine_comparison(model_cfg, ssl_cfg, layers=2, steps=3):
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: the LM path
+# ---------------------------------------------------------------------------
+def lm_config(groups=LM_GROUPS, **kw):
+    """zamba2-2.7b at its published widths, depth cut to ``groups`` stage
+    groups of ``attn_every`` Mamba2 blocks."""
+    from repro_torch.configs.base import load_arch
+    cfg = load_arch(LM_ARCH)
+    return dataclasses.replace(cfg, num_layers=groups * cfg.attn_every, **kw)
+
+
+def lm_path(device, *, clients, rounds, batch, seq_len, samples, seed=0,
+            codec="fp32"):
+    """LW-FedSSL through ``run_lm_fedssl`` on ``lm_config()``. Returns
+    (cfg, final params, history, per-round seconds, plans, tokens)."""
+    import torch
+    from repro_torch.configs.base import FLConfig, TrainConfig
+    from repro_torch.core import schedule as sched
+    from repro_torch.data.partition import iid_partition
+    from repro_torch.data.synthetic import synthetic_tokens
+    from repro_torch.federated.driver import run_lm_fedssl
+    from repro_torch.models import lm
+
+    cfg = lm_config()
+    fl = FLConfig(num_clients=clients, rounds=rounds, local_epochs=1,
+                  schedule="lw_fedssl", seed=seed)
+    tc = TrainConfig(batch_size=batch, base_lr=3e-4)
+    gen = torch.Generator(device).manual_seed(seed)
+    toks, labs = synthetic_tokens(gen, samples, seq_len, cfg.vocab_size)
+    shards = iid_partition(samples, clients, seed=seed)
+    params = lm.init_lm(cfg, gen, device)
+    print(f"  {cfg.arch_id}: {cfg.num_layers} Mamba2 blocks in "
+          f"{lm.num_stages(cfg)} stage groups, d {cfg.d_model}, "
+          f"{sum(t.numel() for t in params.values())} parameters",
+          flush=True)
+    stamps = []
+
+    def log(line):
+        stamps.append(time.perf_counter())
+        print("  " + line, flush=True)
+
+    t0 = time.perf_counter()
+    params, hist = run_lm_fedssl(cfg, fl, tc, tokens=toks, labels=labs,
+                                 shards=shards, params=params, device=device,
+                                 codec=codec, log=log)
+    secs = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    steps = [max(1, len(ix) // batch) * fl.local_epochs for ix in shards]
+    return (cfg, params, hist, secs,
+            sched.build_schedule(fl, lm.num_stages(cfg)), steps, toks)
+
+
+def lm_expected_launches(cfg, plans, steps):
+    """(ssd_scan, flash_attention) launches the LM path's plan implies:
+    per local step at stage s, s groups of ``attn_every`` scans and one
+    attention each, in the online forward (frozen groups included) and
+    again in the global model's when the plan aligns."""
+    scans = attns = 0
+    for plan in plans:
+        passes = 2 if plan.align else 1
+        for n in steps:
+            scans += n * passes * plan.sub_layers * cfg.attn_every
+            attns += n * passes * plan.sub_layers
+    return scans, attns
+
+
+def lm_pack_checks(params, plans):
+    """gather_pack and scatter_unpack against their plain versions on the
+    LM path's own payloads: every distinct download and upload layout of
+    ``plans`` over the trained zamba tree (the (groups, attn_every, ...)
+    block stacks, shared_attn, embed, lm_head, final_ln), bit-identical;
+    unpack of a random payload into fresh leaves. Times at the largest
+    payload. Returns {name: record}."""
+    import torch
+    from repro_torch.federated.transport import Transport
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(9)
+    specs = {}
+    for plan in plans:
+        for direction, spec in Transport().plan_specs(params, plan).items():
+            key = (spec.total, tuple(map(tuple, spec.layout)),
+                   tuple(s.path for s in spec.slots))
+            names = specs.setdefault(key, ([], spec))[0]
+            if f"stage {plan.stage} {direction}" not in names:
+                names.append(f"stage {plan.stage} {direction}")
+    specs = [(" = ".join(names), spec) for names, spec in specs.values()]
+    for what, spec in specs:
+        leaves = [params["/".join(s.path)] for s in spec.slots]
+        flat = ops.wire_pack(leaves, spec.layout, spec.total)
+        err = max_err(flat, ref.wire_pack_ref(leaves, spec.layout,
+                                              spec.total))
+        print(f"  gather_pack LM {what} ({spec.total} floats in "
+              f"{len(spec.slots)} slots): max |kernel - plain| = {err:.3e} "
+              f"(tolerance 0)", flush=True)
+        check(err == 0.0, f"gather_pack LM {what}: error {err}")
+        del flat
+        new = torch.randn(spec.total, generator=gen, device=dev)
+        err = max_err(ops.wire_unpack(new, leaves, spec.layout),
+                      ref.wire_unpack_ref(new, leaves, spec.layout))
+        print(f"  scatter_unpack LM {what}: max |kernel - plain| = "
+              f"{err:.3e} (tolerance 0)", flush=True)
+        check(err == 0.0, f"scatter_unpack LM {what}: error {err}")
+        del new
+    what, spec = max(specs, key=lambda ws: ws[1].total)
+    leaves = [params["/".join(s.path)] for s in spec.slots]
+    leaf_bytes = 4 * sum(t.numel() for t in leaves)
+    slices = [t.reshape(-1)[a:a + n] for t, (a, _, n) in
+              zip(leaves, spec.layout)]
+    new = torch.randn(spec.total, generator=gen, device=dev)
+    rec = {"gather_pack_lm": dict(
+        max_abs_err=0.0,
+        ms=time_ms([lambda: ops.wire_pack(leaves, spec.layout, spec.total)]),
+        plain_ms=time_ms([lambda: ref.wire_pack_ref(leaves, spec.layout,
+                                                    spec.total)]),
+        library_ms=time_ms([lambda: torch.cat(slices)]),
+        bound_ms=2 * 4 * spec.total / HBM_BPS * 1e3, bound_by="bytes",
+        shape=f"LM {what} payload {spec.total} fp32 in {len(leaves)} "
+              f"slots"),
+        "scatter_unpack_lm": dict(
+        max_abs_err=0.0,
+        ms=time_ms([lambda: ops.wire_unpack(new, leaves, spec.layout)]),
+        plain_ms=time_ms([lambda: ref.wire_unpack_ref(new, leaves,
+                                                      spec.layout)]),
+        library_ms=None,
+        bound_ms=2 * leaf_bytes / HBM_BPS * 1e3, bound_by="bytes",
+        shape=f"LM {what} payload {spec.total} fp32 into "
+              f"{leaf_bytes // 4} leaf elements")}
+    for name, r in rec.items():
+        print(f"  LM shapes, {name} [{r['shape']}]: kernel {r['ms']} ms, "
+              f"plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
+              f"bound {r['bound_ms']} ms ({r['bound_by']})", flush=True)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 3: full-width SSL loss, card against CPU
 # ---------------------------------------------------------------------------
 def reference_check(model_cfg, ssl_cfg, state, images):
@@ -362,6 +526,39 @@ def reference_check(model_cfg, ssl_cfg, state, images):
     return rel, zerr
 
 
+def lm_reference_check(params, tokens, n=2, seq=512):
+    """``lm_ssl_loss`` with alignment at full width, stage group 1, on ``n``
+    x ``seq`` tokens at fp32 compute: kernels on the card against the plain
+    versions on the CPU. The global model is the trained one with every
+    leaf nudged by 1e-3 of its spread (noise from a fixed seed), so the
+    alignment compares two models; with one sequence its InfoNCE would have
+    a single row and be 0 exactly, hence two. Returns {metric: relative
+    difference}."""
+    import torch
+    from repro_torch.core.ssl import lm_ssl_loss
+
+    cfg = lm_config(compute_dtype="float32")
+    gen = torch.Generator("cpu").manual_seed(2)
+    local = {k: v.cpu() for k, v in params.items()}
+    glob = {k: v + 1e-3 * v.std() * torch.randn(v.shape, generator=gen)
+            if v.numel() > 1 else v for k, v in local.items()}
+    tok = tokens[:n, :seq].cpu()
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, dims=1)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        with torch.no_grad():
+            _, m = lm_ssl_loss(
+                {k: v.to(dev) for k, v in local.items()},
+                {k: v.to(dev) for k, v in batch.items()}, cfg,
+                sub_layers=1, active_from=0,
+                global_params={k: v.to(dev) for k, v in glob.items()},
+                align_weight=0.01)
+        out[dev] = {k: float(v) for k, v in m.items() if k != "aux"}
+    print(f"  card {out['cuda']}, CPU {out['cpu']}", flush=True)
+    return {k: abs(out["cuda"][k] - v) / max(abs(v), 1e-12)
+            for k, v in out["cpu"].items()}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: kernels against their plain versions, and their times
 # ---------------------------------------------------------------------------
@@ -386,6 +583,13 @@ def time_ms(calls, iters=24) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes, flops, peak=FP32_FLOPS):
+    """(bound ms, what bounds it) of work moving ``nbytes`` and doing
+    ``flops`` at ``peak``."""
+    tb, tf = nbytes / HBM_BPS, flops / peak
+    return max(tb, tf) * 1e3, "bytes" if tb > tf else "operations"
 
 
 def copies(nbytes: int) -> int:
@@ -475,15 +679,13 @@ def kernel_checks(state):
     def over(fn):
         return [lambda a=a: fn(a) for a in xs]
 
+    bms, by = bound(nbytes, 4 * R * d)
     rec["rmsnorm_rows"] = dict(
         max_abs_err=err, ms=time_ms(over(lambda a: ops.rmsnorm(a, scale))),
         plain_ms=time_ms(over(lambda a: ref.rmsnorm_ref(a, scale))),
         library_ms=time_ms(over(lambda a: F.rms_norm(a, (d,), scale,
                                                      1e-5))),
-        bound_ms=max(nbytes / HBM_BPS, 4 * R * d / FP32_FLOPS) * 1e3,
-        bound_by="bytes" if nbytes / HBM_BPS > 4 * R * d / FP32_FLOPS
-        else "operations",
-        shape=f"x ({R}, {d}) fp32")
+        bound_ms=bms, bound_by=by, shape=f"x ({R}, {d}) fp32")
 
     # attention: the ViT's bf16 q, k, v at batch 256
     B, S, Hh, hd = 256, 65, 3, 64
@@ -503,6 +705,7 @@ def kernel_checks(state):
     line(f"flash_attention ({B}, {S}, {Hh}, {hd}) bf16", err, 2e-2)
     bhsd = [tuple(t.transpose(1, 2).contiguous() for t in qkv)
             for qkv in qkvs]
+    bms, by = bound(nbytes, flops, BF16_FLOPS)
     rec["flash_attention"] = dict(
         max_abs_err=err,
         ms=time_ms([lambda a=a: ops.flash_attention(*a, causal=False)
@@ -510,9 +713,7 @@ def kernel_checks(state):
         plain_ms=time_ms([lambda a=a: plain(*a) for a in qkvs]),
         library_ms=time_ms([lambda a=a: F.scaled_dot_product_attention(*a)
                             for a in bhsd]),
-        bound_ms=max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3,
-        bound_by="bytes" if nbytes / HBM_BPS > flops / BF16_FLOPS
-        else "operations",
+        bound_ms=bms, bound_by=by,
         shape=f"q, k, v ({B}, {S}, {Hh}, {hd}) bf16, non-causal")
 
     # the masks the ViT does not use: causal + window + GQA, and kv_len
@@ -745,9 +946,7 @@ def infonce_kernel_checks(tau=0.2):
             print(f"  {name} ({C}, {B}, {d}): kernel {recs[name]['ms']} ms, "
                   f"plain {recs[name]['plain_ms']} ms", flush=True)
         for name, r in recs.items():
-            tb, tf = r["nbytes"] / HBM_BPS, r["flops"] / FP32_FLOPS
-            r.update(bound_ms=max(tb, tf) * 1e3,
-                     bound_by="bytes" if tb > tf else "operations")
+            r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["flops"])
             if C == 1:
                 rec[name] = dict(
                     r, max_abs_err=errs[name], library_ms=None,
@@ -757,6 +956,187 @@ def infonce_kernel_checks(tau=0.2):
             else:
                 rec[name]["c4"] = {k: r[k] for k in ("ms", "plain_ms",
                                                      "bound_ms")}
+    return rec
+
+
+def ssd_inputs(B, S, H, P, N, gen, dev="cuda"):
+    """SSD scan inputs shaped as a Mamba2 block makes them at
+    initialisation: x and B, C after the conv's silu, dt = softplus(z - 2)
+    (dt_bias -2), A = -1 (a_log 0)."""
+    import torch
+    import torch.nn.functional as F
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    dt = F.softplus(rn(B, S, H) - 2.0)
+    return (F.silu(rn(B, S, H, P)), dt, -dt, F.silu(rn(B, S, N)),
+            F.silu(rn(B, S, N)))
+
+
+def ssd_flops(B, S, H, P, N, chunk):
+    """Operations the scan needs: C.B^T over the causal half (Q (Q + 1) / 2
+    entries) once per (batch, chunk), since Bm and Cm are shared by the
+    heads; per (batch, head, chunk) M.x over the causal half, C.h^T and the
+    state update."""
+    Q = chunk
+    return (B * (S // Q) * Q * (Q + 1) * N
+            + B * H * (S // Q) * (Q * (Q + 1) * P + 4 * Q * N * P))
+
+
+def lm_kernel_checks():
+    """The kernels at the LM path's shapes against their plain versions,
+    with times and bounds: the SSD scan (and a small case with another
+    chunk, and the Function's backward), causal attention at head dim 80,
+    RMSNorm at d_model and d_inner, InfoNCE at d_model and above 4096.
+    Returns ({name: record of the LM path's shape}, printed lines)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import infonce as nce
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(8)
+    rec = {}
+
+    def rel(a, b):
+        a = a if isinstance(a, (list, tuple)) else [a]
+        b = b if isinstance(b, (list, tuple)) else [b]
+        return max_err(a, b) / max(max(float(y.abs().max()) for y in b),
+                                   1e-30)
+
+    def line(what, err, tol):
+        print(f"  {what}: max |kernel - plain| over max |plain| = "
+              f"{err:.3e} (tolerance {tol:g})", flush=True)
+        check(err <= tol, f"{what}: error {err} above {tol}")
+
+    # the SSD scan: the path's shape, a smaller chunk, and the backward
+    B, S, H, P, N, Q = 4, 1024, 80, 64, 64, 256
+    sets = [ssd_inputs(B, S, H, P, N, gen) for _ in range(2)]
+    err = rel(ops.ssd_scan(*sets[0], chunk=Q),
+              ref.ssd_scan_ref(*sets[0], chunk=Q))
+    line(f"ssd_scan ({B}, {S}, {H}, {P}) N {N} chunk {Q} fp32", err, 1e-4)
+    for shape in ((1, 384, 3, 32, 16, 128), (2, 96, 5, 64, 64, 32)):
+        args = ssd_inputs(*shape[:5], gen)
+        line(f"ssd_scan {shape[:4]} N {shape[4]} chunk {shape[5]}",
+             rel(ops.ssd_scan(*args, chunk=shape[5]),
+                 ref.ssd_scan_ref(*args, chunk=shape[5])), 1e-4)
+    ins = [t.clone().requires_grad_() for t in ssd_inputs(2, 256, 4, 32, 16,
+                                                          gen)]
+    g = torch.randn((2, 256, 4, 32), generator=gen, device=dev)
+    got = torch.autograd.grad((ops.ssd_scan(*ins, chunk=64) * g).sum(), ins)
+    want = torch.autograd.grad((ref.ssd_scan_ref(*ins, chunk=64) * g).sum(),
+                               ins)
+    line("ssd_scan backward (2, 256, 4, 32) N 16 chunk 64",
+         max(rel(a, b) for a, b in zip(got, want)), 1e-4)
+    nbytes = 4 * (2 * B * S * H * P + 2 * B * S * H + 2 * B * S * N)
+    bms, by = bound(nbytes, ssd_flops(B, S, H, P, N, Q))
+    rec["ssd_scan"] = dict(
+        max_abs_err=max_err(ops.ssd_scan(*sets[0], chunk=Q),
+                            ref.ssd_scan_ref(*sets[0], chunk=Q)),
+        ms=time_ms([lambda a=a: ops.ssd_scan(*a, chunk=Q) for a in sets]),
+        plain_ms=time_ms([lambda a=a: ref.ssd_scan_ref(*a, chunk=Q)
+                          for a in sets]),
+        library_ms=None, bound_ms=bms, bound_by=by,
+        shape=f"xh ({B}, {S}, {H}, {P}), N {N}, chunk {Q}, fp32 "
+              f"(one Mamba2 block of the LM path)")
+
+    # causal attention at head dim 80: the shared block's
+    B, S, Hh, hd = 4, 1024, 32, 80
+    qkvs = [tuple(torch.randn((B, S, Hh, hd), generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(3)) for _ in range(2)]
+
+    def plain(q, k, v):
+        return ref.sdpa_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True).transpose(1, 2)
+
+    o = ops.flash_attention(*qkvs[0], causal=True)
+    err = max_err(o, plain(*qkvs[0]))
+    print(f"  flash_attention ({B}, {S}, {Hh}, {hd}) bf16 causal: max "
+          f"|kernel - plain| = {err:.3e} (tolerance 2e-2)", flush=True)
+    check(err <= 2e-2, f"flash_attention hd 80: error {err}")
+    q32 = [t.float() for t in qkvs[0]]
+    line(f"flash_attention ({B}, {S}, {Hh}, {hd}) fp32 causal",
+         rel(ops.flash_attention(*q32, causal=True), plain(*q32)), 1e-5)
+    bhsd = [tuple(t.transpose(1, 2).contiguous() for t in qkv)
+            for qkv in qkvs]
+    bms, by = bound(2 * 4 * B * S * Hh * hd,
+                    4 * B * Hh * (S * (S + 1) // 2) * hd, BF16_FLOPS)
+    rec["flash_attention"] = dict(
+        max_abs_err=err,
+        ms=time_ms([lambda a=a: ops.flash_attention(*a, causal=True)
+                    for a in qkvs]),
+        plain_ms=time_ms([lambda a=a: plain(*a) for a in qkvs]),
+        library_ms=time_ms([lambda a=a: F.scaled_dot_product_attention(
+            *a, is_causal=True) for a in bhsd]),
+        bound_ms=bms, bound_by=by,
+        shape=f"q, k, v ({B}, {S}, {Hh}, {hd}) bf16, causal")
+
+    # RMSNorm: the residual stream (d_model) and the gated norm (d_inner)
+    for d in (2560, 5120):
+        R = 4 * 1024
+        xs = [torch.randn((R, d), generator=gen, device=dev)
+              for _ in range(copies(8 * R * d))]
+        sc = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        line(f"rmsnorm_rows ({R}, {d}) fp32",
+             rel(ops.rmsnorm(xs[0], sc), ref.rmsnorm_ref(xs[0], sc)), 1e-5)
+        bms, by = bound(4 * (2 * R * d + d), 4 * R * d)
+        rec[f"rmsnorm_rows_{d}"] = dict(
+            max_abs_err=max_err(ops.rmsnorm(xs[0], sc),
+                                ref.rmsnorm_ref(xs[0], sc)),
+            ms=time_ms([lambda a=a: ops.rmsnorm(a, sc) for a in xs]),
+            plain_ms=time_ms([lambda a=a: ref.rmsnorm_ref(a, sc)
+                              for a in xs]),
+            library_ms=time_ms([lambda a=a: F.rms_norm(a, (d,), sc, 1e-5)
+                                for a in xs]),
+            bound_ms=bms, bound_by=by, shape=f"x ({R}, {d}) fp32")
+
+    # InfoNCE: the alignment term's mean-pooled hidden states, and wider
+    tau = 0.2
+    for C, Bn, d in ((1, 4, 2560), (1, 4, 5000), (2, 40, 4100)):
+        q = F.normalize(torch.randn((C, Bn, d), generator=gen, device=dev),
+                        dim=-1)
+        k = F.normalize(torch.randn((C, Bn, d), generator=gen, device=dev),
+                        dim=-1)
+        gg = torch.randn((C, Bn), generator=gen, device=dev) / Bn
+        loss, lse = nce.info_nce_fwd(q, k, tau)
+        wl, wlse = ref.info_nce_rows_ref(q, k, tau)
+        errs = {"info_nce_rows": rel([loss, lse], [wl, wlse])}
+        for name, wrt_k in (("info_nce_rows_dq", False),
+                            ("info_nce_rows_dk", True)):
+            errs[name] = rel(nce.info_nce_bwd(q, k, wlse, gg, tau, wrt_k),
+                             ref.info_nce_rows_bwd_ref(q, k, wlse, gg, tau,
+                                                       wrt_k))
+        for name, e in errs.items():
+            line(f"{name} ({C}, {Bn}, {d})", e, 1e-5)
+        if d != 2560:
+            continue
+        nb = 4 * (2 * C * Bn * d + 2 * C * Bn)
+        bms, by = bound(nb, 2 * C * Bn * Bn * d)
+        rec["info_nce_rows"] = dict(
+            max_abs_err=max_err([loss, lse], [wl, wlse]),
+            ms=time_ms([lambda: nce.info_nce_fwd(q, k, tau)]),
+            plain_ms=time_ms([lambda: ref.info_nce_rows_ref(q, k, tau)]),
+            library_ms=None, bound_ms=bms, bound_by=by,
+            shape=f"q, k ({C}, {Bn}, {d}) fp32 (the alignment term)")
+        for name, wrt_k in (("info_nce_rows_dq", False),
+                            ("info_nce_rows_dk", True)):
+            bms, by = bound(4 * (3 * C * Bn * d + 2 * C * Bn),
+                            4 * C * Bn * Bn * d)
+            rec[name] = dict(
+                max_abs_err=max_err(
+                    nce.info_nce_bwd(q, k, wlse, gg, tau, wrt_k),
+                    ref.info_nce_rows_bwd_ref(q, k, wlse, gg, tau, wrt_k)),
+                ms=time_ms([lambda w=wrt_k: nce.info_nce_bwd(
+                    q, k, wlse, gg, tau, w)]),
+                plain_ms=time_ms([lambda w=wrt_k: ref.info_nce_rows_bwd_ref(
+                    q, k, wlse, gg, tau, w)]),
+                library_ms=None, bound_ms=bms, bound_by=by,
+                shape=f"q, k ({C}, {Bn}, {d}) fp32")
+    for name, r in rec.items():
+        print(f"  LM shapes, {name} [{r['shape']}]: kernel {r['ms']} ms, "
+              f"plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
+              f"bound {r['bound_ms']} ms ({r['bound_by']})", flush=True)
     return rec
 
 
@@ -775,7 +1155,8 @@ KERNEL_NAMES = {"gather_pack": ("gather_pack_kernel",),
                                    "ef_select_kernel"),
                 "info_nce_rows": ("info_nce_fwd_kernel",),
                 "info_nce_rows_dq": ("info_nce_bwd_kernel<false>",),
-                "info_nce_rows_dk": ("info_nce_bwd_kernel<true>",)}
+                "info_nce_rows_dk": ("info_nce_bwd_kernel<true>",),
+                "ssd_scan": ("ssd_scan_kernel",)}
 
 
 def profile_step(model_cfg, ssl_cfg, state, images, clients=1, steps=3):
@@ -818,6 +1199,44 @@ def profile_step(model_cfg, ssl_cfg, state, images, clients=1, steps=3):
         stacked_train_step(st, opt.init(on), x1.unflatten(0, (clients, -1)),
                            x2.unflatten(0, (clients, -1)), 1e-4, **kw)
 
+    profile_device(step, f"one local step of {clients} client(s)", steps)
+
+
+def profile_lm_step(steps=2, seed=5):
+    """``steps`` local steps of the LM path at stage 2 (group 2 trained on
+    the frozen group 1, alignment on) on one client's batch of 4 x 1024
+    tokens, from fresh parameters: wall time and device time by kernel, as
+    ``profile_step``."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import synthetic_tokens
+    from repro_torch.federated.client import lm_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import make_optimizer
+
+    cfg = lm_config()
+    gen = torch.Generator("cuda").manual_seed(seed)
+    params = lm.init_lm(cfg, gen, "cuda")
+    toks, labs = synthetic_tokens(gen, 4, 1024, cfg.vocab_size)
+    opt = make_optimizer(TrainConfig(batch_size=4, base_lr=3e-4))
+
+    def step():
+        lm_train_step(params, opt.init(params),
+                      {"tokens": toks, "labels": labs}, 1e-5, cfg=cfg,
+                      opt=opt, sub_layers=2, active_from=1,
+                      global_params=params, align_weight=0.01)
+
+    profile_device(step, "one LM local step at stage 2 (4 x 1024 tokens)",
+                   steps)
+
+
+def profile_device(step, what, steps):
+    """Wall time of ``steps`` calls of ``step`` after two warm-up calls,
+    then their device time by kernel under torch.profiler, and the device's
+    busy share of the unprofiled wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -842,8 +1261,7 @@ def profile_step(model_cfg, ssl_cfg, state, images, clients=1, steps=3):
             rows.append((us / 1e3 / steps, e.count // steps, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"  one local step of {clients} client(s): {wall_ms:.2f} ms wall "
-          f"(unprofiled), "
+    print(f"  {what}: {wall_ms:.2f} ms wall (unprofiled), "
           f"{busy:.2f} ms of device time ({100 * busy / wall_ms:.1f}% "
           f"busy)")
     for name, knames in KERNEL_NAMES.items():
@@ -947,10 +1365,6 @@ def run(profile: bool = False) -> int:
           f"{hist.loss[-1]:.4f}); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"  vmap: kernel launches {launches['vmap']}", flush=True)
-    for path, names in PATH_KERNELS.items():
-        for name in names:
-            check(launches[path][name] > 0,
-                  f"{name} never launched on the {path} path")
     seq_loss, vm_loss, perr, lock, gerr, gl2 = engine_comparison(model_cfg,
                                                                  ssl_cfg)
     first = abs(seq_loss[0] - vm_loss[0])
@@ -966,17 +1380,85 @@ def run(profile: bool = False) -> int:
     check(first <= 1e-4 and lock <= 1e-4,
           f"engines disagree: {seq_loss} vs {vm_loss}, lockstep {lock}")
 
+    print(f"[2d] LM path: LW-FedSSL on {LM_ARCH} at full width, "
+          f"{LM_GROUPS} stage groups, {LM_RUN['clients']} clients, "
+          f"{LM_RUN['rounds']} rounds, batch {LM_RUN['batch']} x "
+          f"{LM_RUN['seq_len']} tokens, {LM_RUN['samples']} sequences, fp32 "
+          f"wire", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    lcfg, lparams, lhist, lsecs, lplans, lsteps, ltoks = lm_path(
+        "cuda", **LM_RUN)
+    torch.cuda.synchronize()
+    launches["lm"] = ops.launch_counts()
+    check(len(lhist.loss) == LM_RUN["rounds"]
+          and lhist.round_stage == [p.stage for p in lplans],
+          f"LM rounds {lhist.round_stage}")
+    check(all(math.isfinite(x) for x in lhist.loss),
+          f"non-finite LM loss: {lhist.loss}")
+    check(lhist.wire_download_bytes == lhist.download_bytes
+          and lhist.wire_upload_bytes == lhist.upload_bytes,
+          f"LM wire bytes {lhist.wire_download_bytes} / "
+          f"{lhist.wire_upload_bytes} differ from the analytic "
+          f"{lhist.download_bytes} / {lhist.upload_bytes}")
+    want_scans, want_attn = lm_expected_launches(lcfg, lplans, lsteps)
+    print(f"  LM: seconds per round {[round(x, 3) for x in lsecs]}; losses "
+          f"{[round(x, 4) for x in lhist.loss]}; wire bytes equal analytic "
+          f"bytes in all {len(lhist.loss)} rounds: download "
+          f"{lhist.wire_download_bytes}, upload {lhist.wire_upload_bytes} "
+          f"per client; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"  LM: kernel launches {launches['lm']}; ssd_scan "
+          f"{launches['lm']['ssd_scan']} (the plan implies {want_scans}), "
+          f"flash_attention {launches['lm']['flash_attention']} (the plan "
+          f"implies {want_attn})", flush=True)
+    check(launches["lm"]["ssd_scan"] == want_scans,
+          f"ssd_scan launched {launches['lm']['ssd_scan']} times, the plan "
+          f"implies {want_scans}")
+    check(launches["lm"]["flash_attention"] == want_attn,
+          f"flash_attention launched {launches['lm']['flash_attention']} "
+          f"times, the plan implies {want_attn}")
+    check(launches["lm"]["info_nce_rows_dk"] == 0,
+          "info_nce_rows_dk launched on the LM path (its k is detached)")
+    for path, names in PATH_KERNELS.items():
+        for name in names:
+            check(launches[path][name] > 0,
+                  f"{name} never launched on the {path} path")
+    print("  LM payloads: gather_pack and scatter_unpack against their "
+          "plain versions on every layout of the plan", flush=True)
+    lm_pack_rec = lm_pack_checks(lparams, lplans)
+
     print("[3] full-width SSL loss on 8 images, fp32: card kernels against "
           "CPU plain versions", flush=True)
     rel, zerr = reference_check(model_cfg, ssl_cfg, state, images)
     print(f"  loss relative difference {rel:.3e} (tolerance 1e-4); CLS max "
           f"difference {zerr:.3e} (tolerance 1e-3)", flush=True)
     check(rel <= 1e-4 and zerr <= 1e-3, "card and CPU disagree")
+    print(f"[3b] {LM_ARCH} lm_ssl_loss with alignment, full width, stage "
+          f"group 1, 2 x 512 tokens (two SSD chunks, so the carried state "
+          f"runs), fp32: card kernels against CPU plain versions",
+          flush=True)
+    rels = lm_reference_check(lparams, ltoks)
+    print(f"  relative differences {rels} (tolerance 1e-4)", flush=True)
+    check(all(v <= 1e-4 for v in rels.values()), "LM: card and CPU disagree")
+    del lparams
+    torch.cuda.empty_cache()
 
     print("[4] kernels against their plain versions, and times", flush=True)
     rec = kernel_checks(state)
     rec.update(codec_kernel_checks(state))
     rec.update(infonce_kernel_checks())
+    lm_rec = lm_kernel_checks()
+    lm_rec.update(lm_pack_rec)
+    rec["ssd_scan"] = lm_rec["ssd_scan"]
+    at_lm = {"gather_pack": ["gather_pack_lm"],
+             "scatter_unpack": ["scatter_unpack_lm"],
+             "flash_attention": ["flash_attention"],
+             "rmsnorm_rows": ["rmsnorm_rows_2560", "rmsnorm_rows_5120"],
+             "info_nce_rows": ["info_nce_rows"],
+             "info_nce_rows_dq": ["info_nce_rows_dq"],
+             "info_nce_rows_dk": ["info_nce_rows_dk"]}
     kernels = []
     path_of = {}
     for p, names in PATH_KERNELS.items():
@@ -998,13 +1480,18 @@ def run(profile: bool = False) -> int:
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **({"at_c4": r["c4"]} if "c4" in r else {})})
+            **({"at_c4": r["c4"]} if "c4" in r else {}),
+            **({"at_lm": [{k: lm_rec[n][k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by")} for n in at_lm[name]]}
+               if name in at_lm else {})})
     if profile:
         print("[5] profile of one local step at stage 12: one client "
-              "(sequential engine), then four at once (vmap engine)",
-              flush=True)
+              "(sequential engine), then four at once (vmap engine); then "
+              "one LM local step at stage 2", flush=True)
         profile_step(model_cfg, ssl_cfg, state, images)
         profile_step(model_cfg, ssl_cfg, state, images, clients=4)
+        profile_lm_step()
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -260,8 +260,10 @@ class FLConfig:
 # Registry: load src/repro/configs/<id>.py by literal arch id
 # ---------------------------------------------------------------------------
 ARCH_IDS = [
-    # the paper's own backbone; the LM architectures of the JAX package are
-    # ported with the LM slice
+    # the one LM architecture ported so far (the other LM families of the
+    # JAX package come with later slices)
+    "zamba2-2.7b",
+    # the paper's own backbone
     "vit-tiny",
 ]
 

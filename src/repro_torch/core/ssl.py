@@ -1,5 +1,6 @@
 """MoCo v3 self-supervised learning with representation alignment
-(``repro.core.ssl``; Algorithm 2 of the paper).
+(``repro.core.ssl``; Algorithm 2 of the paper), and the LM family's SSL
+loss (``lm_ssl_loss``: next-token prediction plus the same alignment).
 
 State layout, flat dicts keyed by the reference's key paths:
 
@@ -19,6 +20,7 @@ import torch
 from repro_torch.convert import prefixed, subtree
 from repro_torch.core import heads, losses
 from repro_torch.federated.leaves import tree_sorted
+from repro_torch.models import lm as lm_mod
 from repro_torch.models import vit as vit_mod
 
 Tree = Dict[str, torch.Tensor]
@@ -120,6 +122,41 @@ def ssl_loss(state, x1, x2, encoder: Encoder, ssl_cfg, *,
             zg1 = encoder.apply(global_enc, x1, sub_layers, 0)
             zg2 = encoder.apply(global_enc, x2, sub_layers, 0)
         la = losses.align_loss(z1, zg2, z2, zg1, tau)
+        loss = loss + align_weight * la
+        metrics["align"] = la
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# LM-family SSL: next-token prediction + representation alignment
+# ---------------------------------------------------------------------------
+def lm_ssl_loss(params: Tree, batch, cfg, *, sub_layers=None,
+                active_from: int = 0, global_params: Optional[Tree] = None,
+                align_weight: float = 0.0, tau: float = 0.2):
+    """Next-token cross-entropy over the stage-s sub-model, plus the
+    paper's Eq. 3 alignment between the local and the global model's
+    mean-pooled hidden states when ``align_weight > 0``. The global model's
+    forward runs under ``torch.no_grad()`` (the reference stops its
+    gradient); the alignment is ``losses.info_nce``. Returns (loss,
+    metrics)."""
+    x = lm_mod.embed(params, batch["tokens"], cfg)
+    hidden, aux = lm_mod.forward_hidden(params, x, cfg,
+                                        sub_layers=sub_layers,
+                                        active_from=active_from)
+    xent = lm_mod.xent_loss(params, hidden, batch["labels"], cfg,
+                            batch.get("mask"))
+    loss = xent + aux
+    metrics = {"xent": xent, "aux": aux}
+    if align_weight > 0.0 and global_params is not None:
+        z_local = torch.mean(hidden.to(torch.float32), dim=1)
+        with torch.no_grad():
+            xg = lm_mod.embed(global_params, batch["tokens"], cfg)
+            hg, _ = lm_mod.forward_hidden(global_params, xg, cfg,
+                                          sub_layers=sub_layers,
+                                          active_from=0)
+            z_global = torch.mean(hg.to(torch.float32), dim=1)
+        la = losses.info_nce(z_local, z_global, tau)
         loss = loss + align_weight * la
         metrics["align"] = la
     metrics["loss"] = loss

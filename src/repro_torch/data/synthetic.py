@@ -1,10 +1,11 @@
-"""Synthetic images standing in for STL-10 / CIFAR
-(``repro.data.synthetic.synthetic_images``).
+"""Synthetic data (``repro.data.synthetic``): images standing in for
+STL-10 / CIFAR, and token sequences for the LM family.
 
-Each class is a procedural texture (frequency, orientation and colour
-signature) under a random phase, plus Gaussian noise. The formula is the
-reference's; the draws come from a ``torch.Generator``, so the images are
-not the reference's images for the same seed.
+Each image class is a procedural texture (frequency, orientation and
+colour signature) under a random phase, plus Gaussian noise. Tokens follow
+Zipf marginals with first-order Markov mixing. The formulas are the
+reference's; the draws come from a ``torch.Generator``, so the data are not
+the reference's data for the same seed.
 """
 from __future__ import annotations
 
@@ -39,3 +40,19 @@ def synthetic_images(generator: torch.Generator, n: int,
                      + phases[:, None, None])
     img = (0.5 + 0.35 * wave)[..., None] * colors[labels][:, None, None, :]
     return torch.clamp(img + 0.08 * noise, 0.0, 1.0), labels
+
+
+def synthetic_tokens(generator: torch.Generator, n_seqs: int, seq_len: int,
+                     vocab_size: int):
+    """Zipf marginals (p(rank r) ~ r^-1.1) with first-order Markov mixing:
+    each next token is the previous one plus a Zipf draw, mod the vocab.
+    Returns (tokens, labels), both (n_seqs, seq_len) int64 on the
+    generator's device; labels are the next tokens, wrapping to the first
+    at the end."""
+    dev = generator.device
+    ranks = torch.arange(1, vocab_size + 1, dtype=torch.float32, device=dev)
+    probs = torch.softmax(-1.1 * torch.log(ranks), dim=0)
+    draws = torch.multinomial(probs, n_seqs * seq_len, replacement=True,
+                              generator=generator).reshape(n_seqs, seq_len)
+    toks = torch.cumsum(draws, dim=1) % vocab_size
+    return toks, torch.roll(toks, -1, dims=1)

@@ -7,6 +7,8 @@ optimizer state are local to the client for the round; the target branch
 starts from the downloaded global model (Algorithm 2, lines 2-3).
 ``stacked_train_step`` is the same step for a stack of clients at once (the
 vectorised engine's): ``torch.func.vmap`` over ``torch.func.grad_and_value``.
+``lm_train_step`` is the LM family's step (``lm_ssl_loss``; no target
+branch).
 """
 from __future__ import annotations
 
@@ -91,6 +93,26 @@ def stacked_train_step(state, opt_state, x1, x2, lr: float, *, encoder,
     state, moments, losses = vmap(one, in_dims=(0, 0, 0, 0, gates_dim))(
         state, moments, x1, x2, layer_gates)
     return state, {**moments, "count": count + 1}, losses
+
+
+def lm_train_step(params: Tree, opt_state, batch, lr: float, *, cfg, opt,
+                  sub_layers: int, active_from: int,
+                  global_params: Optional[Tree] = None,
+                  align_weight: float = 0.0):
+    """One masked optimizer step of ``lm_ssl_loss`` on ``batch`` (the
+    reference's LM ``train_step``). Returns (params, opt_state,
+    metrics)."""
+    p = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss, metrics = ssl_mod.lm_ssl_loss(
+        p, batch, cfg, sub_layers=sub_layers, active_from=active_from,
+        global_params=global_params, align_weight=align_weight)
+    grads = torch.autograd.grad(loss, list(p.values()), allow_unused=True)
+    # leaves the loss does not reach (the frozen embedding) get zeros
+    grads = {k: torch.zeros_like(v) if g is None else g
+             for (k, v), g in zip(params.items(), grads)}
+    mask = stage_update_mask(params, sub_layers, active_from)
+    params, opt_state = opt.update(grads, opt_state, params, lr, mask)
+    return params, opt_state, {k: v.detach() for k, v in metrics.items()}
 
 
 def local_train(global_state, images: torch.Tensor, plan, draws, opt, *,

@@ -4,6 +4,9 @@
 Simulates the FL process on one device: per-round client sampling, local
 MoCo v3 training under the stage schedule, FedAvg over the wire transport
 and its codec, server-side calibration and communication accounting.
+``run_lm_fedssl`` is the LM family's loop (``train_lm`` of
+``repro.launch.train``): layer-wise FedSSL on token shards with
+next-token SSL and alignment, every client in every round.
 ``FLHistory`` is the reference's, with the same versioned ``to_dict``, so
 two histories compare field by field; the fleet-simulation and privacy
 fields stay empty until those features are ported.
@@ -19,10 +22,12 @@ import torch
 from repro_torch.convert import subtree, to_tensor
 from repro_torch.core import schedule as sched
 from repro_torch.core import ssl as ssl_mod
-from repro_torch.federated import comm, server
+from repro_torch.federated import aggregate, comm, server
+from repro_torch.federated.client import lm_train_step
 from repro_torch.federated.draws import TorchDraws
 from repro_torch.federated.engine import make_engine
 from repro_torch.federated.transport import Transport
+from repro_torch.models import lm as lm_mod
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.schedules import learning_rate, scaled_base_lr
 
@@ -207,3 +212,74 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                 down_mb=cb["download"] / 1e6, up_mb=cb["upload"] / 1e6,
                 wire_mb=(down["wire_bytes"] + up["wire_bytes"]) / 1e6))
     return state, hist
+
+
+# the alignment weight of the LM family's loss (the reference's train_lm)
+LM_ALIGN_WEIGHT = 0.01
+
+
+def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
+                  device="cuda", codec: str = "fp32", log=None):
+    """The LM family's layer-wise FedSSL loop; returns (final params,
+    FLHistory).
+
+    tokens, labels: (n, S) token pool; shards: one index array per client;
+    params: the initial flat ``{path: tensor}`` dict (``lm.init_lm``).
+    Every client trains in every round from the wire-decoded broadcast, one
+    masked AdamW step of ``lm_ssl_loss`` per batch of its shard (with the
+    alignment where the plan aligns), at the round's cosine rate; FedAvg
+    consumes the decoded uploads. Tensors are moved to
+    ``device``, which defaults to the card. A client's round loss is its
+    last step's."""
+    device = resolve_device(device)
+    tokens = to_tensor(tokens, device, torch.int64)
+    labels = to_tensor(labels, device, torch.int64)
+    shards = [to_tensor(ix, device, torch.int64) for ix in shards]
+    params = {k: to_tensor(v, device) for k, v in params.items()}
+    opt = make_optimizer(train_cfg)
+    plans = sched.build_schedule(fl, lm_mod.num_stages(cfg))
+    base_lr = scaled_base_lr(train_cfg.base_lr, train_cfg.batch_size)
+    B = train_cfg.batch_size
+    w = aggregate.client_weights([len(ix) for ix in shards])
+    clients = list(range(len(shards)))
+    wire = Transport(codec)
+    hist = FLHistory()
+    for plan in plans:
+        if plan.new_stage and fl.weight_transfer:
+            params = sched.transfer_model(params, plan.stage)
+        lr = learning_rate(plan.round_idx, fl.rounds, base_lr,
+                           train_cfg.lr_schedule)
+        # clients, and the alignment's global model, see the decoded
+        # broadcast; no step writes into it
+        dparams, down = wire.broadcast(params, plan)
+        outs, losses = [], []
+        for ix in shards:
+            p_i, o_i = dparams, opt.init(dparams)
+            nb = max(1, len(ix) // B)
+            for b in range(nb * fl.local_epochs):
+                # the reference's batch_start rule
+                sel = ix[(b * B) % max(1, len(ix) - B):][:B]
+                p_i, o_i, m = lm_train_step(
+                    p_i, o_i, {"tokens": tokens[sel], "labels": labels[sel]},
+                    lr, cfg=cfg, opt=opt, sub_layers=plan.sub_layers,
+                    active_from=plan.active_from,
+                    global_params=dparams if plan.align else None,
+                    align_weight=LM_ALIGN_WEIGHT if plan.align else 0.0)
+            outs.append(p_i)
+            losses.append(float(m["loss"]))
+        params, up = wire.aggregate_uploads(params, outs, clients, plan, w,
+                                            ref_online=dparams)
+        del outs        # the trained trees are not needed past FedAvg
+        cb = comm.round_comm_bytes(params, plan)
+        hist.loss.append(sum(losses) / len(losses))
+        hist.round_stage.append(plan.stage)
+        hist.download_bytes.append(cb["download"])
+        hist.upload_bytes.append(cb["upload"])
+        hist.wire_download_bytes.append(down["wire_bytes"])
+        hist.wire_upload_bytes.append(up["wire_bytes"])
+        if log:
+            log(format_round_line(
+                plan.round_idx, fl.rounds, plan.stage, hist.loss[-1], lr=lr,
+                down_mb=cb["download"] / 1e6, up_mb=cb["upload"] / 1e6,
+                wire_mb=(down["wire_bytes"] + up["wire_bytes"]) / 1e6))
+    return params, hist

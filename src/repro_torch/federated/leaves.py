@@ -7,13 +7,17 @@ wire-level transport (``transport.py``) — must agree on what each leaf *is*:
 
   stacked   a per-stage block stack (leading dim = stage axis); the round
             plan's ``[lo, hi)`` stage range selects rows of it.
-  embed     input-side parameters (patch embedding, positional embeddings,
-            CLS token): trainable / exchanged only when the stage prefix is
-            active (``active_from == 0``).
+  embed     input-side parameters (token/patch embeddings, positional
+            embeddings, CLS token, LM head): trainable / exchanged only
+            when the stage prefix is active (``active_from == 0``).
   head      SSL projection & prediction MLPs: always trained locally;
-            exchanged by default (``include_heads``).
+            exchanged by default. ``include_heads=False`` drops them from
+            both comm accounting and the wire (encoder-only exchange);
+            note the single-copy simulator then discards local head
+            training each round rather than persisting per-client heads.
   extra     everything else that travels with the encoder whenever any
-            stage moves (final norm): always trained, always exchanged.
+            stage moves (final norm, Zamba's shared attention block, conv
+            stubs): always trained, always exchanged.
 
 In the port a parameter tree is a flat ``{path: tensor}`` dict whose paths
 are the JAX key paths joined with ``/`` (``"enc/blocks/attn/wq"``,

@@ -15,6 +15,9 @@
 // does. Ragged S and T are masked, never padded, and kv_head =
 // q_head / (Hq / Hkv). Any layout whose last dim is contiguous works: the
 // wrapper passes the batch, sequence and head strides of each operand.
+// Head dims 64, 80 (zamba2) and 128: a lane owns output columns lane,
+// lane + 32, ..., ceil(hd / 32) of them, the last masked when 32 does not
+// divide hd, so q, k and v are never padded in memory.
 //
 // Bound on the H100: for the ViT (B=256, S=T=65, 3 heads of 64, bf16) the
 // four (B, S, H, hd) tensors are 25.6 MB, 7.6 us at 3.35 TB/s, while the
@@ -88,7 +91,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const AttnArgs a) {
   constexpr int KSTRIDE = HD + 1;  // padded row: lanes read distinct banks
-  constexpr int DPL = HD / 32;     // output columns per lane
+  constexpr int DPL = (HD + 31) / 32;  // output columns per lane
+  constexpr bool FULL = HD % 32 == 0;  // else the last column is masked
   extern __shared__ float smem[];
   float* Qs = smem;                // BQ x HD
   float* Ks = Qs + BQ * HD;        // BK x (HD + 1)
@@ -185,7 +189,10 @@ flash_fwd_kernel(const AttnArgs a) {
     for (int c = 0; c < BK; ++c) {
       float vv[DPL];
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) vv[j] = Vs[c * HD + lane + 32 * j];
+      for (int j = 0; j < DPL; ++j) {
+        const int col = lane + 32 * j;
+        vv[j] = (FULL || col < HD) ? Vs[c * HD + col] : 0.f;
+      }
 #pragma unroll
       for (int rr = 0; rr < RPW; ++rr) {
         const float p = prow[rr * BK + c];
@@ -201,8 +208,10 @@ flash_fwd_kernel(const AttnArgs a) {
     if (s < a.S) {
       const float l = fmaxf(l_run[rr], 1e-30f);
 #pragma unroll
-      for (int j = 0; j < DPL; ++j)
-        op[s * a.o_ss + lane + 32 * j] = from_f<T>(acc[rr][j] / l);
+      for (int j = 0; j < DPL; ++j) {
+        const int col = lane + 32 * j;
+        if (FULL || col < HD) op[s * a.o_ss + col] = from_f<T>(acc[rr][j] / l);
+      }
     }
   }
 }
@@ -259,8 +268,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   a.causal = causal; a.window = window; a.kv_len = kv_len; a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64) return launch<float, 64>(a, st);
+  if (dtype == 0 && hd == 80) return launch<float, 80>(a, st);
   if (dtype == 0 && hd == 128) return launch<float, 128>(a, st);
   if (dtype == 1 && hd == 64) return launch<__nv_bfloat16, 64>(a, st);
+  if (dtype == 1 && hd == 80) return launch<__nv_bfloat16, 80>(a, st);
   if (dtype == 1 && hd == 128) return launch<__nv_bfloat16, 128>(a, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,7 +8,7 @@ its header gives the bound on the H100 (bytes at the ViT's shapes) and the
 design: one block per (batch, q head, 64-row q tile), K/V tiles staged in
 shared memory, fp32 running max, sum, accumulator and p. Unlike the TPU
 wrapper it pads nothing: ragged sequence ends are masked in the kernel and
-the head dim is used as it is (64 or 128).
+the head dim is used as it is (64, 80 or 128).
 
 CUDA tensors only; ``repro_torch.kernels.ops.flash_attention`` counts
 launches, sends CPU tensors to ``ref.sdpa_ref`` and adds the backward.
@@ -25,7 +25,7 @@ from repro_torch.kernels import build
 
 _c = ctypes.c_void_p
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 
 
 def _declare(lib) -> None:

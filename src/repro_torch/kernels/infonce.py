@@ -23,7 +23,9 @@ import torch
 from repro_torch.kernels import build
 
 _c = ctypes.c_void_p
-MAX_D = 1024
+# the gradient kernels' grid has one y index per 64-wide d chunk, and a
+# grid's y extent is at most 65535; nothing else in the kernels caps d
+MAX_D = 65535 * 64
 
 
 def _declare(lib) -> None:

@@ -1,0 +1,80 @@
+"""Hopper chunked SSD scan (Mamba2).
+
+Replaces ``src/repro/kernels/mamba2_scan.py::ssd_scan_bshpn``
+(``pallas_call`` at :80) and its wrapper ``src/repro/kernels/ops.py:77``.
+The kernel is ``csrc/ssd_scan.cu``; its header gives the bound on the H100
+(operations, on the CUDA cores) and the design: one block per (batch,
+head) looping over the chunks with the (P, N) state in shared memory, the
+intra-chunk matrix formed in 64 x 64 tiles with the causal decay mask
+applied as it is written, since the whole (Q, Q) matrix does not fit a
+block's shared memory at Q = 256. dt and a are read as they are, without
+the TPU wrapper's lane padding.
+
+CUDA tensors only; ``repro_torch.kernels.ops.ssd_scan`` counts launches,
+sends CPU tensors to ``ref.ssd_scan_ref`` and adds the backward.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_c = ctypes.c_void_p
+MAX_PN = 64         # largest head dim P and state dim N
+MAX_CHUNK = 1024
+
+
+def _declare(lib) -> None:
+    i = ctypes.c_int
+    lib.ssd_scan_launch.argtypes = [_c, _c, _c, _c, _c, _c, i, i, i, i, i,
+                                    i, ctypes.POINTER(ctypes.c_longlong), _c]
+    lib.ssd_scan_launch.restype = ctypes.c_int
+    lib.ssd_error_string.argtypes = [ctypes.c_int]
+    lib.ssd_error_string.restype = ctypes.c_char_p
+
+
+def ssd_scan_bshpn(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, *,
+                   chunk: int) -> torch.Tensor:
+    """xh: (B, S, H, P); dt, a = dt * A: (B, S, H); Bm, Cm: (B, S, N); all
+    float32 on one CUDA device, the last dim of xh, Bm and Cm contiguous
+    (other strides are free). Returns a contiguous (B, S, H, P) float32
+    tensor; the state starts at zero. ``chunk`` must divide S."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    tensors = (xh, dt, a, Bm, Cm)
+    if xh.device.type != "cuda" or any(t.device != xh.device
+                                       for t in tensors):
+        raise ValueError("ssd_scan_bshpn takes CUDA tensors on one device")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError(f"ssd_scan_bshpn: xh, dt, a, Bm and Cm must be "
+                         f"float32, got {[t.dtype for t in tensors]}")
+    if tuple(dt.shape) != (B, S, H) or tuple(a.shape) != (B, S, H) \
+            or tuple(Bm.shape) != (B, S, N) or tuple(Cm.shape) != (B, S, N):
+        raise ValueError(f"ssd_scan_bshpn: shapes disagree: xh "
+                         f"{tuple(xh.shape)}, dt {tuple(dt.shape)}, a "
+                         f"{tuple(a.shape)}, Bm {tuple(Bm.shape)}, Cm "
+                         f"{tuple(Cm.shape)}")
+    if not (1 <= P <= MAX_PN and 1 <= N <= MAX_PN):
+        raise ValueError(f"ssd_scan_bshpn: head dim P={P} and state dim "
+                         f"N={N} must be in [1, {MAX_PN}]")
+    if not 1 <= chunk <= MAX_CHUNK or S % chunk:
+        raise ValueError(f"ssd_scan_bshpn: chunk {chunk} must divide S={S} "
+                         f"and be at most {MAX_CHUNK}")
+    if any(t.stride(-1) != 1 for t in (xh, Bm, Cm)):
+        raise ValueError("ssd_scan_bshpn: the last dim of xh, Bm and Cm "
+                         "must be contiguous")
+    y = torch.empty((B, S, H, P), dtype=torch.float32, device=xh.device)
+    strides = (ctypes.c_longlong * 13)(
+        *xh.stride()[:3], *dt.stride(), *a.stride(), *Bm.stride()[:2],
+        *Cm.stride()[:2])
+    lib = build.load("ssd_scan", _declare)
+    stream = torch.cuda.current_stream(xh.device).cuda_stream
+    build.check(lib.ssd_scan_launch(
+        xh.data_ptr(), dt.data_ptr(), a.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), y.data_ptr(), B, S, H, P, N,
+        int(chunk), strides, stream),
+        lib.ssd_error_string, "ssd_scan")
+    return y

@@ -6,17 +6,20 @@ kernel, which either launches or raises (there is no fallback). Every
 kernel launch adds one to ``LAUNCHES[name]``, so a run can show that its
 main path went through the kernels.
 
-``rmsnorm``, ``flash_attention`` and ``info_nce_rows`` are
+``rmsnorm``, ``flash_attention``, ``info_nce_rows`` and ``ssd_scan`` are
 ``torch.autograd.Function``s whose forward is the kernel (or the plain
 version on the CPU). The backward of the first two is the closed-form
 gradient in plain PyTorch (``ref.*_bwd_ref``), recomputed from the saved
 inputs, the same code on every device; InfoNCE's backward is a kernel too
-(``InfoNCEGradFn``). Every Function has the ``setup_context`` form and a
-``vmap`` rule, so the vectorised engine can run them under
+(``InfoNCEGradFn``); the SSD scan's is the vector-Jacobian product of its
+plain version, recomputed from the saved inputs (the JAX package has no
+backward kernel for it either). Every Function has the ``setup_context``
+form and a ``vmap`` rule, so the vectorised engine can run them under
 ``torch.func.vmap`` / ``grad``: the rule moves the vmapped (client) axis to
 the front and hands it to the kernel in one launch, folded into the rows
-(RMSNorm, with a per-client scale), into the batch (attention), or as the
-kernel's own client axis (InfoNCE, whose negatives must stay per client).
+(RMSNorm, with a per-client scale), into the batch (attention, the SSD
+scan), or as the kernel's own client axis (InfoNCE, whose negatives must
+stay per client).
 
 ``wire_cast_encode`` / ``wire_cast_decode`` and ``wire_topk_decode`` are
 plain PyTorch on every device: in the reference they are not Pallas
@@ -30,6 +33,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import infonce as nce
+from repro_torch.kernels import mamba2_scan as ms
 from repro_torch.kernels import pack, ref
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import wire_codecs as wc
@@ -37,7 +41,7 @@ from repro_torch.kernels import wire_codecs as wc
 KERNELS = ("gather_pack", "scatter_unpack", "rmsnorm_rows", "flash_attention",
            "int8_quant_matrix", "int8_dequant_matrix", "compensate",
            "topk_ef_update", "info_nce_rows", "info_nce_rows_dq",
-           "info_nce_rows_dk")
+           "info_nce_rows_dk", "ssd_scan")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -368,3 +372,56 @@ def info_nce_rows(q: torch.Tensor, k: torch.Tensor,
     if q.dim() == 2:
         return InfoNCEFn.apply(q[None], k[None], float(tau))[0][0]
     return InfoNCEFn.apply(q, k, float(tau))[0]
+
+
+# -- Mamba2 SSD scan -------------------------------------------------------------
+def _ssd_fwd(xh, dt, a, Bm, Cm, chunk):
+    if _device_kind(xh, dt, a, Bm, Cm) == "cpu":
+        return ref.ssd_scan_ref(xh, dt, a, Bm, Cm, chunk=chunk)
+    out = ms.ssd_scan_bshpn(xh, dt, a, Bm, Cm, chunk=chunk)
+    LAUNCHES["ssd_scan"] += 1
+    return out
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The chunked SSD scan, the state starting at zero. The backward
+    recomputes the plain version from the saved inputs and returns its
+    vector-Jacobian product for xh, dt, a, Bm and Cm."""
+
+    @staticmethod
+    def forward(xh, dt, a, Bm, Cm, chunk):
+        return _ssd_fwd(xh, dt, a, Bm, Cm, chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        *tensors, chunk = inputs
+        ctx.save_for_backward(*tensors)
+        ctx.chunk = chunk
+
+    @staticmethod
+    def backward(ctx, g):
+        chunk = ctx.chunk
+        _, vjp = torch.func.vjp(
+            lambda *t: ref.ssd_scan_ref(*t, chunk=chunk), *ctx.saved_tensors)
+        return (*vjp(g), None)
+
+    @staticmethod
+    def vmap(info, in_dims, xh, dt, a, Bm, Cm, chunk):
+        n = info.batch_size
+        out = SSDScanFn.apply(*(_front(t, d, n).flatten(0, 1) for t, d in
+                                zip((xh, dt, a, Bm, Cm), in_dims)), chunk)
+        return out.unflatten(0, (n, -1)), 0
+
+
+def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *,
+             chunk: int) -> torch.Tensor:
+    """Chunked SSD scan (``src/repro/kernels/ops.py::ssd_scan``): xh (B, S,
+    H, P); dt, a = dt * A (B, S, H); Bm, Cm (B, S, N) -> y (B, S, H, P) in
+    xh's dtype, fp32 math (the CUDA kernel takes float32 only, which is
+    what ``mamba2_apply`` passes). ``chunk`` must divide S (the caller
+    takes ``min(chunk_size, S)``, as the JAX wrapper does)."""
+    if xh.shape[1] % chunk:
+        raise ValueError(f"ssd_scan: chunk {chunk} does not divide "
+                         f"S={xh.shape[1]}")
+    return SSDScanFn.apply(xh, dt, a, Bm, Cm, int(chunk))

@@ -275,3 +275,62 @@ def sdpa_bwd_ref(q, k, v, g, *, causal: bool = True, window: int = 0,
         dk = dk.reshape(B, Hkv, Hq // Hkv, T, hd).sum(2)
         dv = dv.reshape(B, Hkv, Hq // Hkv, T, hd).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# -- Mamba2 SSD scan -------------------------------------------------------------
+def ssd_explicit(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                 h0: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan with an explicit log-decay ``a = dt * A``, in
+    fp32 (``src/repro/kernels/ref.py::_ssd_explicit``). Per chunk, with
+    ``cum = cumsum(a)``:
+      intra-chunk  y_i = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
+      inter-chunk  y_i += exp(cum_i) C_i . h^T
+      state        h <- exp(cum_last) h + sum_j exp(cum_last - cum_j)
+                        dt_j x_j B_j^T
+    xh: (B, S, H, P); dt, a: (B, S, H); Bm, Cm: (B, S, N); h0: (B, H, P, N)
+    or None (zeros). Returns (y (B, S, H, P) fp32, final state fp32). The
+    decay is masked before its exp, so neither value nor gradient sees the
+    j > i half (whose exponent is positive and may overflow)."""
+    Bsz, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    if S % chunk:
+        raise ValueError(f"ssd scan: chunk {chunk} does not divide S={S}")
+    nc = S // chunk
+    f32 = torch.float32
+    # chunk-major, heads before positions: (nc, B, H, Q, ...)
+    x = xh.to(f32).reshape(Bsz, nc, chunk, H, P).permute(1, 0, 3, 2, 4)
+    dts = dt.to(f32).reshape(Bsz, nc, chunk, H).permute(1, 0, 3, 2)
+    cums = torch.cumsum(a.to(f32).reshape(Bsz, nc, chunk, H)
+                        .permute(1, 0, 3, 2), dim=-1)
+    Bc = Bm.to(f32).reshape(Bsz, nc, chunk, N).transpose(0, 1)
+    Cc = Cm.to(f32).reshape(Bsz, nc, chunk, N).transpose(0, 1)
+    h = (torch.zeros((Bsz, H, P, N), dtype=f32, device=xh.device)
+         if h0 is None else h0.to(f32))
+    i = torch.arange(chunk, device=xh.device)
+    causal = i[:, None] >= i[None, :]
+    ys = []
+    for c in range(nc):
+        cum, dtc = cums[c], dts[c]                        # (B, H, Q)
+        seg = cum[..., :, None] - cum[..., None, :]       # (B, H, Q, Q)
+        L = torch.exp(seg.masked_fill(~causal, float("-inf")))
+        CB = Cc[c] @ Bc[c].transpose(-1, -2)              # (B, Q, Q)
+        M = CB[:, None] * L * dtc[..., None, :]
+        y = M @ x[c]                                      # (B, H, Q, P)
+        y_off = (Cc[c][:, None] @ h.transpose(-1, -2)) \
+            * torch.exp(cum)[..., None]
+        w = torch.exp(cum[..., -1:] - cum) * dtc          # (B, H, Q)
+        st = (x[c] * w[..., None]).transpose(-1, -2) @ Bc[c][:, None]
+        h = h * torch.exp(cum[..., -1])[..., None, None] + st
+        ys.append((y + y_off).transpose(1, 2))            # (B, Q, H, P)
+    return torch.cat(ys, dim=1), h
+
+
+def ssd_scan_ref(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, *,
+                 chunk: int) -> torch.Tensor:
+    """The plain version of the SSD scan kernel
+    (``src/repro/kernels/ref.py::ssd_scan_ref``): y in xh's dtype, the
+    state starting at zero."""
+    return ssd_explicit(xh, dt, a, Bm, Cm, chunk)[0].to(xh.dtype)

@@ -1,6 +1,14 @@
-"""Federated SSL training launcher of the port (``repro.launch.train``,
-``--mode vit``): a reduced ViT with MoCo v3 federated SSL on synthetic
-images under any of the five schedules, then a linear probe.
+"""Federated SSL training launcher of the port (``repro.launch.train``).
+
+Two modes:
+  vit   the paper's experiment: a reduced ViT with MoCo v3 federated SSL
+        on synthetic images under any of the five schedules, then a linear
+        probe.
+  lm    LM-family FedSSL (``--arch zamba2-2.7b``, the one LM ported): each
+        client runs next-token SSL plus representation alignment on
+        synthetic token shards, on the reduced arch of the reference's
+        arch smoke test (``num_layers=4, attn_every=2``: the reference's
+        ``reduced()`` alone leaves zamba2 no stage).
 
 It runs on the card (``--device cuda``, the default) and raises without
 one; ``--device cpu`` runs the plain PyTorch versions of the kernels.
@@ -18,6 +26,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit --codec int8
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit \\
       --codec topk:0.1 --transport-kernels pallas
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
+      --arch zamba2-2.7b --device cpu --rounds 4 --batch 8 --samples 64 \\
+      --seq-len 64
 """
 from __future__ import annotations
 
@@ -32,17 +43,17 @@ from repro_torch.convert import subtree
 from repro_torch.core import schedule as sched
 from repro_torch.core import ssl as ssl_mod
 from repro_torch.data.partition import dirichlet_partition, iid_partition
-from repro_torch.data.synthetic import synthetic_images
+from repro_torch.data.synthetic import synthetic_images, synthetic_tokens
 from repro_torch.federated import eval as fl_eval
 from repro_torch.federated.driver import (TRANSPORT_KERNELS, resolve_device,
-                                          run_fedssl)
+                                          run_fedssl, run_lm_fedssl)
 from repro_torch.federated.engine import ENGINES
 from repro_torch.federated.transport import make_codec
+from repro_torch.models import lm as lm_mod
 
 # flags of the reference launcher whose features the port does not have
 # yet: flag -> (the value that means "off", what is missing)
 NOT_PORTED = {
-    "mode": ("vit", "--mode lm (the LM family)"),
     "fleet": ("", "fleet simulation"),
     "round_policy": ("synchronous", "fleet round policies"),
     "dp_clip": (0.0, "differential privacy"),
@@ -98,9 +109,42 @@ def train_vit(args):
     return acc
 
 
+# --mode lm: the archs ported, each with the override of the reference's
+# arch smoke test (tests/test_arch_smoke.py) applied on top of reduced()
+LM_ARCHS = {"zamba2-2.7b": dict(num_layers=4, attn_every=2)}
+
+
+def train_lm(args):
+    """LM-family layer-wise FedSSL on synthetic token shards (the
+    reference's ``train_lm``); returns (params, history)."""
+    device = resolve_device(args.device)
+    gen = torch.Generator(device).manual_seed(args.seed)
+    cfg = reduced(load_arch(args.arch), **LM_ARCHS[args.arch])
+    fl = FLConfig(num_clients=args.clients, rounds=args.rounds,
+                  local_epochs=args.local_epochs, schedule=args.schedule)
+    tc = TrainConfig(batch_size=args.batch, base_lr=3e-4)
+    toks, labs = synthetic_tokens(gen, args.samples, args.seq_len,
+                                  cfg.vocab_size)
+    shards = iid_partition(args.samples, fl.num_clients, seed=args.seed)
+    params = lm_mod.init_lm(cfg, gen, device)
+    params, hist = run_lm_fedssl(cfg, fl, tc, tokens=toks, labels=labs,
+                                 shards=shards, params=params, device=device,
+                                 codec=args.codec, log=print)
+    print(f"final loss {hist.loss[-1]:.4f} (start {hist.loss[0]:.4f}); "
+          f"{hist.total_wire / 1e6:.2f} MB/client on the wire "
+          f"({args.codec}: {hist.compression_ratio:.2f}x)")
+    return params, hist
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", default="vit")
+    ap.add_argument("--mode", default="vit", choices=("vit", "lm"))
+    ap.add_argument("--arch", default="internlm2-1.8b",
+                    help="--mode lm: the LM architecture; zamba2-2.7b is "
+                         "the one ported, run with the reference's arch "
+                         "smoke-test override (num_layers=4, attn_every=2) "
+                         "on top of reduced(), since reduced() alone leaves "
+                         "it no stage")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--schedule", default="lw_fedssl",
@@ -111,6 +155,7 @@ def main(argv=None):
     ap.add_argument("--local-epochs", type=int, default=1)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--samples", type=int, default=1024)
+    ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--d-model", type=int, default=64)
     ap.add_argument("--depth-dropout", type=float, default=0.0)
@@ -147,7 +192,15 @@ def main(argv=None):
         make_codec(args.codec)
     except ValueError as e:
         ap.error(f"--codec {args.codec}: {e}")
-    return train_vit(args)
+    if args.mode == "vit":
+        return train_vit(args)
+    if args.engine != "sequential":
+        ap.error(f"--engine {args.engine} with --mode lm: the LM vmap engine "
+                 f"is not ported to repro_torch yet")
+    if args.arch not in LM_ARCHS:
+        ap.error(f"--arch {args.arch}: this LM architecture is not ported "
+                 f"to repro_torch yet (ported: {', '.join(LM_ARCHS)})")
+    return train_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,99 @@
+"""Mamba2 (state-space duality) block, the training path
+(``repro.models.layers.mamba2``).
+
+``mamba2_apply`` runs the full sequence: in-projection, depthwise causal
+convolution, the chunked SSD scan, the gated RMSNorm and the
+out-projection. The scan goes through ``kernels.ops.ssd_scan`` (the CUDA
+kernel on the card, ``ref.ssd_scan_ref`` on the CPU); the JAX layer calls
+its own ``ssd_chunked`` there, which the kernel is checked against. The
+gated norm is the RMSNorm kernel at width ``d_inner``.
+
+``ssd_chunked`` is the layer's plain scan (dt and A separately, an
+optional incoming state, the final state). ``init_state`` and
+``mamba2_decode`` (serving) are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops, ref
+from repro_torch.models.layers.norms import rmsnorm
+
+
+def d_inner(cfg) -> int:
+    return cfg.ssm.expand * cfg.d_model
+
+
+def n_heads(cfg) -> int:
+    return d_inner(cfg) // cfg.ssm.head_dim
+
+
+def mamba2_shapes(cfg):
+    """Per-layer leaf shapes, keyed by their path inside the block's
+    ``mamba`` subtree."""
+    s = cfg.ssm
+    d, di, H = cfg.d_model, d_inner(cfg), n_heads(cfg)
+    conv_ch = di + 2 * s.state_dim
+    return {
+        "D": (H,),
+        "a_log": (H,),                      # A = -exp(a_log)
+        "conv_b": (conv_ch,),
+        "conv_w": (s.conv_width, conv_ch),
+        "dt_bias": (H,),
+        "norm/scale": (di,),
+        # in_proj -> [z (di), x (di), B (N), C (N), dt (H)]
+        "w_in": (d, 2 * di + 2 * s.state_dim + H),
+        "w_out": (di, d),
+    }
+
+
+# the reference's constant initial values; every other leaf is a fan-in
+# truncated normal (``blocks.block_init_``)
+CONSTANT_INIT = {"D": 1.0, "a_log": 0.0, "conv_b": 0.0,
+                 "dt_bias": -2.0,                     # softplus ~ 0.12
+                 "norm/scale": 1.0}
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. x: (B, S, C); w: (K, C). Summed tap by tap
+    in the reference's order."""
+    K, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros_like(x)
+    for k in range(K):
+        out = out + xp[:, k:k + S] * w[k]
+    return out + b
+
+
+def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, h0=None):
+    """Chunked selective-state-space scan (plain PyTorch).
+
+    xh: (B, S, H, P); dt: (B, S, H) positive step sizes; A: (H,) negative
+    decay rates; Bm, Cm: (B, S, N) (a single group). Returns y (B, S, H, P)
+    and the final state (B, H, P, N)."""
+    return ref.ssd_explicit(xh, dt, dt * A, Bm, Cm, chunk, h0)
+
+
+def mamba2_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Full-sequence Mamba2 block. p: the block's ``mamba`` leaves; x:
+    (B, S, d)."""
+    s = cfg.ssm
+    B, S, _ = x.shape
+    di, H, N = d_inner(cfg), n_heads(cfg), s.state_dim
+    cdt = getattr(torch, cfg.compute_dtype)
+    proj = (x.to(cdt) @ p["w_in"].to(cdt)).to(torch.float32)
+    z, xr, Bm, Cm, dt = torch.split(proj, [di, di, N, N, H], dim=-1)
+    conv_in = torch.cat([xr, Bm, Cm], dim=-1)
+    conv_out = F.silu(_causal_conv(conv_in, p["conv_w"].to(torch.float32),
+                                   p["conv_b"].to(torch.float32)))
+    xr, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
+    dt = F.softplus(dt + p["dt_bias"])
+    A = -torch.exp(p["a_log"])
+    xh = xr.reshape(B, S, H, s.head_dim)
+    y = ops.ssd_scan(xh, dt, dt * A, Bm, Cm, chunk=min(s.chunk_size, S))
+    y = y + xh * p["D"][None, None, :, None]
+    y = rmsnorm(y.reshape(B, S, di) * F.silu(z), p["norm/scale"],
+                cfg.norm_eps)
+    return (y.to(cdt) @ p["w_out"].to(cdt)).to(x.dtype)

@@ -72,6 +72,9 @@ def test_rmsnorm_kernel(dev, dtype, rows, d):
     (2, 200, 200, 4, 2, 128, True, 64, None, torch.float32),
     (2, 130, 130, 8, 1, 64, True, 0, 100, torch.float32),
     (1, 65, 65, 3, 3, 64, False, 0, None, torch.float32),
+    (4, 1024, 1024, 32, 32, 80, True, 0, None, torch.bfloat16),  # zamba2
+    (4, 1024, 1024, 32, 32, 80, True, 0, None, torch.float32),
+    (2, 130, 130, 4, 2, 80, True, 48, 100, torch.float32),
 ])
 def test_flash_attention_kernel(dev, B, S, T, Hq, Hkv, hd, causal, window,
                                 kv_len, dtype):
@@ -236,7 +239,8 @@ def _unit(shape, dev, seed):
 
 @pytest.mark.parametrize("C,B,d", [(1, 256, 256), (1, 256, 192),
                                    (4, 256, 256), (2, 96, 200), (1, 1, 7),
-                                   (3, 33, 1024)])
+                                   (3, 33, 1024), (1, 4, 2560), (1, 4, 5000),
+                                   (2, 40, 4100)])
 def test_info_nce_kernels(dev, C, B, d):
     """Forward (loss, lse), dq and dk against their plain versions, 1e-5
     relative to the largest value, or absolute where that is below 1 (fp32;
@@ -297,8 +301,73 @@ def test_vmap_rules_on_card(dev):
 
 
 def test_info_nce_wrapper_raises_instead_of_falling_back(dev):
-    q = torch.zeros((1, 8, 2048), device=dev)              # d > 1024
+    from repro_torch.kernels import infonce
+    q = torch.zeros((1, 1, infonce.MAX_D + 1), device=dev)  # d > MAX_D
     with pytest.raises(ValueError):
         ops.info_nce_rows(q, q, 0.2)
     with pytest.raises(ValueError):
         ops.info_nce_rows(q[..., :8].double(), q[..., :8].double(), 0.2)
+
+
+# -- the Mamba2 SSD scan ------------------------------------------------------------
+def _ssd_inputs(B, S, H, P, N, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    xh = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)) - 2.0))
+    A = -np.exp(0.5 * rng.standard_normal(H))
+    Bm = rng.standard_normal((B, S, N)) / np.sqrt(N)
+    Cm = rng.standard_normal((B, S, N)) / np.sqrt(N)
+    out = [torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+           for v in (xh, dt, dt * A, Bm, Cm)]
+    return out
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (4, 1024, 80, 64, 64, 256),     # zamba2's Mamba2 blocks on the LM path
+    (1, 384, 3, 32, 16, 128),
+    (2, 96, 5, 64, 64, 32),         # chunk shorter than a 64-row tile
+    (1, 200, 2, 20, 7, 40),         # ragged P, N and tiles
+])
+def test_ssd_scan_kernel(dev, B, S, H, P, N, chunk):
+    """Against the plain version, 1e-4 of the largest output (fp32; sums
+    and the cumulative log-decay in another order)."""
+    args = _ssd_inputs(B, S, H, P, N, dev)
+    before = ops.launch_counts()["ssd_scan"]
+    got = ops.ssd_scan(*args, chunk=chunk)
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    want = ref.ssd_scan_ref(*args, chunk=chunk)
+    assert (got - want).abs().max().item() <= \
+        1e-4 * max(want.abs().max().item(), 1.0)
+
+
+def test_ssd_scan_kernel_strided_and_backward(dev):
+    """Operands read through their strides (slices of one projection, as
+    mamba2_apply passes them), and the Function's backward against
+    autograd through the plain version."""
+    B, S, H, P, N, chunk = 2, 256, 4, 32, 16, 64
+    xh, dt, a, Bm, Cm = _ssd_inputs(B, S, H, P, N, dev, seed=1)
+    proj = torch.cat([xh.reshape(B, S, H * P), Bm, Cm], dim=-1)
+    x_v = proj[..., :H * P].reshape(B, S, H, P)
+    b_v, c_v = proj[..., H * P:H * P + N], proj[..., H * P + N:]
+    got = ops.ssd_scan(x_v, dt, a, b_v, c_v, chunk=chunk)
+    want = ref.ssd_scan_ref(xh, dt, a, Bm, Cm, chunk=chunk)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    ins = [t.clone().requires_grad_() for t in (xh, dt, a, Bm, Cm)]
+    g = torch.randn((B, S, H, P), device=dev)
+    gk = torch.autograd.grad((ops.ssd_scan(*ins, chunk=chunk) * g).sum(), ins)
+    gr = torch.autograd.grad((ref.ssd_scan_ref(*ins, chunk=chunk) * g).sum(),
+                             ins)
+    for x, y in zip(gk, gr):
+        assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
+
+
+def test_ssd_scan_wrapper_raises_instead_of_falling_back(dev):
+    args = _ssd_inputs(1, 64, 2, 96, 16, dev)            # P > 64
+    with pytest.raises(ValueError):
+        ops.ssd_scan(*args, chunk=32)
+    args = _ssd_inputs(1, 64, 2, 32, 16, dev)
+    for dtype in (torch.float64, torch.bfloat16):         # fp32 only
+        with pytest.raises(ValueError):
+            ops.ssd_scan(args[0].to(dtype), *args[1:], chunk=32)
+    with pytest.raises(ValueError):
+        ops.ssd_scan(*args, chunk=48)                     # 48 does not divide

@@ -201,6 +201,9 @@ def test_wrappers_count_only_kernel_launches():
     ops.wire_pack([torch.from_numpy(x) for x in leaves], layout, total)
     ops.rmsnorm(torch.ones(4, 8), torch.ones(8))
     ops.info_nce_rows(torch.ones(4, 8), torch.ones(4, 8), 0.2)
+    ops.ssd_scan(torch.ones(1, 8, 2, 4), torch.ones(1, 8, 2),
+                 -torch.ones(1, 8, 2), torch.ones(1, 8, 3),
+                 torch.ones(1, 8, 3), chunk=4)
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 

@@ -88,6 +88,16 @@ def test_cli_codecs_run_to_linear_eval_on_cpu(extra):
     assert "linear evaluation accuracy" in out.stdout
 
 
+def test_cli_runs_lm_mode_on_cpu():
+    out = _run(["-m", "repro_torch.launch.train", "--mode", "lm",
+                "--arch", "zamba2-2.7b", "--device", "cpu", "--rounds", "2",
+                "--clients", "2", "--batch", "2", "--samples", "8",
+                "--seq-len", "32", "--codec", "int8"])
+    assert out.returncode == 0, out.stderr
+    assert "round 2/2 stage 2" in out.stdout
+    assert "final loss" in out.stdout and "(int8: " in out.stdout
+
+
 def test_cli_runs_vmap_engine_to_linear_eval_on_cpu():
     out = _run(["-m", "repro_torch.launch.train", "--mode", "vit",
                 "--engine", "vmap", "--device", "cpu", "--rounds", "2",
@@ -111,7 +121,10 @@ def test_cli_rejects_unknown_codec(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--secure-agg"], ["--fleet", "uniform"],
-                                  ["--mode", "lm"], ["--trace"]])
+                                  ["--mode", "lm", "--engine", "vmap"],
+                                  ["--trace"],
+                                  ["--mode", "lm", "--arch",
+                                   "internlm2-1.8b"]])
 def test_cli_rejects_features_not_ported(flag, capsys):
     with pytest.raises(SystemExit) as e:
         train.main(["--device", "cpu", *flag])

@@ -1,0 +1,140 @@
+"""The port's Mamba2 SSD scan against the JAX package.
+
+The plain version (``kernels.ref.ssd_scan_ref``: the CPU path, and what
+``chip_smoke.py`` holds the CUDA kernel against) is compared with the
+Pallas kernel in interpret mode, the reference's oracle and the Mamba2
+layer's own ``ssd_chunked`` (final state and an incoming state included);
+``ops.SSDScanFn``'s gradients with ``jax.grad`` of ``ssd_chunked``, and its
+``vmap`` rule with a loop over clients. Inputs are numpy draws from a seed,
+fp32, drawn as the reference's ``tests/test_kernels.py`` draws them.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models.layers import mamba2 as jmamba
+from repro_torch.kernels import ops, ref
+from repro_torch.models.layers import mamba2
+
+torch.set_num_threads(2)
+
+# fp32 on both sides: the same sums in another order (the intra-chunk
+# products over up to 128 terms, the cumulative log-decay inside exp),
+# relative to the largest output
+RTOL = 2e-5
+
+
+def _inputs(rng, B, S, H, P, N):
+    xh = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(H)) * 0.1).astype(np.float32)
+    Bm = rng.standard_normal((B, S, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, N)).astype(np.float32)
+    return xh, dt, A, Bm, Cm
+
+
+def _t(*xs):
+    return [torch.from_numpy(np.asarray(x)) for x in xs]
+
+
+def _close(got, want, rtol=RTOL):
+    got, want = np.asarray(got), np.asarray(want)
+    scale = max(float(np.abs(want).max()), 1.0)
+    err = float(np.abs(got - want).max())
+    assert err <= rtol * scale, (err, scale)
+
+
+# the shapes of the reference's tests/test_kernels.py::test_ssd_scan, plus
+# a chunk that is the whole sequence
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 256, 4, 64, 64, 128),
+    (1, 128, 2, 32, 16, 64),
+    (1, 512, 8, 64, 64, 128),
+    (1, 96, 3, 16, 8, 96),
+])
+def test_plain_scan_matches_pallas_kernel(B, S, H, P, N, chunk):
+    xh, dt, A, Bm, Cm = _inputs(np.random.default_rng(S + H), B, S, H, P, N)
+    a = dt * A
+    want = jops.ssd_scan(xh, dt, a, Bm, Cm, chunk=chunk, interpret=True)
+    oracle = jref.ssd_scan_ref(xh, dt, a, Bm, Cm, chunk=chunk)
+    got = ref.ssd_scan_ref(*_t(xh, dt, a, Bm, Cm), chunk=chunk)
+    _close(got, want)
+    _close(got, oracle)
+    # the wrapper's CPU path is the plain version
+    torch.testing.assert_close(ops.ssd_scan(*_t(xh, dt, a, Bm, Cm),
+                                            chunk=chunk), got, rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_layer_scan_matches_reference_with_state(with_h0):
+    rng = np.random.default_rng(5)
+    B, S, H, P, N = 2, 256, 4, 32, 16
+    xh, dt, A, Bm, Cm = _inputs(rng, B, S, H, P, N)
+    h0 = (rng.standard_normal((B, H, P, N)).astype(np.float32)
+          if with_h0 else None)
+    want_y, want_h = jmamba.ssd_chunked(xh, dt, A, Bm, Cm, 64, h0)
+    got_y, got_h = mamba2.ssd_chunked(
+        *_t(xh, dt, A, Bm, Cm), 64, None if h0 is None else _t(h0)[0])
+    _close(got_y, want_y)
+    _close(got_h, want_h)
+    # the kernel's contract: the layer's scan with no incoming state
+    if not with_h0:
+        _close(ops.ssd_scan(*_t(xh, dt, dt * A, Bm, Cm), chunk=64), want_y)
+
+
+def test_scan_gradients_match_jax_grad():
+    """``SSDScanFn`` (a = dt * A formed outside it, as ``mamba2_apply``
+    does) against ``jax.grad`` of the layer's ``ssd_chunked``, with
+    respect to xh, dt, A, Bm and Cm, under a random cotangent."""
+    rng = np.random.default_rng(11)
+    B, S, H, P, N, chunk = 2, 128, 3, 16, 8, 32
+    xh, dt, A, Bm, Cm = _inputs(rng, B, S, H, P, N)
+    g = rng.standard_normal((B, S, H, P)).astype(np.float32)
+
+    def jloss(xh, dt, A, Bm, Cm):
+        return jnp.sum(jmamba.ssd_chunked(xh, dt, A, Bm, Cm, chunk)[0] * g)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(xh, dt, A, Bm, Cm)
+    args = [t.requires_grad_() for t in _t(xh, dt, A, Bm, Cm)]
+    y = ops.ssd_scan(args[0], args[1], args[1] * args[2], args[3], args[4],
+                     chunk=chunk)
+    got = torch.autograd.grad((y * torch.from_numpy(g)).sum(), args)
+    for gg, ww in zip(got, want):
+        _close(gg, ww, rtol=5e-5)
+
+
+def test_vmap_rule_matches_client_loop():
+    """``torch.func.vmap`` over ``grad_and_value`` of the scan (its ``vmap``
+    rule folds the client axis into the batch, one call) equals a loop over
+    the clients; Bm is shared by the clients (not vmapped)."""
+    rng = np.random.default_rng(2)
+    C, B, S, H, P, N, chunk = 3, 2, 64, 2, 8, 4, 16
+    xh, dt, A, Bm, Cm = _inputs(rng, C * B, S, H, P, N)
+    a = dt * A
+    args = [torch.from_numpy(v.reshape(C, B, *v.shape[1:]))
+            for v in (xh, dt, a)] + [torch.from_numpy(Bm[:B])] + \
+        [torch.from_numpy(Cm.reshape(C, B, S, N))]
+    in_dims = (0, 0, 0, None, 0)
+
+    def loss(*t):
+        return (ops.ssd_scan(*t, chunk=chunk) ** 2).sum()
+
+    step = torch.func.grad_and_value(loss, argnums=(0, 1, 2, 3, 4))
+    grads, values = torch.func.vmap(step, in_dims=in_dims)(*args)
+    for c in range(C):
+        one = [t[c] if d is not None else t for t, d in zip(args, in_dims)]
+        want_g, want_v = step(*one)
+        torch.testing.assert_close(values[c], want_v, rtol=1e-6, atol=1e-6)
+        for got, want in zip(grads, want_g):
+            torch.testing.assert_close(got[c], want, rtol=1e-6, atol=1e-6)
+
+
+def test_scan_rejects_a_chunk_that_does_not_divide_s():
+    xh, dt, A, Bm, Cm = _inputs(np.random.default_rng(0), 1, 48, 2, 4, 4)
+    with pytest.raises(ValueError, match="does not divide"):
+        ops.ssd_scan(*_t(xh, dt, dt * A, Bm, Cm), chunk=32)
