@@ -57,7 +57,9 @@ Phases, each of which must pass (any failure exits non-zero):
    attention case and the backward of both autograd Functions), with the
    tolerance stated; then the kernel's time beside its plain version's, one
    PyTorch library call's where there is one, and the least time the card
-   could take (its bound). The codec kernels run on the stage-12 upload of
+   could take (its bound). Attention's bf16 cases run its tensor-core
+   kernel and its fp32 cases the CUDA-core one (the wrapper dispatches by
+   dtype). The codec kernels run on the stage-12 upload of
    the trained model (21,177,920 floats in 24 slots; top-k keeps
    k = 2,117,792), bit-identical to their plain versions, plus a top-k case
    whose threshold is 0 with ties over the whole payload. The InfoNCE
@@ -1146,7 +1148,8 @@ def lm_kernel_checks():
 KERNEL_NAMES = {"gather_pack": ("gather_pack_kernel",),
                 "scatter_unpack": ("scatter_unpack_kernel",),
                 "rmsnorm_rows": ("rmsnorm_rows_kernel",),
-                "flash_attention": ("flash_fwd_kernel",),
+                "flash_attention": ("flash_fwd_kernel",
+                                    "flash_fwd_bf16_kernel"),
                 "int8_quant_matrix": ("int8_absmax_kernel",
                                       "int8_quant_kernel"),
                 "int8_dequant_matrix": ("int8_dequant_kernel",),

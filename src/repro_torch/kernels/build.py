@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, compiled for ``sm_90a`` and loaded through ``ctypes`` (no
 PyTorch headers, so a build takes seconds). Libraries are named by a hash
-of their source and flags and kept in ``_build/`` beside this file (listed
-in ``.gitignore``), so a process builds a source at most once and a changed
-source is rebuilt. ``build_all`` starts one ``nvcc`` per missing source,
+of their source, the headers beside it (``csrc/*.cuh``) and the flags, and
+kept in ``_build/`` beside this file (listed in ``.gitignore``), so a
+process builds a source at most once and a changed source or header is
+rebuilt. ``build_all`` starts one ``nvcc`` per missing source,
 all at once, and waits for them together.
 
 Nothing here runs at import time: the CPU tests import every module.
@@ -51,9 +52,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """Where ``csrc/<name>.cu`` is built: named by a hash of the source,
+    every header in ``csrc/`` and the flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:

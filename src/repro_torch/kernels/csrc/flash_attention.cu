@@ -1,55 +1,67 @@
 // Online-softmax (flash) attention forward with GQA, causal, sliding-window
-// and kv_len masks.
+// and kv_len masks: a bf16 kernel on the tensor cores and an fp32 kernel on
+// the CUDA cores, chosen by the inputs' dtype.
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_bhsd
 // (pallas_call at :106, body _flash_kernel :32; wrapper
 // src/repro/kernels/ops.py:54 flash_attention).
 //
-// One block per (batch, q head, 64-row q tile); four warps, 16 q rows each.
-// The block loops over 64-row K/V tiles staged in shared memory as fp32,
-// keeps the running row max, row sum and the (16 x hd) accumulator of each
-// warp in registers, all in fp32, and keeps p in fp32 for p.v as the TPU
-// kernel does (flash_attention.py:73-79). Masked logits get p = 0; a q row
-// that sees no key writes zeros. K/V tiles that no row of the q tile can
-// see (causal, window, kv_len) are skipped, as the TPU kernel's pl.when
-// does. Ragged S and T are masked, never padded, and kv_head =
-// q_head / (Hq / Hkv). Any layout whose last dim is contiguous works: the
-// wrapper passes the batch, sequence and head strides of each operand.
-// Head dims 64, 80 (zamba2) and 128: a lane owns output columns lane,
-// lane + 32, ..., ceil(hd / 32) of them, the last masked when 32 does not
-// divide hd, so q, k and v are never padded in memory.
+// Common to both: kv_head = q_head / (Hq / Hkv); masked logits get p = 0
+// and a q row that sees no key writes zeros (the TPU kernel returns a mean
+// of the visited values there); K/V tiles that no row of a q tile can see
+// (causal, window, kv_len) are skipped, as the TPU kernel's pl.when does;
+// ragged S and T are masked, never padded in memory; the running row max,
+// row sum and accumulator stay in fp32 registers. Each block's output
+// depends only on its own (batch, head, q tile): no split over keys and no
+// atomics, so results do not depend on how callers fold batches. Head dims
+// 64, 80 (zamba2) and 128. The wrapper passes the batch, sequence and head
+// strides of each operand; the head dim is contiguous.
 //
 // Bound on the H100: for the ViT (B=256, S=T=65, 3 heads of 64, bf16) the
-// four (B, S, H, hd) tensors are 25.6 MB, 7.6 us at 3.35 TB/s, while the
-// 0.83 GFLOP of q.k and p.v take 0.8 us at the bf16 tensor-core peak: the
-// bound is bytes. This first kernel does its products on the fp32 CUDA
-// cores (scores: one lane per key column; p.v: one lane per output
-// column), so at this size it is limited by issue rate, not by memory.
-// wgmma on bf16 tiles with TMA-fed K/V is the follow-up.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// four (B, S, H, hd) tensors are 25.6 MB, 7.6 us at 3.35 TB/s, against
+// 0.83 GFLOP of q.k and p.v, 0.8 us at the bf16 tensor-core peak: bytes.
+// For zamba2's causal (4, 1024, 32, 80) the bytes are 84 MB (25 us) and the
+// causal half of the products 21.5 GFLOP (22 us): both about equal.
+//
+// bf16 kernel (flash_fwd_bf16_kernel). Products on the tensor cores with
+// mma.sync.m16n8k16 (bf16 in, fp32 accumulator), the FlashAttention-2
+// layout: each warp owns 16 q rows, keeps its q fragments in registers for
+// the whole key loop, and reuses the fp32 score accumulator of q.k^T as the
+// A operand of p.v after rounding p to bf16 (the JAX model's sdpa_dense
+// rounds its probabilities to the compute dtype too, sdpa.py:42; the row
+// sum uses the fp32 p). mma.sync rather than wgmma: wgmma needs 64-row
+// warpgroup tiles, and at the ViT's S = 65 a 16-row granularity covers the
+// 65 rows with 80 (five warps) where 64-row tiles need 128. Operands are
+// staged with 16-byte cp.async copies (the base and the batch, sequence
+// and head strides must be multiples of 16 bytes; the wrapper checks) into
+// shared-memory rows padded by 16 bytes, so ldmatrix reads them without
+// bank conflicts; rows past S or T are zero-filled in shared memory.
+// A block covers 16 * q_warps q rows of one (batch, head): q_warps =
+// ceil(S / 16) up to 8, so the ViT runs one block per (batch, head) that
+// reads K and V once, and longer sequences take 128-row q tiles. K/V come
+// in 64-key tiles through a two-stage ring: the next tile's copies are in
+// flight while the current one is multiplied. A warp skips the 16-key
+// chunks of a tile that none of its rows can see (the single key of the
+// ViT's second tile; the causal diagonal) and evaluates masks only on
+// tiles that cross a mask's edge; the last q tiles of a causal problem,
+// the longest, are launched first. Registers are capped at 128 a thread
+// and the exponential is the SFU's ex2.approx: each was faster on the
+// card than the alternative (PERF.md). TMA was not used: the
+// ViT's tiles are 8 KB, and a descriptor built on the host for each of
+// the path's 8616 launches would add host time to a host-bound step.
+//
+// fp32 kernel (flash_fwd_kernel): fp32 on the CUDA cores, so fp32
+// results stay within 2e-5 of the fp32 plain version (TF32 would not).
+// One block per (batch, q head, 64-row q tile), four warps of 16 rows; K/V
+// tiles staged in shared memory as fp32; p stays in fp32.
+#include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NWARPS = 4;
-constexpr int THREADS = NWARPS * 32;
-constexpr int RPW = BQ / NWARPS;  // q rows per warp
-constexpr float NEG_INF = -1e30f;
+using common::warp_max;
+using common::warp_sum;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);
-}
+constexpr float NEG_INF = -1e30f;
 
 struct AttnArgs {
   const void* q;
@@ -73,21 +85,14 @@ __device__ __forceinline__ bool visible(const AttnArgs& a, int qpos,
   return ok;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
+// ---------------------------------------------------------------- fp32 ----
+constexpr int BQ = 64;
+constexpr int BK = 64;
+constexpr int NWARPS = 4;
+constexpr int THREADS = NWARPS * 32;
+constexpr int RPW = BQ / NWARPS;  // q rows per warp
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const AttnArgs a) {
   constexpr int KSTRIDE = HD + 1;  // padded row: lanes read distinct banks
@@ -108,10 +113,12 @@ flash_fwd_kernel(const AttnArgs a) {
   const int kvh = h / (a.Hq / a.Hkv);
   const int q0 = qt * BQ;
 
-  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  T* op = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kp =
+      static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const float* vp =
+      static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  float* op = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -120,7 +127,7 @@ flash_fwd_kernel(const AttnArgs a) {
   for (int i = tid; i < BQ * HD; i += THREADS) {
     const int r = i / HD, d = i - r * HD;
     const int s = q0 + r;
-    Qs[i] = s < a.S ? to_f(qp[s * a.q_ss + d]) : 0.f;
+    Qs[i] = s < a.S ? qp[s * a.q_ss + d] : 0.f;
   }
 
   float acc[RPW][DPL];
@@ -136,7 +143,7 @@ flash_fwd_kernel(const AttnArgs a) {
 
   // K/V range some row of this q tile can see
   const int q_last = min(q0 + BQ, a.S) - 1;
-  int k_end = min(a.kv_len, a.T);
+  int k_end = a.kv_len;
   if (a.causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
   if (a.window > 0) k_begin = max(0, q0 - a.window + 1);
@@ -147,8 +154,8 @@ flash_fwd_kernel(const AttnArgs a) {
       const int c = i / HD, d = i - c * HD;
       const int t = k0 + c;
       const bool in = t < a.T;
-      Ks[c * KSTRIDE + d] = in ? to_f(kp[t * a.k_ss + d]) : 0.f;
-      Vs[c * HD + d] = in ? to_f(vp[t * a.v_ss + d]) : 0.f;
+      Ks[c * KSTRIDE + d] = in ? kp[t * a.k_ss + d] : 0.f;
+      Vs[c * HD + d] = in ? vp[t * a.v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -210,25 +217,20 @@ flash_fwd_kernel(const AttnArgs a) {
 #pragma unroll
       for (int j = 0; j < DPL; ++j) {
         const int col = lane + 32 * j;
-        if (FULL || col < HD) op[s * a.o_ss + col] = from_f<T>(acc[rr][j] / l);
+        if (FULL || col < HD) op[s * a.o_ss + col] = acc[rr][j] / l;
       }
     }
   }
 }
 
 template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (BQ * HD + BK * (HD + 1) + BK * HD + BQ * BK);
-}
-
-template <typename T, int HD>
-int launch(const AttnArgs& a, cudaStream_t st) {
-  constexpr size_t smem = smem_bytes<HD>();
+int launch_fp32(const AttnArgs& a, cudaStream_t st) {
+  constexpr size_t smem =
+      sizeof(float) * (BQ * HD + BK * (HD + 1) + BK * HD + BQ * BK);
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
@@ -236,8 +238,274 @@ int launch(const AttnArgs& a, cudaStream_t st) {
   const long long blocks =
       static_cast<long long>(a.B) * a.Hq * ((a.S + BQ - 1) / BQ);
   if (blocks <= 0) return 0;
-  flash_fwd_kernel<T, HD><<<static_cast<unsigned>(blocks), THREADS, smem,
-                            st>>>(a);
+  flash_fwd_kernel<HD><<<static_cast<unsigned>(blocks), THREADS, smem, st>>>(
+      a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- bf16 ----
+using bf16 = __nv_bfloat16;
+constexpr int TK = 64;        // keys per K/V tile
+constexpr int MAX_WARPS = 8;  // q_warps <= 8: at most 128 q rows a block
+
+// shared-memory row pitch, in bf16: the row plus 16 bytes, so the eight
+// 16-byte rows one ldmatrix reads fall in distinct banks
+template <int HD>
+__host__ __device__ constexpr int pitch() {
+  return HD + 8;
+}
+
+template <int HD>
+constexpr size_t bf16_smem_bytes(int q_warps) {
+  return sizeof(bf16) * static_cast<size_t>(16 * q_warps + 4 * TK) *
+         pitch<HD>();
+}
+
+// 2^x on the SFU (ex2.approx, flush to zero: exp2f's denormal handling
+// costs instructions, and a p below 2^-126 adds nothing to a row)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// rows [row0, row0 + rows) of a (.., HD) operand into shared memory, 16
+// bytes a copy; rows at or past ``limit`` are zero-filled
+template <int HD>
+__device__ __forceinline__ void load_rows(bf16* sm, const bf16* g,
+                                          long long row_stride, int row0,
+                                          int rows, int limit) {
+  constexpr int CH = HD / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
+    const int r = i / CH, c = i - r * CH;
+    const bool ok = row0 + r < limit;
+    const bf16* src = g + (ok ? (row0 + r) * row_stride : 0) + c * 8;
+    common::cp_async16(sm + r * pitch<HD>() + c * 8, src, ok);
+  }
+}
+
+// at most 128 registers a thread (two 256-thread blocks an SM): more
+// warps resident hide the latency of mma.sync chains better than the
+// registers they would otherwise spend (measured, see PERF.md)
+template <int HD>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 2)
+flash_fwd_bf16_kernel(const AttnArgs a) {
+  constexpr int P = pitch<HD>();
+  constexpr int KC = HD / 16;   // k16 chunks of the head dim (q.k^T)
+  constexpr int DN = HD / 8;    // n8 tiles of the head dim (p.v)
+  constexpr int SN = TK / 8;    // n8 tiles of a key tile (scores)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int q_warps = blockDim.x >> 5;
+  const int bq = 16 * q_warps;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // bq x P, then o
+  bf16* Ks = Qs + bq * P;                        // 2 stages x TK x P
+  bf16* Vs = Ks + 2 * TK * P;                    // 2 stages x TK x P
+
+  const int bh_count = a.B * a.Hq;
+  const int nq = (a.S + bq - 1) / bq;
+  const int bh = blockIdx.x % bh_count;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x / bh_count);
+  const int h = bh % a.Hq;
+  const int b = bh / a.Hq;
+  const int kvh = h / (a.Hq / a.Hkv);
+  const int q0 = qt * bq;
+
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  bf16* op = static_cast<bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row, column pair
+  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix matrix, row
+
+  // keys some row of the block can see: [k_begin, k_end)
+  const int q_last = min(q0 + bq, a.S) - 1;
+  const int k_end = a.causal ? min(a.kv_len, q_last + 1) : a.kv_len;
+  const int k_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int t_begin = (k_begin / TK) * TK;
+  const int ntiles = k_end > t_begin ? (k_end - t_begin + TK - 1) / TK : 0;
+  // ... and the warp's own 16 rows
+  const int wq0 = q0 + warp * 16;
+  int w_end = a.causal ? min(a.kv_len, wq0 + 16) : a.kv_len;
+  if (wq0 >= a.S) w_end = 0;
+  const int w_begin = a.window > 0 ? max(0, wq0 - a.window + 1) : 0;
+
+  load_rows<HD>(Qs, qp, a.q_ss, q0, bq, a.S);
+  common::cp_async_commit();
+  if (ntiles > 0) {
+    load_rows<HD>(Ks, kp, a.k_ss, t_begin, TK, a.T);
+    load_rows<HD>(Vs, vp, a.v_ss, t_begin, TK, a.T);
+    common::cp_async_commit();
+  }
+
+  // scores in log2 units: p = exp2(s * scale * log2(e) - m). A lane holds
+  // rows g (index 0 of m and l; entries 0, 1 of a fragment) and g + 8
+  // (index 1; entries 2, 3).
+  const float sl2 = a.scale * 1.4426950408889634f;
+  uint32_t qf[KC][4];
+  float o[DN][4];
+#pragma unroll
+  for (int j = 0; j < DN; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = t_begin + it * TK;
+    // tile ``it`` has landed, and every warp is done with tile it - 1,
+    // whose stage the next copies overwrite
+    common::cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < ntiles) {
+      const int nxt = ((it + 1) & 1) * TK * P;
+      load_rows<HD>(Ks + nxt, kp, a.k_ss, k0 + TK, TK, a.T);
+      load_rows<HD>(Vs + nxt, vp, a.v_ss, k0 + TK, TK, a.T);
+      common::cp_async_commit();
+    }
+    if (it == 0) {
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc)
+        common::ldsm_x4(qf[kc], Qs + (warp * 16 + (mi & 1) * 8 + mr) * P +
+                                    kc * 16 + (mi >> 1) * 8);
+    }
+    // keys [k0, k0 + nk) hold everything the warp's rows see in this tile
+    const int nk = min(TK, w_end - k0);
+    if (nk <= 0 || k0 + TK <= w_begin) continue;
+    const bf16* Kt = Ks + (it & 1) * TK * P;
+    const bf16* Vt = Vs + (it & 1) * TK * P;
+
+    float s[SN][4];
+#pragma unroll
+    for (int j = 0; j < SN; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int np = 0; np < SN / 2; ++np) {  // 16 keys at a time
+      if (np * 16 < nk) {
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          uint32_t kb[4];
+          common::ldsm_x4(kb, Kt + (np * 16 + (mi >> 1) * 8 + mr) * P +
+                                  kc * 16 + (mi & 1) * 8);
+          common::mma_bf16_16816(s[2 * np], qf[kc], kb[0], kb[1]);
+          common::mma_bf16_16816(s[2 * np + 1], qf[kc], kb[2], kb[3]);
+        }
+      }
+    }
+
+    // scale, then mask unless every row of the warp sees every key of the
+    // tile (most tiles of a long causal problem)
+    const bool full = k0 + TK <= a.kv_len &&
+                      (!a.causal || k0 + TK <= wq0 + 1) &&
+                      (a.window <= 0 || k0 > wq0 + 15 - a.window);
+#pragma unroll
+    for (int j = 0; j < SN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= sl2;
+    if (!full) {
+#pragma unroll
+      for (int j = 0; j < SN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!visible(a, wq0 + g + (e >> 1) * 8,
+                       k0 + j * 8 + 2 * t4 + (e & 1)))
+            s[j][e] = NEG_INF;
+    }
+    // the online softmax; a quad of four lanes holds a row's 64 scores
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < SN; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[r], mx);
+      const float c = ex2(m[r] - mn);
+      m[r] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < SN; ++j) {
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[j][e] = s[j][e] == NEG_INF ? 0.f : ex2(s[j][e] - mn);
+          sum += s[j][e];
+        }
+      }
+      l[r] = l[r] * c + sum;  // this lane's part; the quad sums at the end
+#pragma unroll
+      for (int j = 0; j < DN; ++j) {
+        o[j][2 * r] *= c;
+        o[j][2 * r + 1] *= c;
+      }
+    }
+
+    // o += p . v, 16 keys at a time: the score accumulators of two n8
+    // tiles are the A fragment of one k16 step
+#pragma unroll
+    for (int kc = 0; kc < SN / 2; ++kc) {
+      if (kc * 16 < nk) {
+        const uint32_t pa[4] = {
+            common::pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+            common::pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+            common::pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+            common::pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+        for (int dp = 0; dp < DN / 2; ++dp) {
+          uint32_t vb[4];
+          common::ldsm_x4_trans(vb, Vt + (kc * 16 + (mi & 1) * 8 + mr) * P +
+                                        dp * 16 + (mi >> 1) * 8);
+          common::mma_bf16_16816(o[2 * dp], pa, vb[0], vb[1]);
+          common::mma_bf16_16816(o[2 * dp + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+  }
+
+  // normalise, stage the warp's 16 rows in its own rows of Qs, then write
+  // them out 16 bytes a store
+  common::cp_async_wait_all();
+  __syncthreads();
+  bf16* Ow = Qs + warp * 16 * P;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lt = l[r];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float inv = lt > 0.f ? 1.f / lt : 0.f;
+#pragma unroll
+    for (int j = 0; j < DN; ++j)
+      *reinterpret_cast<uint32_t*>(Ow + (g + 8 * r) * P + j * 8 + 2 * t4) =
+          common::pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * DN; i += 32) {
+    const int r = i / DN, c = i - r * DN;
+    if (wq0 + r < a.S)
+      *reinterpret_cast<uint4*>(op + (wq0 + r) * a.o_ss + c * 8) =
+          *reinterpret_cast<const uint4*>(Ow + r * P + c * 8);
+  }
+}
+
+// q_warps warps of 16 rows a block: all of a sequence up to 128 rows (the
+// ViT's S = 65 takes five), else 128-row tiles (faster than 64-row ones at
+// zamba2's S = 1024, PERF.md)
+template <int HD>
+int launch_bf16(const AttnArgs& a, cudaStream_t st) {
+  const int q_warps = a.S < 16 * MAX_WARPS ? (a.S + 15) / 16 : MAX_WARPS;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_bf16_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bf16_smem_bytes<HD>(MAX_WARPS)));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  if (q_warps < 1) return 0;
+  const long long blocks = static_cast<long long>(a.B) * a.Hq *
+                           ((a.S + 16 * q_warps - 1) / (16 * q_warps));
+  if (blocks <= 0) return 0;
+  flash_fwd_bf16_kernel<HD><<<static_cast<unsigned>(blocks), 32 * q_warps,
+                              bf16_smem_bytes<HD>(q_warps), st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -249,9 +517,11 @@ const char* attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it). strides: 12
-// element strides, (batch, seq, head) for q, k, v, o in that order; the
-// head dim must be contiguous.
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
+// kernel). strides: 12 element
+// strides, (batch, seq, head) for q, k, v, o in that order; the head dim
+// must be contiguous, and for bfloat16 every base and stride 16-byte
+// aligned.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int hd, int B, int Hq,
                            int Hkv, int S, int T, const long long* strides,
@@ -265,14 +535,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   a.v_sb = strides[6]; a.v_ss = strides[7]; a.v_sh = strides[8];
   a.o_sb = strides[9]; a.o_ss = strides[10]; a.o_sh = strides[11];
   a.B = B; a.Hq = Hq; a.Hkv = Hkv; a.S = S; a.T = T;
-  a.causal = causal; a.window = window; a.kv_len = kv_len; a.scale = scale;
+  a.causal = causal; a.window = window; a.scale = scale;
+  a.kv_len = kv_len < T ? kv_len : T;  // keys past T are not there
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64) return launch<float, 64>(a, st);
-  if (dtype == 0 && hd == 80) return launch<float, 80>(a, st);
-  if (dtype == 0 && hd == 128) return launch<float, 128>(a, st);
-  if (dtype == 1 && hd == 64) return launch<__nv_bfloat16, 64>(a, st);
-  if (dtype == 1 && hd == 80) return launch<__nv_bfloat16, 80>(a, st);
-  if (dtype == 1 && hd == 128) return launch<__nv_bfloat16, 128>(a, st);
+  if (dtype == 0 && hd == 64) return launch_fp32<64>(a, st);
+  if (dtype == 0 && hd == 80) return launch_fp32<80>(a, st);
+  if (dtype == 0 && hd == 128) return launch_fp32<128>(a, st);
+  if (dtype == 1 && hd == 64) return launch_bf16<64>(a, st);
+  if (dtype == 1 && hd == 80) return launch_bf16<80>(a, st);
+  if (dtype == 1 && hd == 128) return launch_bf16<128>(a, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -3,12 +3,14 @@ masks).
 
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention_bhsd``
 (``pallas_call`` at :106) and the padding wrapper
-``src/repro/kernels/ops.py:54``. The kernel is ``csrc/flash_attention.cu``;
-its header gives the bound on the H100 (bytes at the ViT's shapes) and the
-design: one block per (batch, q head, 64-row q tile), K/V tiles staged in
-shared memory, fp32 running max, sum, accumulator and p. Unlike the TPU
-wrapper it pads nothing: ragged sequence ends are masked in the kernel and
-the head dim is used as it is (64, 80 or 128).
+``src/repro/kernels/ops.py:54``. The kernels are in
+``csrc/flash_attention.cu``, whose header gives the bound on the H100 and
+the design: bfloat16 inputs go to a tensor-core kernel (``mma.sync`` bf16
+with fp32 accumulators, 16 q rows a warp, ``cp.async`` 16-byte loads, p
+rounded to bf16 for p.v), float32 inputs to a CUDA-core kernel that keeps
+everything in fp32. Unlike the TPU wrapper nothing is padded: ragged
+sequence ends are masked in the kernel and the head dim is used as it is
+(64, 80 or 128).
 
 CUDA tensors only; ``repro_torch.kernels.ops.flash_attention`` counts
 launches, sends CPU tensors to ``ref.sdpa_ref`` and adds the backward.
@@ -43,10 +45,12 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_len: Optional[int] = None,
                          scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, S, Hq, hd); k, v: (B, T, Hkv, hd), all on CUDA in one dtype
-    (float32 or bfloat16) with a contiguous head dim (other strides are
-    free). Returns a contiguous (B, S, Hq, hd) tensor of q's dtype.
-    ``kv_len`` masks keys at positions >= kv_len; ``scale`` defaults to
-    1/sqrt(hd)."""
+    (float32 or bfloat16) with a contiguous head dim. Other strides are
+    free at float32; at bfloat16 each base address and each batch,
+    sequence and head stride must be a multiple of 16 bytes (the kernel
+    copies 16 bytes at a time), else this raises. Returns a contiguous
+    (B, S, Hq, hd) tensor of q's dtype. ``kv_len`` masks keys at positions
+    >= kv_len; ``scale`` defaults to 1/sqrt(hd)."""
     B, S, Hq, hd = q.shape
     Bk, T, Hkv, hdk = k.shape
     if q.device.type != "cuda" or k.device != q.device \
@@ -67,6 +71,15 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"of Hkv={Hkv}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention_bshd: head dim must be contiguous")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for n, st in zip(
+                t.shape[:3], t.stride()[:3]) if n > 1)
+            for t in (q, k, v)):
+        raise ValueError(
+            "flash_attention_bshd: bfloat16 q, k, v need 16-byte aligned "
+            "bases and batch, sequence and head strides that are multiples "
+            f"of 8 elements, got strides {q.stride()}, {k.stride()}, "
+            f"{v.stride()}")
     o = torch.empty((B, S, Hq, hd), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(st for t in (q, k, v, o)

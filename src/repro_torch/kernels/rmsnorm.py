@@ -1,11 +1,13 @@
-"""Hopper row-wise RMSNorm, one warp per row.
+"""Hopper row-wise RMSNorm that reads each row once.
 
 Replaces ``src/repro/kernels/rmsnorm.py::rmsnorm_rows`` (``pallas_call`` at
 :33). The kernel is ``csrc/rmsnorm.cu``; its header gives the bound on the
-H100 (bytes: one read of x, one write of y) and the design (warp per row,
-shuffle reduction, no shared memory). fp32 math; the output keeps x's
-dtype (float32 or bfloat16). A grouped (G, d) scale normalises each of G
-equal runs of rows with its own row (one client each, under ``vmap``).
+H100 (bytes: one read of x, one write of y) and the design (a warp, or 128
+or 256 threads for wide rows, holds the row in registers from 16-byte
+loads between the sum of squares and the write). fp32 math; the output
+keeps x's dtype (float32 or bfloat16), one kernel for both. A grouped
+(G, d) scale normalises each of G equal runs of rows with its own row (one
+client each, under ``vmap``).
 
 CUDA tensors only; ``repro_torch.kernels.ops.rmsnorm`` counts launches,
 sends CPU tensors to ``ref.rmsnorm_ref`` and adds the backward.

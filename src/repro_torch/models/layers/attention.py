@@ -4,15 +4,17 @@ path of ``repro.models.layers.attention.attn_apply``).
 The scaled dot product goes through the flash-attention kernel
 (``kernels.ops.flash_attention``: the CUDA kernel on the card, its plain
 version on the CPU), which maps each q head to its kv head itself, so K
-and V are not repeated. The kernel keeps the q.k logits and the
+and V are not repeated. The plain version keeps the q.k logits and the
 probabilities in fp32; the JAX model's ``sdpa_dense`` rounds both to the
-compute dtype (``sdpa.py:38-43``). At float32 the two agree. At bfloat16
-on a 2-block ViT (``tests/test_torch_model.py``) the encoder outputs
-differ by 1.23 bf16 roundings of their largest value and the SSL loss by
-1.5%; rounding like ``sdpa_dense`` moves these to 1.07 and 1.6%, so the
-gap is the other bf16 roundings (the matmuls, amplified by the heads'
-BatchNorm), not this one. The KV cache, decode and cross attention come
-with the LM slice.
+compute dtype (``sdpa.py:38-43``), and the bf16 CUDA kernel rounds the
+probabilities (not the logits) to bf16 for its tensor-core p.v. At
+float32 all agree. At bfloat16 on a 2-block ViT
+(``tests/test_torch_model.py``, on the CPU) the encoder outputs differ by
+1.23 bf16 roundings of their largest value and the SSL loss by 1.5%;
+rounding like ``sdpa_dense`` moves these to 1.07 and 1.6%, so the gap is
+the other bf16 roundings (the matmuls, amplified by the heads'
+BatchNorm), not this one. The KV cache, decode and cross attention are
+not ported.
 """
 from __future__ import annotations
 

@@ -67,6 +67,24 @@ def test_rmsnorm_kernel(dev, dtype, rows, d):
     assert (got.float() - want.float()).abs().max().item() < tol
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [33, 192, 2560, 4100, 5120])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_rmsnorm_kernel_widths(dev, dtype, d, offset):
+    """Every width the row groups take (a warp, 128 or 256 threads a row),
+    16-byte vectors where rows are aligned and scalars where not (d = 33,
+    or a view one element into its buffer), with a grouped scale: rows
+    [g R/G, (g+1) R/G) use scale[g]."""
+    R, G = 60, 3
+    x = _rand((R * d + offset,), dtype, dev)[offset:].view(R, d)
+    s = 1.0 + 0.1 * _rand((G, d), torch.float32, dev, 1)
+    got = ops.rmsnorm(x.view(G, R // G, d), s)
+    want = ref.rmsnorm_ref(x.view(G, R // G, d), s)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    assert got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() < tol
+
+
 @pytest.mark.parametrize("B,S,T,Hq,Hkv,hd,causal,window,kv_len,dtype", [
     (256, 65, 65, 3, 3, 64, False, 0, None, torch.bfloat16),   # ViT-Tiny
     (2, 200, 200, 4, 2, 128, True, 64, None, torch.float32),
@@ -86,6 +104,90 @@ def test_flash_attention_kernel(dev, B, S, T, Hq, Hkv, hd, causal, window,
     want = ref.sdpa_ref(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=causal, window=window,
                         kv_len=kv_len).transpose(1, 2)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert (got.float() - want.float()).abs().max().item() < tol
+
+
+# bf16 at every head dim and at sequence lengths around the tile edges
+# (16-row warps, 64-key tiles, one block for S <= 128), with the masks
+BF16_CASES = [
+    (3, 1, 1, 2, 2, 64, False, 0, None),
+    (2, 17, 17, 4, 2, 80, True, 0, None),
+    (2, 65, 65, 3, 3, 128, False, 0, None),
+    (2, 65, 65, 4, 1, 80, True, 16, None),
+    (2, 129, 129, 4, 2, 64, True, 0, 100),
+    (2, 129, 129, 2, 2, 128, False, 0, 70),
+    (1, 1000, 1000, 4, 2, 80, True, 0, None),
+    (1, 1000, 1000, 2, 1, 64, True, 200, None),
+    (1, 1000, 1000, 2, 2, 128, False, 0, 777),
+    (2, 17, 130, 2, 2, 64, False, 0, None),
+    (1, 129, 1000, 2, 1, 128, False, 100, 900),
+]
+
+
+def _attention_case(dev, B, S, T, Hq, Hkv, hd, causal, window, kv_len,
+                    dtype, seed=0):
+    q = _rand((B, S, Hq, hd), dtype, dev, seed)
+    k = _rand((B, T, Hkv, hd), dtype, dev, seed + 1)
+    v = _rand((B, T, Hkv, hd), dtype, dev, seed + 2)
+    want = ref.sdpa_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal, window=window,
+                        kv_len=kv_len).transpose(1, 2)
+    return q, k, v, want
+
+
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,hd,causal,window,kv_len", BF16_CASES)
+def test_flash_attention_bf16_shapes(dev, B, S, T, Hq, Hkv, hd, causal,
+                                     window, kv_len):
+    q, k, v, want = _attention_case(dev, B, S, T, Hq, Hkv, hd, causal,
+                                    window, kv_len, torch.bfloat16)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              kv_len=kv_len)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() < 2e-2
+
+
+def test_flash_attention_bf16_strided_views(dev):
+    """BSHD views with other strides: q, k, v sliced out of one fused
+    projection (sequence stride 3 Hq hd), and the transpose of a BHSD
+    tensor; all strides are multiples of 16 bytes, so the kernel reads
+    them in place."""
+    B, S, H, hd = 2, 65, 3, 64
+    qkv = _rand((B, S, 3 * H, hd), torch.bfloat16, dev, 3)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:]
+    bhsd = _rand((B, H, S, hd), torch.bfloat16, dev, 4).transpose(1, 2)
+    for a, b, c in ((q, k, v), (bhsd, k, v)):
+        got = ops.flash_attention(a, b, c, causal=True)
+        want = ref.sdpa_ref(a.transpose(1, 2), b.transpose(1, 2),
+                            c.transpose(1, 2), causal=True).transpose(1, 2)
+        assert (got.float() - want.float()).abs().max().item() < 2e-2
+
+
+def test_flash_attention_bf16_refuses_unaligned_layout(dev):
+    """A bf16 layout the kernel's 16-byte copies cannot read (a sequence
+    stride of 65 elements, a base 2 bytes into its buffer) raises; it is
+    not routed to another kernel."""
+    buf = _rand((2, 8, 2, 65), torch.bfloat16, dev)
+    q = buf[..., 1:]                              # head dim 64, offset 1
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q)
+    q = _rand((2 * 8 * 2 * 64 + 1,), torch.bfloat16, dev)[1:] \
+        .view(2, 8, 2, 64)                        # only the base is off
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_fully_masked_rows_are_zero(dev, dtype):
+    """Rows that see no key (kv_len 6 and a window of 4 leave rows 9 and
+    later nothing) come out as zeros from both kernels, as from the plain
+    version; the other rows match it."""
+    q, k, v, want = _attention_case(dev, 2, 130, 130, 4, 2, 64, True, 4, 6,
+                                    dtype)
+    got = ops.flash_attention(q, k, v, causal=True, window=4, kv_len=6)
+    assert torch.equal(got[:, 9:], torch.zeros_like(got[:, 9:]))
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     assert (got.float() - want.float()).abs().max().item() < tol
 

@@ -249,3 +249,45 @@ def test_vmap_rule_matches_client_loop(case):
         torch.testing.assert_close(values[c], want_v, rtol=1e-6, atol=1e-6)
         for got, want in zip(grads, want_g):
             torch.testing.assert_close(got[c], want, rtol=1e-6, atol=1e-6)
+
+
+def test_sdpa_plain_fully_masked_row_is_zero():
+    """A q row that sees no key (kv_len 6 and a window of 4 leave rows 9
+    and later nothing) is all zeros in the port's plain version, and so in
+    its CUDA kernels (``tests/test_torch_cuda.py``). The reference's TPU
+    kernel differs there: its logits are -1e30 everywhere, so its
+    ``exp(logits - m)`` is 1 for every visited key and the row comes out as
+    a mean of the visited values (``ROADMAP.md``, faults found in the
+    port)."""
+    B, S, Hq, Hkv, hd = 1, 16, 2, 1, 8
+    q, k, v = (torch.from_numpy(_np((B, S, h, hd), i))
+               for i, h in enumerate((Hq, Hkv, Hkv)))
+    got = ops.flash_attention(q, k, v, causal=True, window=4, kv_len=6)
+    want = ref.sdpa_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=True, window=4,
+                        kv_len=6).transpose(1, 2)
+    assert torch.equal(got, want)
+    assert torch.equal(got[:, 9:], torch.zeros_like(got[:, 9:]))
+    assert bool((got[:, :9].abs().sum(-1) > 0).all())
+
+
+def test_library_name_follows_headers(tmp_path, monkeypatch):
+    """A library is named by a hash of its source and of every header in
+    ``csrc/``, so changing a shared header rebuilds the libraries that
+    include it; other files there do not count."""
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    (csrc / "k.cu").write_text('#include "common.cuh"\n')
+    (csrc / "common.cuh").write_text("// v1\n")
+    first = build.library_path("k")
+    assert first.parent == tmp_path / "_build"
+    (csrc / "notes.txt").write_text("not a header\n")
+    assert build.library_path("k") == first
+    (csrc / "common.cuh").write_text("// v2\n")
+    second = build.library_path("k")
+    assert second != first
+    (csrc / "extra.cuh").write_text("// a new header\n")
+    assert build.library_path("k") not in (first, second)
