@@ -67,16 +67,21 @@ Phases, each of which must pass (any failure exits non-zero):
    path's MoCo terms), (1, 256, 192) (its alignment terms), (4, 256, 256)
    (the vmap path's) and a ragged (2, 96, 200), within 1e-5 of the largest
    value; ``torch.matmul`` + ``F.cross_entropy`` is timed beside the
-   forward for context (two calls, so not a library time). The LM path's
-   shapes: the SSD scan at (4, 1024, 80, 64), N 64, chunk 256, a small case
-   with another chunk and its backward; causal attention at (4, 1024, 32,
-   80) bf16; RMSNorm at (4096, 2560) and (4096, 5120); InfoNCE at (1, 4,
-   2560) and at a width above 4096.
+   forward for context (two calls, so not a library time). The forward
+   and dq must give the same bits twice, and a client alone the bits it
+   gets inside C = 4. The LM path's shapes: the SSD scan at (4, 1024, 80,
+   64), N 64, chunk 256 (bit-identical over two calls, and its four
+   kernels' times), five other shapes of one to five chunks, and its
+   backward; causal attention at (4, 1024, 32, 80) bf16; RMSNorm at
+   (4096, 2560) and (4096, 5120); InfoNCE at (1, 4, 2560), with the
+   two-call yardstick, and at widths above 4096.
 
 With ``--profile``, a fifth phase traces one local step of the last stage
 with ``torch.profiler``, of one client and of four at once (the vmap
 engine's step), and one local step of the LM path at stage 2, and prints
-where their device time goes.
+where their device time goes; then it splits the LM step by source with
+CUDA events (forward, forward and backward, AdamW, the
+``SSDScanFn.backward`` calls inside the step, and one such call alone).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. TF32 is off throughout,
@@ -97,10 +102,11 @@ import traceback
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# NVIDIA H100 SXM data sheet (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
-# fp32 (non-tensor) FLOP/s
+# NVIDIA H100 SXM data sheet (dense): HBM bytes/s, bf16 and TF32
+# tensor-core FLOP/s, fp32 (non-tensor) FLOP/s
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 FP32_FLOPS = 67e12
 
 TPU_SOURCES = {
@@ -587,6 +593,36 @@ def time_ms(calls, iters=24) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_split(fn, names, calls=12):
+    """Mean device ms a call of each CUDA kernel whose name holds one of
+    ``names``, over ``calls`` calls of ``fn`` under torch.profiler (inputs
+    as they are: an L2-warm split of the call, for its shape only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        name = next((n for n in names if n in e.key), None)
+        if name is not None:
+            out[name] = out.get(name, 0.0) + device_us(e) / 1e3 / calls
+    return out
+
+
+def device_us(e) -> float:
+    """A profiler event's own device microseconds (the attribute's name
+    differs between torch versions)."""
+    us = getattr(e, "self_device_time_total", None)
+    return e.self_cuda_time_total if us is None else us
+
+
 def bound(nbytes, flops, peak=FP32_FLOPS):
     """(bound ms, what bounds it) of work moving ``nbytes`` and doing
     ``flops`` at ``peak``."""
@@ -907,6 +943,29 @@ def infonce_kernel_checks(tau=0.2):
                   f"1e-5)", flush=True)
             check(err <= 1e-5, f"{name} ({C}, {B}, {d}): error {err}")
             errs[name] = max(errs[name], ab)
+    # bitwise: two calls agree, and client 2 of C = 4 gets the bits it gets
+    # alone at C = 1 (the vmap rule folds clients into C)
+    for B, d in ((256, 256), (4, 2560)):
+        q, k = unit((4, B, d)), unit((4, B, d))
+        g = torch.randn((4, B), generator=gen, device=dev) / B
+        loss, lse = nce.info_nce_fwd(q, k, tau)
+        dq = nce.info_nce_bwd(q, k, lse, g, tau, False)
+        again = nce.info_nce_fwd(q, k, tau)
+        one_loss, one_lse = nce.info_nce_fwd(q[2:3].contiguous(),
+                                             k[2:3].contiguous(), tau)
+        one_dq = nce.info_nce_bwd(q[2:3].contiguous(), k[2:3].contiguous(),
+                                  one_lse, g[2:3].contiguous(), tau, False)
+        same = (torch.equal(loss, again[0]) and torch.equal(lse, again[1])
+                and torch.equal(dq, nce.info_nce_bwd(q, k, lse, g, tau,
+                                                     False)))
+        alone = (torch.equal(one_loss[0], loss[2])
+                 and torch.equal(one_lse[0], lse[2])
+                 and torch.equal(one_dq[0], dq[2]))
+        print(f"  info_nce_rows and dq (4, {B}, {d}): two calls bit-identical "
+              f"{same}; client 2 at C = 1 bit-identical to C = 4 {alone}",
+              flush=True)
+        check(same and alone, f"InfoNCE ({B}, {d}) not deterministic or "
+              f"depends on C")
     rec = {}
     for C in (1, 4):
         B = d = 256
@@ -933,6 +992,16 @@ def infonce_kernel_checks(tau=0.2):
         print(f"  info_nce_rows ({C}, {B}, {d}): kernel {fwd['ms']} ms, "
               f"plain {fwd['plain_ms']} ms, matmul + cross_entropy "
               f"{fwd['context_ms']} ms", flush=True)
+        if C == 1:
+            q0, k0, g0 = sets[0]
+            fsplit = kernel_split(lambda: nce.info_nce_fwd(q0, k0, tau),
+                                  KERNEL_NAMES["info_nce_rows"])
+            dsplit = kernel_split(lambda: nce.info_nce_bwd(
+                q0, k0, lses[0], g0, tau, False),
+                KERNEL_NAMES["info_nce_rows_dq"])
+            print(f"  InfoNCE ({C}, {B}, {d}) by kernel, ms a call "
+                  f"(profiler, L2-warm): forward {fsplit}, dq {dsplit}",
+                  flush=True)
         recs = {"info_nce_rows": fwd}
         for name, wrt_k in (("info_nce_rows_dq", False),
                             ("info_nce_rows_dk", True)):
@@ -1018,7 +1087,9 @@ def lm_kernel_checks():
     err = rel(ops.ssd_scan(*sets[0], chunk=Q),
               ref.ssd_scan_ref(*sets[0], chunk=Q))
     line(f"ssd_scan ({B}, {S}, {H}, {P}) N {N} chunk {Q} fp32", err, 1e-4)
-    for shape in ((1, 384, 3, 32, 16, 128), (2, 96, 5, 64, 64, 32)):
+    for shape in ((1, 384, 3, 32, 16, 128), (2, 96, 5, 64, 64, 32),
+                  (2, 256, 3, 64, 64, 256), (1, 1024, 2, 64, 64, 1024),
+                  (1, 200, 2, 20, 7, 40)):
         args = ssd_inputs(*shape[:5], gen)
         line(f"ssd_scan {shape[:4]} N {shape[4]} chunk {shape[5]}",
              rel(ops.ssd_scan(*args, chunk=shape[5]),
@@ -1031,8 +1102,19 @@ def lm_kernel_checks():
                                ins)
     line("ssd_scan backward (2, 256, 4, 32) N 16 chunk 64",
          max(rel(a, b) for a, b in zip(got, want)), 1e-4)
+    same = torch.equal(ops.ssd_scan(*sets[1], chunk=Q),
+                       ops.ssd_scan(*sets[1], chunk=Q))
+    print(f"  ssd_scan ({B}, {S}, {H}, {P}): two calls bit-identical {same}",
+          flush=True)
+    check(same, "ssd_scan is not deterministic")
+    split = kernel_split(lambda: ops.ssd_scan(*sets[0], chunk=Q),
+                         KERNEL_NAMES["ssd_scan"])
+    print(f"  ssd_scan ({B}, {S}, {H}, {P}) by kernel, ms a call (profiler, "
+          f"L2-warm): {split}", flush=True)
     nbytes = 4 * (2 * B * S * H * P + 2 * B * S * H + 2 * B * S * N)
-    bms, by = bound(nbytes, ssd_flops(B, S, H, P, N, Q))
+    # fp32-accurate products at the card's fastest: 3xTF32 on the tensor
+    # cores, three TF32 products for each
+    bms, by = bound(nbytes, 3 * ssd_flops(B, S, H, P, N, Q), TF32_FLOPS)
     rec["ssd_scan"] = dict(
         max_abs_err=max_err(ops.ssd_scan(*sets[0], chunk=Q),
                             ref.ssd_scan_ref(*sets[0], chunk=Q)),
@@ -1115,12 +1197,17 @@ def lm_kernel_checks():
             continue
         nb = 4 * (2 * C * Bn * d + 2 * C * Bn)
         bms, by = bound(nb, 2 * C * Bn * Bn * d)
+        labels = torch.arange(Bn, device=dev)
+        two = time_ms([lambda: F.cross_entropy(
+            torch.matmul(q[0], k[0].transpose(0, 1)) / tau, labels,
+            reduction="none")])
         rec["info_nce_rows"] = dict(
             max_abs_err=max_err([loss, lse], [wl, wlse]),
             ms=time_ms([lambda: nce.info_nce_fwd(q, k, tau)]),
             plain_ms=time_ms([lambda: ref.info_nce_rows_ref(q, k, tau)]),
-            library_ms=None, bound_ms=bms, bound_by=by,
-            shape=f"q, k ({C}, {Bn}, {d}) fp32 (the alignment term)")
+            library_ms=None, bound_ms=bms, bound_by=by, context_ms=two,
+            shape=f"q, k ({C}, {Bn}, {d}) fp32 (the alignment term); "
+                  f"matmul + cross_entropy {two} ms (two calls)")
         for name, wrt_k in (("info_nce_rows_dq", False),
                             ("info_nce_rows_dk", True)):
             bms, by = bound(4 * (3 * C * Bn * d + 2 * C * Bn),
@@ -1156,10 +1243,15 @@ KERNEL_NAMES = {"gather_pack": ("gather_pack_kernel",),
                 "compensate": ("compensate_kernel",),
                 "topk_ef_update": ("ef_count_kernel", "ef_scan_kernel",
                                    "ef_select_kernel"),
-                "info_nce_rows": ("info_nce_fwd_kernel",),
-                "info_nce_rows_dq": ("info_nce_bwd_kernel<false>",),
-                "info_nce_rows_dk": ("info_nce_bwd_kernel<true>",),
-                "ssd_scan": ("ssd_scan_kernel",)}
+                "info_nce_rows": ("info_nce_logits_kernel<0>",
+                                  "info_nce_rows_kernel"),
+                "info_nce_rows_dq": ("info_nce_logits_kernel<1>",
+                                     "info_nce_grad_kernel<false>"),
+                "info_nce_rows_dk": ("info_nce_logits_kernel<2>",
+                                     "info_nce_grad_kernel<true>"),
+                "ssd_scan": ("ssd_chunk_cb_kernel", "ssd_chunk_state_kernel",
+                             "ssd_state_pass_kernel",
+                             "ssd_chunk_scan_kernel")}
 
 
 def profile_step(model_cfg, ssl_cfg, state, images, clients=1, steps=3):
@@ -1231,6 +1323,119 @@ def profile_lm_step(steps=2, seed=5):
 
     profile_device(step, "one LM local step at stage 2 (4 x 1024 tokens)",
                    steps)
+    lm_step_split(cfg, params, opt, {"tokens": toks, "labels": labs})
+
+
+def lm_step_split(cfg, params, opt, batch, reps=3):
+    """The LM local step of ``profile_lm_step`` cut by source, each part
+    timed alone with CUDA events on the same stage-2 batch (the median of
+    ``reps`` after one warm-up): the ``lm_ssl_loss`` forward under no_grad,
+    the forward and backward (``autograd.grad``, as ``lm_train_step``), the
+    optimizer's init and update, the whole step; then the time of the
+    ``SSDScanFn.backward`` calls inside one forward and backward, and one
+    such call alone at the LM shape (the plain version's vjp)."""
+    import types
+
+    import torch
+    from repro_torch.core import ssl as ssl_mod
+    from repro_torch.federated.client import lm_train_step
+    from repro_torch.federated.masks import stage_update_mask
+    from repro_torch.kernels import ops
+
+    kw = dict(sub_layers=2, active_from=1, global_params=params,
+              align_weight=0.01)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return sorted(out)[reps // 2]
+
+    def forward():
+        with torch.no_grad():
+            ssl_mod.lm_ssl_loss(params, batch, cfg, **kw)
+
+    def grads():
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss, _ = ssl_mod.lm_ssl_loss(p, batch, cfg, **kw)
+        gs = torch.autograd.grad(loss, list(p.values()), allow_unused=True)
+        return {k: torch.zeros_like(v) if g is None else g
+                for (k, v), g in zip(params.items(), gs)}
+
+    g = grads()
+    mask = stage_update_mask(params, 2, 1)
+    state = opt.init(params)
+    before = ops.launch_counts()["ssd_scan"]
+    forward()
+    scans = ops.launch_counts()["ssd_scan"] - before
+    # the scans whose backward the step runs: the trained group's (the
+    # frozen prefix and the global model run under no_grad)
+    # (``seen`` holds the visited nodes, so that their Python wrappers, and
+    # with them their ids, stay unique while the graph is walked)
+    p = {k: v.detach().requires_grad_() for k, v in params.items()}
+    seen, todo, bwd_calls = {}, [ssl_mod.lm_ssl_loss(p, batch, cfg,
+                                                     **kw)[0].grad_fn], 0
+    while todo:
+        node = todo.pop()
+        if node is None or id(node) in seen:
+            continue
+        seen[id(node)] = node
+        bwd_calls += "SSDScanFn" in type(node).__name__
+        todo.extend(f for f, _ in node.next_functions)
+    del p, seen, todo
+    parts = {
+        "forward (no_grad)": timed(forward),
+        "forward + backward": timed(grads),
+        "optimizer init": timed(lambda: opt.init(params)),
+        "optimizer update": timed(lambda: opt.update(g, state, params, 1e-5,
+                                                     mask)),
+        "whole step": timed(lambda: lm_train_step(
+            params, opt.init(params), batch, 1e-5, cfg=cfg, opt=opt, **kw)),
+    }
+    del g, state
+    # the scan's backward inside forward + backward: CUDA events around each
+    # call, by wrapping the Function's backward for one more run
+    plain_backward, marks = ops.SSDScanFn.backward, []
+
+    def marked_backward(ctx, gy):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = plain_backward(ctx, gy)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    ops.SSDScanFn.backward = staticmethod(marked_backward)
+    try:
+        grads()
+        torch.cuda.synchronize()
+    finally:
+        ops.SSDScanFn.backward = staticmethod(plain_backward)
+    in_step = sum(s.elapsed_time(e) for s, e in marks)
+    parts[f"SSDScanFn.backward in forward + backward ({len(marks)} "
+          f"calls)"] = in_step
+    gen = torch.Generator("cuda").manual_seed(9)
+    ins = ssd_inputs(4, 1024, 80, 64, 64, gen)
+    ctx = types.SimpleNamespace(saved_tensors=ins, chunk=256)
+    gy = torch.randn((4, 1024, 80, 64), generator=gen, device="cuda")
+    bwd = timed(lambda: ops.SSDScanFn.backward(ctx, gy))
+    print(f"  LM step split by source (CUDA events, median of {reps}):")
+    for name, ms in parts.items():
+        print(f"    {name}: {ms:.3f} ms")
+    print(f"    SSDScanFn.backward alone: {bwd:.3f} ms a call at (4, 1024, "
+          f"80, 64), N 64, chunk 256; a step runs {scans} ssd_scan "
+          f"forwards and {bwd_calls} backwards", flush=True)
+    check(len(marks) == bwd_calls, f"{len(marks)} SSD backwards ran, the "
+          f"graph holds {bwd_calls}")
 
 
 def profile_device(step, what, steps):
@@ -1258,10 +1463,8 @@ def profile_device(step, what, steps):
     rows = []
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            rows.append((us / 1e3 / steps, e.count // steps, e.key))
+            rows.append((device_us(e) / 1e3 / steps, e.count // steps,
+                         e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"  {what}: {wall_ms:.2f} ms wall (unprofiled), "

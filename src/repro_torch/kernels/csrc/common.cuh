@@ -1,7 +1,8 @@
 // Device helpers shared by the kernels of this directory: fp32 <-> bf16
-// conversion, warp reductions, and the sm_80+ primitives the bf16 attention
-// kernel is built from (cp.async 16-byte copies, ldmatrix, and the bf16
-// mma.sync m16n8k16 with an fp32 accumulator).
+// conversion, warp reductions, and the sm_80+ primitives the tensor-core
+// kernels are built from (cp.async 16- and 4-byte copies, ldmatrix, the bf16
+// mma.sync m16n8k16 with an fp32 accumulator, and the TF32 mma.sync
+// m16n8k8 with the 3xTF32 split that keeps an fp32 product's accuracy).
 //
 // build.py hashes every header here into each library's name, so a changed
 // header rebuilds the libraries.
@@ -24,6 +25,11 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float v) {
   return __float2bfloat16(v);
+}
+
+// whether a host pointer to device memory allows 16-byte copies
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -53,11 +59,25 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(valid ? 16 : 0)
                : "memory");
 }
+// 4 bytes global -> shared, asynchronously (the .ca form, the only one for
+// fewer than 16 bytes); with valid false the 4 bytes are zero-filled.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // four 8x8 bf16 matrices from shared memory; lane l gives the address of
@@ -91,6 +111,35 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x = hi + lo with hi and lo TF32 values: hi is x rounded to the nearest
+// TF32 (ties away), lo the remainder x - hi (exact in fp32) as it is: the
+// tensor cores read a TF32 operand's top 19 bits and ignore the rest, so
+// lo is truncated to TF32 there, which saves a conversion. hi keeps 11
+// significant bits and lo the next 10, so hi.hi + hi.lo + lo.hi misses
+// only lo.lo and lo's truncation: about 2^-21 of the product.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  uint32_t h;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
+  h &= 0xffffe000u;  // the TF32 bits alone, so that x - hi is exact
+  hi = h;
+  lo = __float_as_uint(x - __uint_as_float(h));
+}
+
+// d += a (16x8, row) . b (8x8, col), TF32 inputs, fp32 accumulator.
+// Fragments (g = lane / 4, t = lane % 4): a = (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4); b = (k t, n g), (k t + 4, n g); d = (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace common

@@ -227,14 +227,11 @@ template <int HD>
 int launch_fp32(const AttnArgs& a, cudaStream_t st) {
   constexpr size_t smem =
       sizeof(float) * (BQ * HD + BK * (HD + 1) + BK * HD + BQ * BK);
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
+  // set on every launch: the attribute is per device, and cheap to set
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
   const long long blocks =
       static_cast<long long>(a.B) * a.Hq * ((a.S + BQ - 1) / BQ);
   if (blocks <= 0) return 0;
@@ -491,15 +488,10 @@ flash_fwd_bf16_kernel(const AttnArgs a) {
 template <int HD>
 int launch_bf16(const AttnArgs& a, cudaStream_t st) {
   const int q_warps = a.S < 16 * MAX_WARPS ? (a.S + 15) / 16 : MAX_WARPS;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_bf16_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bf16_smem_bytes<HD>(MAX_WARPS)));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bf16_smem_bytes<HD>(MAX_WARPS)));
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (q_warps < 1) return 0;
   const long long blocks = static_cast<long long>(a.B) * a.Hq *
                            ((a.S + 16 * q_warps - 1) / (16 * q_warps));

@@ -1,4 +1,5 @@
-// Mamba2 chunked SSD scan with a resident (P, N) state.
+// Mamba2 chunked SSD scan, chunk-parallel, on the tensor cores at fp32
+// accuracy.
 //
 // Replaces src/repro/kernels/mamba2_scan.py::ssd_scan_bshpn (pallas_call at
 // :80, body _ssd_kernel :30; wrapper src/repro/kernels/ops.py:77 ssd_scan).
@@ -11,44 +12,63 @@
 //   inter-chunk  y_i += exp(cum_i) C_i . h^T
 //   state        h <- exp(cum_last) h + sum_j exp(cum_last - cum_j) dt_j
 //                     x_j B_j^T            (h (P, N) fp32, zero at chunk 0)
-// All math in fp32, as the TPU kernel does.
 //
 // Design. The TPU grid is (B, H, S / chunk) with the chunk axis sequential
-// and h in VMEM scratch; here one block of 256 threads per (b, h) loops
-// over the chunks itself and keeps h in shared memory (and each thread's
-// 16 entries of it in registers). The TPU kernel stages the whole (Q, Q)
-// intra-chunk matrix, 256 KB in fp32 at Q = 256, more than a block's
-// 227 KB of shared memory; here the chunk is cut into 64-row tiles: for an
-// output tile i, each tile j <= i forms the 64 x 64 tile of C_i . B_j^T,
-// applies the causal decay mask and dt_j as it writes it to shared memory,
-// and multiplies it into the tile's x_j. The last output tile walks every
-// j tile of the chunk, so the state's sum over j rides on its loads. cum
-// is an inclusive scan of the chunk's a by one warp. Shared memory: five
-// 64 x 65 fp32 tiles (C_i, B_j, x_j, the masked tile, h) plus three Q-long
-// rows (cum, dt, the state weights), 86 KB at Q = 256: two blocks an SM.
-// dt and a are read as they are (the TPU wrapper lane-pads them to 128).
+// and h in VMEM. Here the scan is the standard SSD decomposition, four
+// kernels on one stream, each parallel over the chunks:
+//   1. ssd_chunk_cb_kernel: CB = C_c . B_c^T over the causal half, once per
+//      (batch, chunk) and not per head (Bm and Cm are shared by the heads),
+//      into a (B, nc, Qp, Qp) scratch (Qp = Q rounded up to 64) that stays
+//      in L2; one block per 64 x 64 tile on or below the diagonal.
+//   2. ssd_chunk_state_kernel: per (batch, head, chunk) the chunk's own
+//      state st = sum_j exp(cum_last - cum_j) dt_j x_j B_j^T, a 64 x 64 block
+//      of a (B, H, nc, 64, 64) scratch, and cum itself into a (B, H, S)
+//      scratch (an inclusive scan of the chunk's a by one warp).
+//   3. ssd_state_pass_kernel: per (batch, head) the states entering each
+//      chunk, h_c = exp(cum_last(c-1)) h_{c-1} + st_{c-1}, written over st
+//      in place: the only sequential step, elementwise over (P, N).
+//   4. ssd_chunk_scan_kernel: per (batch, head, chunk, 64-row tile i) the
+//      output y_i = exp(cum_i) C_i . h_c^T + sum_{j tiles <= i}
+//      (CB_ij o L_ij o dt_j) x_j, the decay mask applied to the CB tile
+//      in shared memory before its products: per element on the diagonal
+//      tile, and as a row factor exp(cum_i - cum_r) times a column factor
+//      exp(cum_r - cum_j) dt_j (r the j tile's last position, both
+//      exponents <= 0) below it.
+// Every product is mma.sync m16n8k8 TF32 with the 3xTF32 split (common.cuh),
+// fp32 accumulators: 4 warps a block, each a 32 x 32 quarter of a 64 x 64
+// output tile, so that each split fragment of A feeds 12 products and each
+// of B 6. Operand tiles come in by cp.async (16-byte copies where rows
+// are 16-byte aligned, 4-byte ones otherwise), double-buffered in the
+// state and scan kernels. Shared rows are padded to 68 floats where the
+// fragments read along a row and 72 where they read down a column, so the
+// 32 lanes of a fragment load hit 32 banks. Padding past P, N or the chunk
+// is zero-filled, never read from device memory.
 // Any P, N <= 64 and chunk Q <= 1024 with Q | S; operands are read through
 // their strides, with the last dim of xh, Bm and Cm contiguous.
 //
 // Bound on the H100, at the LM path's shapes (B 4, S 1024, H 80, P 64,
 // N 64, Q 256, fp32): xh read and y written are 2 x 83.9 MB, dt, a, Bm
 // and Cm 4.7 MB, so 0.051 ms at 3.35 TB/s. The function needs C.B^T over
-// the causal half once per (batch, chunk), since Bm and Cm are shared by
-// the heads, and per (batch, head, chunk) M.x over the causal half, C.h^T
-// and the state: 10.83 GFLOP, 0.162 ms at 67 TFLOP/s fp32 on the CUDA
-// cores. The bound is operations. This kernel does more, about 18.8 GFLOP:
-// it recomputes C.B^T for each head and works on whole 64 x 64 tiles of
-// the causal half. Sharing C.B^T across the heads, and wgmma / TF32 mma,
-// are later work.
-#include <cuda_runtime.h>
+// the causal half once per (batch, chunk), and per (batch, head, chunk)
+// M.x over the causal half, C.h^T and the state: 10.83 GFLOP of products
+// at fp32 accuracy. The card's fastest fp32-accurate products are 3xTF32
+// on the tensor cores, three TF32 products each at the 495 TFLOP/s TF32
+// peak, so 165 TFLOP/s: 0.066 ms. The bound is operations, 0.066 ms (the
+// fp32 CUDA cores' 67 TFLOP/s would give 0.162 ms). These kernels do 11.5
+// GFLOP of fp32-accurate products (whole 64 x 64 tiles on the diagonal,
+// no C.h^T in a first chunk), as 34.5 GFLOP of TF32 work, 0.070 ms.
+#include "common.cuh"
 
 namespace {
 
 constexpr int TILE = 64;      // chunk positions per tile
-constexpr int DMAX = 64;      // largest P and N
-constexpr int LD = DMAX + 1;  // padded row: lanes read distinct banks
-constexpr int THREADS = 256;  // 16 x 16 threads, a 4 x 4 micro-tile each
+constexpr int DMAX = 64;      // largest P and N; scratch tiles are 64 x 64
+constexpr int LDR = 68;       // fragments read along a row: 4g + t banks
+constexpr int LDC = 72;       // fragments read down a column: 8t + g banks
+constexpr int THREADS = 128;  // 4 warps, each a 32 x 32 quarter of a tile
 constexpr int QMAX = 1024;
+constexpr int TILE_R = TILE * LDR;  // floats of a row-read tile
+constexpr int TILE_C = TILE * LDC;  // floats of a column-read tile
 
 struct SsdArgs {
   const float* x;
@@ -57,238 +77,419 @@ struct SsdArgs {
   const float* bm;
   const float* cm;
   float* y;
+  float* cb;    // (B, nc, Qp, Qp) scratch: C_c . B_c^T
+  float* st;    // (B, H, nc, 64, 64) scratch: chunk states, then h_c
+  float* cum;   // (B, H, S) scratch: cumsum(a) over each chunk
   long long x_sb, x_ss, x_sh;
   long long dt_sb, dt_ss, dt_sh;
   long long a_sb, a_ss, a_sh;
   long long b_sb, b_ss;
   long long c_sb, c_ss;
-  int B, S, H, P, N, Q;
+  int B, S, H, P, N, Q, nc, Qp;
+  bool vec_x, vec_bc;  // 16-byte copies allowed for xh / for Bm and Cm
 };
 
-// rows [r0, r0 + TILE) of the chunk starting at s0, columns [0, width) of
-// an (S, width) slab with row stride `ss`, into dst (TILE x LD), zeros
-// outside the chunk and past `width`.
-__device__ __forceinline__ void stage(float* dst, const float* src, long long ss,
-                                      int s0, int r0, int Q, int width) {
-  for (int e = threadIdx.x; e < TILE * DMAX; e += THREADS) {
-    const int r = e / DMAX, c = e - r * DMAX;
-    const int row = r0 + r;
-    dst[r * LD + c] = (row < Q && c < width)
-                          ? src[(s0 + row) * ss + c]
-                          : 0.f;
+// Rows [r0, r0 + 64) x columns [0, 64) of a matrix with row stride ss into
+// dst (64 rows of LD floats), asynchronously; rows >= nrows and columns >=
+// width are zero-filled. vec: 16-byte copies (width % 4 == 0, src and ss
+// 16-byte aligned).
+template <int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          long long ss, int r0, int nrows,
+                                          int width, bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < TILE * (DMAX / 4); e += THREADS) {
+      const int r = e >> 4, c = (e & 15) * 4;
+      const bool ok = r0 + r < nrows && c < width;
+      common::cp_async16(dst + r * LD + c,
+                         ok ? src + (r0 + r) * ss + c : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < TILE * DMAX; e += THREADS) {
+      const int r = e >> 6, c = e & 63;
+      const bool ok = r0 + r < nrows && c < width;
+      common::cp_async4(dst + r * LD + c, ok ? src + (r0 + r) * ss + c : src,
+                        ok);
+    }
   }
 }
 
+// The warp's 32 x 32 quarter of a 64 x 64 tile: rows rw.., columns cw..
+__device__ __forceinline__ int warp_row() {
+  return 32 * ((threadIdx.x >> 5) & 1);
+}
+__device__ __forceinline__ int warp_col() { return 32 * (threadIdx.x >> 6); }
+
+// acc (the warp's quarter) += A . B over k in [0, 64), with A(r, k) =
+// fa(r, k) and B(k, c) = fb(k, c) for r, c relative to the quarter.
+// acc[mt][nt] is the (m16, n8) tile (mt, nt) in the mma's d layout; each
+// split fragment of A feeds four n8 tiles and each of B two m16 tiles.
+template <class FA, class FB>
+__device__ __forceinline__ void warp_tile_mma(float (&acc)[2][4][4], FA fa,
+                                              FB fb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int k0 = 0; k0 < TILE; k0 += 8) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int r = 16 * mt + g;
+      common::split_tf32(fa(r, k0 + t), ah[mt][0], al[mt][0]);
+      common::split_tf32(fa(r + 8, k0 + t), ah[mt][1], al[mt][1]);
+      common::split_tf32(fa(r, k0 + t + 4), ah[mt][2], al[mt][2]);
+      common::split_tf32(fa(r + 8, k0 + t + 4), ah[mt][3], al[mt][3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      uint32_t bh0, bl0, bh1, bl1;
+      common::split_tf32(fb(k0 + t, 8 * nt + g), bh0, bl0);
+      common::split_tf32(fb(k0 + t + 4, 8 * nt + g), bh1, bl1);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        common::mma_tf32_1688(acc[mt][nt], al[mt], bh0, bh1);
+        common::mma_tf32_1688(acc[mt][nt], ah[mt], bl0, bl1);
+        common::mma_tf32_1688(acc[mt][nt], ah[mt], bh0, bh1);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[2][4][4]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][i][j] = 0.f;
+}
+
+// The warp's quarter of a 64 x 64 tile into dst (row stride ld).
+__device__ __forceinline__ void store_tile(float* dst, long long ld,
+                                           const float (&acc)[2][4][4]) {
+  const int lane = threadIdx.x & 31;
+  const int c = warp_col() + 2 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int r = warp_row() + 16 * mt + (lane >> 2);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      *reinterpret_cast<float2*>(dst + r * ld + c + 8 * nt) =
+          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(dst + (r + 8) * ld + c + 8 * nt) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  }
+}
+
+// grid (B * nc, tiles on or below the diagonal): CB tile (ti, tj) of chunk
+// c of batch b, C_i . B_j^T over N, into the (Qp, Qp) block of cb.
 __global__ void __launch_bounds__(THREADS)
-ssd_scan_kernel(const SsdArgs g) {
-  extern __shared__ float smem[];
-  float* Cs = smem;               // C_i tile       [i][n]
-  float* Bs = Cs + TILE * LD;     // B_j tile       [j][n]
-  float* Xs = Bs + TILE * LD;     // x_j tile       [j][p]
-  float* Ms = Xs + TILE * LD;     // masked tile    [i][j]
-  float* Hs = Ms + TILE * LD;     // state          [p][n]
-  float* cum = Hs + DMAX * LD;    // [Q] cumsum(a) over the chunk
-  float* dts = cum + g.Q;         // [Q] dt
-  float* ws = dts + g.Q;          // [Q] exp(cum_last - cum_j) dt_j
+ssd_chunk_cb_kernel(const SsdArgs g) {
+  __shared__ __align__(16) float Cs[TILE_R];
+  __shared__ __align__(16) float Bs[TILE_R];
+  const int b = blockIdx.x / g.nc, c = blockIdx.x - b * g.nc;
+  int ti = 0, rest = blockIdx.y;  // the (ti, tj) of the lower triangle
+  while (rest > ti) rest -= ++ti;
+  const int tj = rest;
+  const long long s0 = static_cast<long long>(c) * g.Q;
+  load_tile<LDR>(Cs, g.cm + b * g.c_sb + s0 * g.c_ss, g.c_ss, ti * TILE, g.Q,
+                 g.N, g.vec_bc);
+  load_tile<LDR>(Bs, g.bm + b * g.b_sb + s0 * g.b_ss, g.b_ss, tj * TILE, g.Q,
+                 g.N, g.vec_bc);
+  common::cp_async_commit();
+  common::cp_async_wait_all();
+  __syncthreads();
+  const int rw = warp_row(), cw = warp_col();
+  float acc[2][4][4];
+  zero(acc);
+  // A(i, n) = C[i][n]; B(n, j) = B[j][n]
+  warp_tile_mma(
+      acc, [&](int r, int k) { return Cs[(rw + r) * LDR + k]; },
+      [&](int k, int col) { return Bs[(cw + col) * LDR + k]; });
+  float* out = g.cb + (static_cast<long long>(b) * g.nc + c) * g.Qp * g.Qp +
+               static_cast<long long>(ti) * TILE * g.Qp + tj * TILE;
+  store_tile(out, g.Qp, acc);
+}
 
-  const int b = blockIdx.x / g.H;
-  const int h = blockIdx.x - b * g.H;
-  const float* xp = g.x + b * g.x_sb + h * g.x_sh;
-  const float* dtp = g.dt + b * g.dt_sb + h * g.dt_sh;
-  const float* ap = g.a + b * g.a_sb + h * g.a_sh;
-  const float* bp = g.bm + b * g.b_sb;
-  const float* cp = g.cm + b * g.c_sb;
-  float* yp = g.y +
-          (static_cast<long long>(b) * g.S * g.H + h) * g.P;
-  const long long y_ss = static_cast<long long>(g.H) * g.P;
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int Q = g.Q;
-  const int nt = (Q + TILE - 1) / TILE;
-
-  // this thread's h[p][n], p = ty + 16 r, n = tx + 16 c
-  float hreg[4][4];
+// One warp's inclusive scan of v[0, n) in place (n <= 1024).
+__device__ __forceinline__ void warp_scan(float* v, int n) {
+  const int lane = threadIdx.x & 31;
+  const int per = (n + 31) / 32;
+  const int lo = min(n, lane * per), hi = min(n, lo + per);
+  float run = 0.f;
+  for (int q = lo; q < hi; ++q) {
+    run += v[q];
+    v[q] = run;
+  }
+  float inc = run;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) hreg[r][c] = 0.f;
-  for (int e = tid; e < DMAX * LD; e += THREADS) Hs[e] = 0.f;
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc += u;
+  }
+  const float base = inc - run;  // the sum of the lanes before this one
+  for (int q = lo; q < hi; ++q) v[q] += base;
+}
 
-  for (int s0 = 0; s0 < g.S; s0 += Q) {
-    __syncthreads();  // the previous chunk is done with cum, dts, ws
-    for (int q = tid; q < Q; q += THREADS) {
-      cum[q] = ap[(s0 + q) * g.a_ss];
-      dts[q] = dtp[(s0 + q) * g.dt_ss];
+// grid (B * H * nc): the chunk's state st = sum_j w_j x_j B_j^T, w_j =
+// exp(cum_last - cum_j) dt_j, and cum into g.cum.
+// Shared: two (x tile, B tile) pairs, then cum and w (Qp each).
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_chunk_state_kernel(const SsdArgs g) {
+  extern __shared__ __align__(16) float smem[];
+  float* cum = smem + 4 * TILE_C;
+  float* ws = cum + g.Qp;
+  const int bh = blockIdx.x / g.nc, c = blockIdx.x - bh * g.nc;
+  const int b = bh / g.H, h = bh - b * g.H;
+  const long long s0 = static_cast<long long>(c) * g.Q;
+  const float* xp = g.x + b * g.x_sb + h * g.x_sh + s0 * g.x_ss;
+  const float* bp = g.bm + b * g.b_sb + s0 * g.b_ss;
+  const int nt = g.Qp / TILE;
+  auto issue = [&](int t) {
+    float* buf = smem + (t & 1) * 2 * TILE_C;
+    load_tile<LDC>(buf, xp, g.x_ss, t * TILE, g.Q, g.P, g.vec_x);
+    load_tile<LDC>(buf + TILE_C, bp, g.b_ss, t * TILE, g.Q, g.N, g.vec_bc);
+    common::cp_async_commit();
+  };
+  issue(0);
+  const float* ap = g.a + b * g.a_sb + h * g.a_sh + s0 * g.a_ss;
+  const float* dp = g.dt + b * g.dt_sb + h * g.dt_sh + s0 * g.dt_ss;
+  for (int q = threadIdx.x; q < g.Qp; q += THREADS) {
+    cum[q] = q < g.Q ? ap[q * g.a_ss] : 0.f;
+    ws[q] = q < g.Q ? dp[q * g.dt_ss] : 0.f;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) warp_scan(cum, g.Q);
+  __syncthreads();
+  const float cum_last = cum[g.Q - 1];
+  float* cum_out = g.cum + static_cast<long long>(bh) * g.S + s0;
+  for (int q = threadIdx.x; q < g.Q; q += THREADS) {
+    ws[q] *= expf(cum_last - cum[q]);  // zero past Q, where dt is zero
+    cum_out[q] = cum[q];
+  }
+  const int rw = warp_row(), cw = warp_col();
+  float acc[2][4][4];
+  zero(acc);
+  for (int t = 0; t < nt; ++t) {
+    if (t + 1 < nt) {
+      issue(t + 1);
+      common::cp_async_wait<1>();
+    } else {
+      common::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t and ws are visible to every warp
+    float* xs = smem + (t & 1) * 2 * TILE_C;
+    const float* bs = xs + TILE_C;
+    const float* wt = ws + t * TILE;
+    // w_j x_j in place, once for the two warps that read each element
+    for (int e = threadIdx.x; e < TILE * DMAX; e += THREADS) {
+      const int j = e >> 6, p = e & 63;
+      xs[j * LDC + p] = wt[j] * xs[j * LDC + p];
     }
     __syncthreads();
-    if (tid < 32) {  // inclusive scan of the chunk's a by one warp
-      const int per = (Q + 31) / 32;
-      const int lo = min(Q, tid * per), hi = min(Q, lo + per);
-      float run = 0.f;
-      for (int q = lo; q < hi; ++q) {
-        run += cum[q];
-        cum[q] = run;
-      }
-      float inc = run;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, inc, off);
-        if (tid >= off) inc += v;
-      }
-      const float base = inc - run;  // sum of the lanes before this one
-      for (int q = lo; q < hi; ++q) cum[q] += base;
-    }
-    __syncthreads();
-    const float cum_last = cum[Q - 1];
-    for (int q = tid; q < Q; q += THREADS)
-      ws[q] = expf(cum_last - cum[q]) * dts[q];
+    // A(p, j) = w_j x[j][p]; B(j, n) = B[j][n]
+    warp_tile_mma(
+        acc, [&](int r, int k) { return xs[k * LDC + rw + r]; },
+        [&](int k, int col) { return bs[k * LDC + cw + col]; });
+    __syncthreads();  // the pair is free for tile t + 2
+  }
+  store_tile(g.st + static_cast<long long>(blockIdx.x) * DMAX * DMAX, DMAX,
+             acc);
+}
 
-    float hacc[4][4];
+// grid (B * H): the states entering each chunk, over st in place:
+// h_0 = 0, h_{c+1} = exp(cum_last(c)) h_c + st_c.
+constexpr int PASS_THREADS = 256;
+__global__ void __launch_bounds__(PASS_THREADS)
+ssd_state_pass_kernel(const SsdArgs g) {
+  constexpr int PER = DMAX * DMAX / 4 / PASS_THREADS;  // float4s a thread
+  float4* st = reinterpret_cast<float4*>(
+      g.st + static_cast<long long>(blockIdx.x) * g.nc * DMAX * DMAX);
+  const float* cum = g.cum + static_cast<long long>(blockIdx.x) * g.S;
+  float4 hv[PER];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+  for (int i = 0; i < PER; ++i) hv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = 0; c < g.nc; ++c) {
+    const float decay = expf(cum[static_cast<long long>(c) * g.Q + g.Q - 1]);
+    float4* sc = st + static_cast<long long>(c) * DMAX * DMAX / 4;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) hacc[r][c] = 0.f;
-
-    for (int ti = 0; ti < nt; ++ti) {
-      const int i0 = ti * TILE;
-      __syncthreads();  // Cs, Bs, Xs and Ms are free again; ws is visible
-      stage(Cs, cp, g.c_ss, s0, i0, Q, g.N);
-      __syncthreads();
-      // inter-chunk: acc[i][p] = exp(cum_i) C_i . h_p
-      float acc[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-      for (int n = 0; n < g.N; ++n) {
-        float cv[4], hv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) cv[r] = Cs[(ty + 16 * r) * LD + n];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) hv[c] = Hs[(tx + 16 * c) * LD + n];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(cv[r], hv[c], acc[r][c]);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = i0 + ty + 16 * r;
-        const float e = i < Q ? expf(cum[i]) : 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] *= e;
-      }
-      const bool last = ti == nt - 1;
-      for (int tj = 0; tj <= ti; ++tj) {
-        const int j0 = tj * TILE;
-        __syncthreads();  // the previous j tile's Bs, Xs, Ms are read
-        stage(Bs, bp, g.b_ss, s0, j0, Q, g.N);
-        stage(Xs, xp, g.x_ss, s0, j0, Q, g.P);
-        __syncthreads();
-        // Ms[i][j] = (C_i . B_j) exp(cum_i - cum_j) dt_j, j <= i, else 0
-        float sv[4][4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) sv[r][c] = 0.f;
-        for (int n = 0; n < g.N; ++n) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) cv[r] = Cs[(ty + 16 * r) * LD + n];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) bv[c] = Bs[(tx + 16 * c) * LD + n];
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              sv[r][c] = fmaf(cv[r], bv[c], sv[r][c]);
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int il = ty + 16 * r, i = i0 + il;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int jl = tx + 16 * c, j = j0 + jl;
-            Ms[il * LD + jl] =
-                (j <= i && i < Q) ? sv[r][c] * expf(cum[i] - cum[j]) * dts[j]
-                                  : 0.f;
-          }
-        }
-        __syncthreads();
-        // y_i += sum_j Ms[i][j] x_j
-        for (int jl = 0; jl < TILE; ++jl) {
-          float mv[4], xv[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) mv[r] = Ms[(ty + 16 * r) * LD + jl];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) xv[c] = Xs[jl * LD + tx + 16 * c];
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              acc[r][c] = fmaf(mv[r], xv[c], acc[r][c]);
-        }
-        if (last) {
-          // state: h[p][n] += sum_j w_j x_j[p] B_j[n] (zero rows past Q)
-          const int jn = min(TILE, Q - j0);
-          for (int jl = 0; jl < jn; ++jl) {
-            const float w = ws[j0 + jl];
-            float xv[4], bv[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-              xv[r] = w * Xs[jl * LD + ty + 16 * r];
-#pragma unroll
-            for (int c = 0; c < 4; ++c) bv[c] = Bs[jl * LD + tx + 16 * c];
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-              for (int c = 0; c < 4; ++c)
-                hacc[r][c] = fmaf(xv[r], bv[c], hacc[r][c]);
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = i0 + ty + 16 * r;
-        if (i >= Q) continue;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int p = tx + 16 * c;
-          if (p < g.P) yp[(s0 + i) * y_ss + p] = acc[r][c];
-        }
-      }
+    for (int i = 0; i < PER; ++i) {
+      const int e = threadIdx.x + i * PASS_THREADS;
+      const float4 v = sc[e];
+      sc[e] = hv[i];
+      hv[i] = make_float4(hv[i].x * decay + v.x, hv[i].y * decay + v.y,
+                          hv[i].z * decay + v.z, hv[i].w * decay + v.w);
     }
-    // h <- exp(cum_last) h + the chunk's sum, once every tile has read h
-    __syncthreads();
-    const float decay = expf(cum_last);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        hreg[r][c] = hreg[r][c] * decay + hacc[r][c];
-        Hs[(ty + 16 * r) * LD + tx + 16 * c] = hreg[r][c];
-      }
   }
 }
 
-size_t smem_bytes(int Q) {
-  return sizeof(float) * (4 * TILE * LD + DMAX * LD + 3 * Q);
+// grid (B * H * nc * Qp / 64): rows [64 ti, 64 ti + 64) of chunk c of
+// (batch b, head h); a chunk's row tiles are neighbours in the grid, the
+// last (longest) first. Shared: two (CB tile, x tile) pairs, the second
+// pair holding C_i and h_c first; then cum and dt up to the tile's end,
+// and the two j tiles' row and column factors.
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_chunk_scan_kernel(const SsdArgs g) {
+  extern __shared__ __align__(16) float smem[];
+  const int nti = g.Qp / TILE;
+  const int bhc = blockIdx.x / nti;
+  const int ti = nti - 1 - (blockIdx.x - bhc * nti);
+  const int i0 = ti * TILE;
+  const int npos = i0 + TILE;  // cum and dt are needed up to here
+  float* cum = smem + 2 * (TILE_R + TILE_C);
+  float* dts = cum + npos;
+  float* fac = dts + npos;     // [2][rows 64, columns 64]
+  const int bh = bhc / g.nc, c = bhc - bh * g.nc;
+  const int b = bh / g.H, h = bh - b * g.H;
+  const long long s0 = static_cast<long long>(c) * g.Q;
+  const float* xp = g.x + b * g.x_sb + h * g.x_sh + s0 * g.x_ss;
+  const float* cbp = g.cb + (static_cast<long long>(b) * g.nc + c) * g.Qp *
+                                g.Qp + static_cast<long long>(i0) * g.Qp;
+  auto pair = [&](int t) { return smem + (t & 1) * (TILE_R + TILE_C); };
+  // C_i and h_c into the second pair, then CB_i0 and x_0 into the first
+  {
+    float* p1 = pair(1);
+    if (c > 0) {
+      load_tile<LDR>(p1, g.cm + b * g.c_sb + s0 * g.c_ss, g.c_ss, i0, g.Q,
+                     g.N, g.vec_bc);
+      load_tile<LDR>(p1 + TILE_R, g.st + static_cast<long long>(bhc) *
+                     DMAX * DMAX, DMAX, 0, DMAX, DMAX, true);
+    }
+    common::cp_async_commit();
+  }
+  auto issue = [&](int t) {
+    float* p = pair(t);
+    load_tile<LDR>(p, cbp + t * TILE, g.Qp, 0, TILE, TILE, true);
+    load_tile<LDC>(p + TILE_R, xp, g.x_ss, t * TILE, g.Q, g.P, g.vec_x);
+    common::cp_async_commit();
+  };
+  issue(0);
+  const float* cp = g.cum + static_cast<long long>(bh) * g.S + s0;
+  const float* dp = g.dt + b * g.dt_sb + h * g.dt_sh + s0 * g.dt_ss;
+  for (int q = threadIdx.x; q < npos; q += THREADS) {
+    // past Q: cum stays at its last value and dt is zero
+    cum[q] = cp[min(q, g.Q - 1)];
+    dts[q] = q < g.Q ? dp[q * g.dt_ss] : 0.f;
+  }
+  __syncthreads();
+  // j tile t < ti: rows exp(cum_i - cum_r), columns exp(cum_r - cum_j) dt_j,
+  // r = the tile's last position (both exponents <= 0: no overflow, and
+  // the product underflows only where the decay itself does)
+  auto factors = [&](int t) {
+    if (t == ti || threadIdx.x >= 2 * TILE) return;
+    float* f = fac + (t & 1) * 2 * TILE;
+    const float cr = cum[t * TILE + TILE - 1];
+    const int e = threadIdx.x;
+    if (e < TILE)
+      f[e] = expf(cum[i0 + e] - cr);
+    else
+      f[e] = expf(cr - cum[t * TILE + e - TILE]) * dts[t * TILE + e - TILE];
+  };
+  factors(0);
+  const int lane = threadIdx.x & 31;
+  const int rw = warp_row(), cw = warp_col();
+  float acc[2][4][4];
+  zero(acc);
+  common::cp_async_wait<1>();  // C_i and h_c
+  __syncthreads();
+  if (c > 0) {
+    const float* cs = pair(1);
+    const float* hs = cs + TILE_R;
+    // A(i, n) = C[i][n]; B(n, p) = h[p][n]; then the rows times exp(cum_i)
+    warp_tile_mma(
+        acc, [&](int r, int k) { return cs[(rw + r) * LDR + k]; },
+        [&](int k, int col) { return hs[(cw + col) * LDR + k]; });
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int r = rw + 16 * mt + (lane >> 2);
+      const float e0 = expf(cum[i0 + r]), e1 = expf(cum[i0 + r + 8]);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        acc[mt][nt][0] *= e0;
+        acc[mt][nt][1] *= e0;
+        acc[mt][nt][2] *= e1;
+        acc[mt][nt][3] *= e1;
+      }
+    }
+  }
+  __syncthreads();  // the second pair is free
+  for (int t = 0; t <= ti; ++t) {
+    if (t < ti) {
+      issue(t + 1);
+      factors(t + 1);
+      common::cp_async_wait<1>();
+    } else {
+      common::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t and its factors are visible
+    float* cbs = pair(t);
+    const float* xs = cbs + TILE_R;
+    const int j0 = t * TILE;
+    // CB o L o dt in place, once for the two warps that read each row: the
+    // causal mask and the decay per element on the diagonal tile, the row
+    // and column factors below it
+    const float* f = fac + (t & 1) * 2 * TILE;
+    for (int e = threadIdx.x; e < TILE * TILE; e += THREADS) {
+      const int r = e >> 6, k = e & 63;
+      float* v = cbs + r * LDR + k;
+      if (t == ti) {
+        const int i = i0 + r, j = j0 + k;
+        *v = j <= i ? *v * expf(cum[i] - cum[j]) * dts[j] : 0.f;
+      } else {
+        *v = *v * f[r] * f[TILE + k];
+      }
+    }
+    __syncthreads();
+    warp_tile_mma(
+        acc, [&](int r, int k) { return cbs[(rw + r) * LDR + k]; },
+        [&](int k, int col) { return xs[k * LDC + cw + col]; });
+    __syncthreads();  // the pair is free for tile t + 2
+  }
+  // y rows past Q and columns past P are not written
+  const long long y_ss = static_cast<long long>(g.H) * g.P;
+  float* yp = g.y + ((b * static_cast<long long>(g.S) + s0) * g.H + h) * g.P;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int r = rw + 16 * mt + (lane >> 2);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int p = cw + 8 * nt + 2 * (lane & 3);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = i0 + r + 8 * half;
+        if (i >= g.Q) continue;
+        float* o = yp + i * y_ss + p;
+        if (p < g.P) o[0] = acc[mt][nt][2 * half];
+        if (p + 1 < g.P) o[1] = acc[mt][nt][2 * half + 1];
+      }
+    }
+  }
+}
+
+size_t state_smem(int Qp) { return sizeof(float) * (4 * TILE_C + 2 * Qp); }
+size_t scan_smem(int Qp) {
+  return sizeof(float) * (2 * (TILE_R + TILE_C) + 2 * Qp + 4 * TILE);
 }
 
 int launch(const SsdArgs& g, cudaStream_t st) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes(QMAX)));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
-  const long long blocks = static_cast<long long>(g.B) * g.H;
-  if (blocks <= 0 || g.S == 0) return 0;
-  ssd_scan_kernel<<<static_cast<unsigned>(blocks), THREADS,
-                    smem_bytes(g.Q), st>>>(g);
+  // set on every launch: the attribute is per device, and cheap to set
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_chunk_state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(state_smem(QMAX)));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(ssd_chunk_scan_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(scan_smem(QMAX)));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (g.B == 0 || g.H == 0 || g.S == 0) return 0;
+  const int nt = g.Qp / TILE;
+  const unsigned bc = static_cast<unsigned>(g.B) * g.nc;
+  const unsigned bhc = bc * static_cast<unsigned>(g.H);
+  ssd_chunk_cb_kernel<<<dim3(bc, nt * (nt + 1) / 2), THREADS, 0, st>>>(g);
+  ssd_chunk_state_kernel<<<bhc, THREADS, state_smem(g.Qp), st>>>(g);
+  ssd_state_pass_kernel<<<static_cast<unsigned>(g.B) * g.H, PASS_THREADS,
+                          0, st>>>(g);
+  ssd_chunk_scan_kernel<<<bhc * nt, THREADS, scan_smem(g.Qp), st>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -300,15 +501,17 @@ const char* ssd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// All operands float32. strides: 13 element strides, (batch, seq, head) of xh, dt and a, then
-// (batch, seq) of Bm and Cm; the last dim of xh, Bm and Cm is contiguous.
-// y is a contiguous (B, S, H, P) tensor.
+// All operands float32. strides: 13 element strides, (batch, seq, head) of
+// xh, dt and a, then (batch, seq) of Bm and Cm; the last dim of xh, Bm and
+// Cm is contiguous. y is a contiguous (B, S, H, P) tensor; cb (B, nc, Qp,
+// Qp), st (B, H, nc, 64, 64) and cum (B, H, S) are float32 scratch, Qp = Q
+// rounded up to a multiple of 64, each 16-byte aligned.
 int ssd_scan_launch(const void* x, const void* dt, const void* a,
-                    const void* bm, const void* cm, void* y,
-                    int B, int S, int H, int P, int N, int Q,
-                    const long long* strides, void* stream) {
+                    const void* bm, const void* cm, void* y, void* cb,
+                    void* st, void* cum, int B, int S, int H, int P, int N,
+                    int Q, const long long* strides, void* stream) {
   if (P < 1 || P > DMAX || N < 1 || N > DMAX || Q < 1 || Q > QMAX ||
-      S % Q != 0)
+      S % Q != 0 || !common::aligned16(cb) || !common::aligned16(st))
     return static_cast<int>(cudaErrorInvalidValue);
   SsdArgs g;
   g.x = static_cast<const float*>(x);
@@ -317,12 +520,22 @@ int ssd_scan_launch(const void* x, const void* dt, const void* a,
   g.bm = static_cast<const float*>(bm);
   g.cm = static_cast<const float*>(cm);
   g.y = static_cast<float*>(y);
+  g.cb = static_cast<float*>(cb);
+  g.st = static_cast<float*>(st);
+  g.cum = static_cast<float*>(cum);
   g.x_sb = strides[0]; g.x_ss = strides[1]; g.x_sh = strides[2];
   g.dt_sb = strides[3]; g.dt_ss = strides[4]; g.dt_sh = strides[5];
   g.a_sb = strides[6]; g.a_ss = strides[7]; g.a_sh = strides[8];
   g.b_sb = strides[9]; g.b_ss = strides[10];
   g.c_sb = strides[11]; g.c_ss = strides[12];
   g.B = B; g.S = S; g.H = H; g.P = P; g.N = N; g.Q = Q;
+  g.nc = Q > 0 ? S / Q : 0;
+  g.Qp = (Q + TILE - 1) / TILE * TILE;
+  g.vec_x = common::aligned16(x) && P % 4 == 0 && g.x_sb % 4 == 0 &&
+            g.x_ss % 4 == 0 && g.x_sh % 4 == 0;
+  g.vec_bc = common::aligned16(bm) && common::aligned16(cm) && N % 4 == 0 &&
+             g.b_sb % 4 == 0 && g.b_ss % 4 == 0 && g.c_sb % 4 == 0 &&
+             g.c_ss % 4 == 0;
   return launch(g, static_cast<cudaStream_t>(stream));
 }
 

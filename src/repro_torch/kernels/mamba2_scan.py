@@ -2,16 +2,18 @@
 
 Replaces ``src/repro/kernels/mamba2_scan.py::ssd_scan_bshpn``
 (``pallas_call`` at :80) and its wrapper ``src/repro/kernels/ops.py:77``.
-The kernel is ``csrc/ssd_scan.cu``; its header gives the bound on the H100
-(operations, on the CUDA cores) and the design: one block per (batch,
-head) looping over the chunks with the (P, N) state in shared memory, the
-intra-chunk matrix formed in 64 x 64 tiles with the causal decay mask
-applied as it is written, since the whole (Q, Q) matrix does not fit a
-block's shared memory at Q = 256. dt and a are read as they are, without
-the TPU wrapper's lane padding.
+The kernels are ``csrc/ssd_scan.cu``; its header gives the bound on the
+H100 (operations) and the design: the SSD decomposition in four kernels,
+each parallel over the chunks (C.B^T once per batch row and chunk, the
+chunk states, a pass that forms the state entering each chunk, and the
+chunk outputs), every product on the tensor cores as 3xTF32 split TF32
+``mma.sync`` at fp32 accuracy. ``ref.ssd_decomposed`` is the same
+decomposition in plain PyTorch. dt and a are read as they are, without the
+TPU wrapper's lane padding.
 
-CUDA tensors only; ``repro_torch.kernels.ops.ssd_scan`` counts launches,
-sends CPU tensors to ``ref.ssd_scan_ref`` and adds the backward.
+CUDA tensors only; ``repro_torch.kernels.ops.ssd_scan`` counts launches
+(one per call, for the four kernels), sends CPU tensors to
+``ref.ssd_scan_ref`` and adds the backward.
 """
 from __future__ import annotations
 
@@ -24,12 +26,14 @@ from repro_torch.kernels import build
 _c = ctypes.c_void_p
 MAX_PN = 64         # largest head dim P and state dim N
 MAX_CHUNK = 1024
+TILE = 64           # chunk positions per kernel tile
 
 
 def _declare(lib) -> None:
     i = ctypes.c_int
-    lib.ssd_scan_launch.argtypes = [_c, _c, _c, _c, _c, _c, i, i, i, i, i,
-                                    i, ctypes.POINTER(ctypes.c_longlong), _c]
+    lib.ssd_scan_launch.argtypes = [_c, _c, _c, _c, _c, _c, _c, _c, _c, i,
+                                    i, i, i, i, i,
+                                    ctypes.POINTER(ctypes.c_longlong), _c]
     lib.ssd_scan_launch.restype = ctypes.c_int
     lib.ssd_error_string.argtypes = [ctypes.c_int]
     lib.ssd_error_string.restype = ctypes.c_char_p
@@ -67,6 +71,13 @@ def ssd_scan_bshpn(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError("ssd_scan_bshpn: the last dim of xh, Bm and Cm "
                          "must be contiguous")
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=xh.device)
+    # scratch: C.B^T per chunk (rows padded to 64), the chunk states (64 x
+    # 64 blocks), then the states entering each chunk, and cumsum(a)
+    nc, qp = S // chunk, -(-chunk // TILE) * TILE
+    cb = torch.empty((B, nc, qp, qp), dtype=torch.float32, device=xh.device)
+    st = torch.empty((B, H, nc, MAX_PN, MAX_PN), dtype=torch.float32,
+                     device=xh.device)
+    cum = torch.empty((B, H, S), dtype=torch.float32, device=xh.device)
     strides = (ctypes.c_longlong * 13)(
         *xh.stride()[:3], *dt.stride(), *a.stride(), *Bm.stride()[:2],
         *Cm.stride()[:2])
@@ -74,7 +85,8 @@ def ssd_scan_bshpn(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     stream = torch.cuda.current_stream(xh.device).cuda_stream
     build.check(lib.ssd_scan_launch(
         xh.data_ptr(), dt.data_ptr(), a.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), y.data_ptr(), B, S, H, P, N,
+        Cm.data_ptr(), y.data_ptr(), cb.data_ptr(), st.data_ptr(),
+        cum.data_ptr(), B, S, H, P, N,
         int(chunk), strides, stream),
         lib.ssd_error_string, "ssd_scan")
     return y

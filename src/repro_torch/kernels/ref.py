@@ -185,6 +185,57 @@ def info_nce_rows_ref(q: torch.Tensor, k: torch.Tensor, tau: float
     return lse - gold, lse
 
 
+def info_nce_partial_logits(q: torch.Tensor, k: torch.Tensor,
+                            d_slice: int = 256) -> torch.Tensor:
+    """q.k^T per ``d_slice``-wide slice of d, as the CUDA logits kernel
+    spreads it over its blocks: (..., ceil(d / d_slice), B, B) fp32."""
+    d = q.shape[-1]
+    qf, kf = q.to(torch.float32), k.to(torch.float32)
+    return torch.stack([
+        torch.matmul(qf[..., lo:lo + d_slice],
+                     kf[..., lo:lo + d_slice].transpose(-1, -2))
+        for lo in range(0, d, d_slice)], dim=-3)
+
+
+def info_nce_logits_from_partials(part: torch.Tensor,
+                                  tau: float) -> torch.Tensor:
+    """s = (sum of the slices in slice order) / tau, as each consumer
+    kernel forms a logit from the scratch."""
+    s = part[..., 0, :, :]
+    for i in range(1, part.shape[-3]):
+        s = s + part[..., i, :, :]
+    return s / tau
+
+
+def info_nce_rows_split(q: torch.Tensor, k: torch.Tensor, tau: float,
+                        d_slice: int = 256
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA forward's split and combine in plain PyTorch: partial
+    logits per d slice, summed in a fixed order, then each row's max, sum
+    of exp and gold logit. Returns (loss, lse) as ``info_nce_rows_ref``."""
+    s = info_nce_logits_from_partials(
+        info_nce_partial_logits(q, k, d_slice), tau)
+    m = s.amax(dim=-1, keepdim=True)
+    lse = (m + torch.log(torch.exp(s - m).sum(-1, keepdim=True)))[..., 0]
+    return lse - torch.diagonal(s, dim1=-2, dim2=-1), lse
+
+
+def info_nce_grad_split(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
+                        g: torch.Tensor, tau: float, wrt_k: bool,
+                        d_slice: int = 256) -> torch.Tensor:
+    """The CUDA gradient's split: the weights p_ab (dq) or g_b p_ba (dk)
+    formed once from the partial logits, then multiplied into the other
+    side's rows. Returns what ``info_nce_rows_bwd_ref`` returns."""
+    qf, kf = q.to(torch.float32), k.to(torch.float32)
+    s = info_nce_logits_from_partials(
+        info_nce_partial_logits(q, k, d_slice), tau)
+    p = torch.exp(s - lse[..., None])
+    if wrt_k:
+        w = (p * g[..., None]).transpose(-1, -2)
+        return (torch.matmul(w, qf) - g[..., None] * qf) / tau
+    return (g / tau)[..., None] * (torch.matmul(p, kf) - kf)
+
+
 def info_nce_rows_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                           lse: torch.Tensor, g: torch.Tensor, tau: float,
                           wrt_k: bool) -> torch.Tensor:
@@ -334,3 +385,112 @@ def ssd_scan_ref(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (``src/repro/kernels/ref.py::ssd_scan_ref``): y in xh's dtype, the
     state starting at zero."""
     return ssd_explicit(xh, dt, a, Bm, Cm, chunk)[0].to(xh.dtype)
+
+
+# -- the SSD scan as the CUDA kernels decompose it ----------------------------------
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to the nearest TF32 value (10 stored mantissa bits,
+    ties away from zero), as ``cvt.rna.tf32.f32`` and then clearing the 13
+    low bits do on the card. Finite inputs."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """fp32 truncated to TF32 (the 13 low bits cleared), as the tensor
+    cores read an fp32 bit pattern given as a TF32 operand."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernels' 3xTF32 split computes it: a = a_hi + a_lo and
+    b = b_hi + b_lo, hi rounded to TF32 and the remainder truncated to
+    TF32 by the tensor cores, and a_lo b_hi + a_hi b_lo + a_hi b_hi summed
+    in fp32 (a product of two TF32 values is exact in fp32, so only the
+    sums, the truncation and the dropped a_lo b_lo err)."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_trunc(a - a_hi), tf32_trunc(b - b_hi)
+    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) \
+        + torch.matmul(a_hi, b_hi)
+
+
+def ssd_chunk_cb(Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                 mm=torch.matmul) -> torch.Tensor:
+    """C_c . B_c^T per (batch, chunk), shared by the heads: (B, nc, Q, Q);
+    only the causal half (j <= i) is used."""
+    Bsz, S, N = Bm.shape
+    Bc = Bm.to(torch.float32).reshape(Bsz, S // chunk, chunk, N)
+    Cc = Cm.to(torch.float32).reshape(Bsz, S // chunk, chunk, N)
+    return mm(Cc, Bc.transpose(-1, -2))
+
+
+def ssd_chunk_cumsum(a: torch.Tensor, chunk: int) -> torch.Tensor:
+    """cumsum(a) within each chunk: (B, H, nc, Q)."""
+    Bsz, S, H = a.shape
+    return torch.cumsum(a.to(torch.float32).reshape(Bsz, S // chunk, chunk, H)
+                        .permute(0, 3, 1, 2), dim=-1)
+
+
+def ssd_chunk_state(xh: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                    Bm: torch.Tensor, chunk: int,
+                    mm=torch.matmul) -> torch.Tensor:
+    """Each chunk's own state sum_j exp(cum_last - cum_j) dt_j x_j B_j^T:
+    (B, H, nc, P, N)."""
+    Bsz, S, H, P = xh.shape
+    nc, N = S // chunk, Bm.shape[-1]
+    x = xh.to(torch.float32).reshape(Bsz, nc, chunk, H, P) \
+        .permute(0, 3, 1, 2, 4)                               # (B, H, nc, Q, P)
+    dts = dt.to(torch.float32).reshape(Bsz, nc, chunk, H).permute(0, 3, 1, 2)
+    w = torch.exp(cum[..., -1:] - cum) * dts                  # (B, H, nc, Q)
+    Bc = Bm.to(torch.float32).reshape(Bsz, 1, nc, chunk, N)
+    return mm((x * w[..., None]).transpose(-1, -2), Bc)
+
+
+def ssd_state_pass(st: torch.Tensor, cum: torch.Tensor) -> torch.Tensor:
+    """The state entering each chunk: h_0 = 0, h_{c+1} = exp(cum_last(c))
+    h_c + st_c. (B, H, nc, P, N)."""
+    h = torch.zeros_like(st[:, :, 0])
+    out = []
+    for c in range(st.shape[2]):
+        out.append(h)
+        h = h * torch.exp(cum[:, :, c, -1])[..., None, None] + st[:, :, c]
+    return torch.stack(out, dim=2)
+
+
+def ssd_chunk_scan(xh: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                   Cm: torch.Tensor, cb: torch.Tensor, h_in: torch.Tensor,
+                   chunk: int, mm=torch.matmul) -> torch.Tensor:
+    """Each chunk's output, exp(cum_i) C_i . h_c^T + (CB o L o dt) . x, the
+    decay masked before its exp: (B, S, H, P)."""
+    Bsz, S, H, P = xh.shape
+    nc, N = S // chunk, Cm.shape[-1]
+    x = xh.to(torch.float32).reshape(Bsz, nc, chunk, H, P) \
+        .permute(0, 3, 1, 2, 4)
+    dts = dt.to(torch.float32).reshape(Bsz, nc, chunk, H).permute(0, 3, 1, 2)
+    i = torch.arange(chunk, device=xh.device)
+    causal = i[:, None] >= i[None, :]
+    seg = (cum[..., :, None] - cum[..., None, :]).masked_fill(~causal,
+                                                              float("-inf"))
+    M = cb[:, None] * torch.exp(seg) * dts[..., None, :]     # (B, H, nc, Q, Q)
+    Cc = Cm.to(torch.float32).reshape(Bsz, 1, nc, chunk, N)
+    y = mm(Cc, h_in.transpose(-1, -2)) * torch.exp(cum)[..., None] \
+        + mm(M, x)
+    return y.permute(0, 2, 3, 1, 4).reshape(Bsz, S, H, P)
+
+
+def ssd_decomposed(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
+                   mm=torch.matmul) -> torch.Tensor:
+    """The SSD scan (state starting at zero) as the CUDA kernels compute
+    it: C.B^T once per (batch, chunk), every chunk's state in parallel, a
+    pass that forms the state entering each chunk, then every chunk's
+    output in parallel. ``mm=matmul_3xtf32`` does the products as the
+    card's tensor cores do. fp32 (B, S, H, P)."""
+    if xh.shape[1] % chunk:
+        raise ValueError(f"ssd scan: chunk {chunk} does not divide "
+                         f"S={xh.shape[1]}")
+    cum = ssd_chunk_cumsum(a, chunk)
+    st = ssd_chunk_state(xh, dt, cum, Bm, chunk, mm)
+    return ssd_chunk_scan(xh, dt, cum, Cm, ssd_chunk_cb(Bm, Cm, chunk, mm),
+                          ssd_state_pass(st, cum), chunk, mm)

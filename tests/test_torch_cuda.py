@@ -367,6 +367,31 @@ def test_info_nce_kernels(dev, C, B, d):
         before["info_nce_rows"] + 1
 
 
+@pytest.mark.parametrize("B,d", [(256, 256), (4, 2560), (33, 1024),
+                                 (40, 4100)])
+def test_info_nce_kernels_deterministic_and_client_independent(dev, B, d):
+    """Two calls give the same bits, and a client's forward, dq and dk
+    inside C = 4 are bit-identical to its own at C = 1 (the vmap rule folds
+    clients into C)."""
+    from repro_torch.kernels import infonce
+    q, k = _unit((4, B, d), dev, 5), _unit((4, B, d), dev, 6)
+    g = _rand((4, B), torch.float32, dev, 7)
+    loss, lse = infonce.info_nce_fwd(q, k, 0.2)
+    again = infonce.info_nce_fwd(q, k, 0.2)
+    assert torch.equal(loss, again[0]) and torch.equal(lse, again[1])
+    one_loss, one_lse = infonce.info_nce_fwd(q[1:2].contiguous(),
+                                             k[1:2].contiguous(), 0.2)
+    assert torch.equal(one_loss[0], loss[1])
+    assert torch.equal(one_lse[0], lse[1])
+    for wrt_k in (False, True):
+        grad = infonce.info_nce_bwd(q, k, lse, g, 0.2, wrt_k)
+        assert torch.equal(grad, infonce.info_nce_bwd(q, k, lse, g, 0.2,
+                                                      wrt_k))
+        one = infonce.info_nce_bwd(q[1:2].contiguous(), k[1:2].contiguous(),
+                                   one_lse, g[1:2].contiguous(), 0.2, wrt_k)
+        assert torch.equal(one[0], grad[1])
+
+
 def test_info_nce_backward_launches_dq_only_for_detached_k(dev):
     q = _unit((256, 256), dev, 3).requires_grad_()
     k = _unit((256, 256), dev, 4)
@@ -429,6 +454,9 @@ def _ssd_inputs(B, S, H, P, N, dev, seed=0):
     (1, 384, 3, 32, 16, 128),
     (2, 96, 5, 64, 64, 32),         # chunk shorter than a 64-row tile
     (1, 200, 2, 20, 7, 40),         # ragged P, N and tiles
+    (2, 256, 3, 64, 64, 256),       # one chunk
+    (1, 1024, 2, 64, 64, 1024),     # one chunk of the largest length
+    (1, 768, 4, 64, 64, 256),       # three chunks of the LM path's length
 ])
 def test_ssd_scan_kernel(dev, B, S, H, P, N, chunk):
     """Against the plain version, 1e-4 of the largest output (fp32; sums
@@ -442,15 +470,20 @@ def test_ssd_scan_kernel(dev, B, S, H, P, N, chunk):
         1e-4 * max(want.abs().max().item(), 1.0)
 
 
-def test_ssd_scan_kernel_strided_and_backward(dev):
+@pytest.mark.parametrize("pad", [0, 1])
+def test_ssd_scan_kernel_strided_and_backward(dev, pad):
     """Operands read through their strides (slices of one projection, as
     mamba2_apply passes them), and the Function's backward against
-    autograd through the plain version."""
+    autograd through the plain version. ``pad`` puts a column before Bm
+    and Cm, so their rows are not 16-byte aligned and the kernels take
+    4-byte copies."""
     B, S, H, P, N, chunk = 2, 256, 4, 32, 16, 64
     xh, dt, a, Bm, Cm = _ssd_inputs(B, S, H, P, N, dev, seed=1)
-    proj = torch.cat([xh.reshape(B, S, H * P), Bm, Cm], dim=-1)
+    proj = torch.cat([xh.reshape(B, S, H * P),
+                      torch.zeros((B, S, pad), device=dev), Bm, Cm], dim=-1)
     x_v = proj[..., :H * P].reshape(B, S, H, P)
-    b_v, c_v = proj[..., H * P:H * P + N], proj[..., H * P + N:]
+    o = H * P + pad
+    b_v, c_v = proj[..., o:o + N], proj[..., o + N:]
     got = ops.ssd_scan(x_v, dt, a, b_v, c_v, chunk=chunk)
     want = ref.ssd_scan_ref(xh, dt, a, Bm, Cm, chunk=chunk)
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
@@ -461,6 +494,13 @@ def test_ssd_scan_kernel_strided_and_backward(dev):
                              ins)
     for x, y in zip(gk, gr):
         assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
+
+
+def test_ssd_scan_bitwise_deterministic(dev):
+    """No atomics: two calls at the LM path's shape give the same bits."""
+    args = _ssd_inputs(4, 1024, 80, 64, 64, dev, seed=2)
+    assert torch.equal(ops.ssd_scan(*args, chunk=256),
+                       ops.ssd_scan(*args, chunk=256))
 
 
 def test_ssd_scan_wrapper_raises_instead_of_falling_back(dev):

@@ -132,3 +132,39 @@ def test_detached_negatives_skip_the_dk_gradient(monkeypatch):
     k = _t(rng.standard_normal((32, 16)).astype(np.float32))
     losses.moco_contrastive(q, k, q, k, 0.2).backward()
     assert asked == [False, False] and q.grad is not None
+
+
+# the CUDA kernels' split and combine (partial q.k^T per 256-wide d slice,
+# summed in slice order, then the rows' max, sum and gold logit), against
+# the Pallas kernel; (4, 2560) is the LM path's alignment term, one tile
+@pytest.mark.parametrize("B,d,block", [(4, 2560, 4), (256, 256, 128),
+                                       (128, 600, 128), (8, 7, 8)])
+def test_split_rows_match_pallas_kernel(B, d, block):
+    rng = np.random.default_rng(B + d)
+    q, k = _unit(rng, (B, d)), _unit(rng, (B, d))
+    want = jnce.info_nce_rows(jnp.asarray(q), jnp.asarray(k), 0.2, br=block,
+                              bc=block, interpret=True)
+    got, lse = ref.info_nce_rows_split(_t(q), _t(k), 0.2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    _, want_lse = ref.info_nce_rows_ref(_t(q), _t(k), 0.2)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=TOL)
+
+
+@pytest.mark.parametrize("wrt_k", [False, True])
+@pytest.mark.parametrize("C,B,d", [(1, 4, 2560), (2, 96, 300)])
+def test_split_gradients_match_jax_vjp(C, B, d, wrt_k):
+    """dq / dk with the weights formed once from the partial logits,
+    against ``jax.vjp`` of the reference's per-row oracle."""
+    rng = np.random.default_rng(C * B + d)
+    q, k = _unit(rng, (C, B, d)), _unit(rng, (C, B, d))
+    g = rng.standard_normal((C, B)).astype(np.float32)
+    _, lse = ref.info_nce_rows_split(_t(q), _t(k), 0.2)
+    got = ref.info_nce_grad_split(_t(q), _t(k), lse, _t(g), 0.2, wrt_k)
+    for c in range(C):
+        _, vjp = jax.vjp(lambda a, b: jref.info_nce_rows_ref(a, b, 0.2),
+                         jnp.asarray(q[c]), jnp.asarray(k[c]))
+        want = vjp(jnp.asarray(g[c]))[int(wrt_k)]
+        np.testing.assert_allclose(got[c].numpy(), np.asarray(want),
+                                   atol=TOL * float(np.abs(want).max()))
+

@@ -23,6 +23,21 @@ jfa = importlib.import_module("repro.kernels.flash_attention")
 torch.set_num_threads(2)
 
 
+@pytest.fixture
+def one_intra_op_thread():
+    """PyTorch on one intra-op thread for the test. Now and then the first
+    multi-threaded fp32 ``torch.exp`` of a fresh process (the attention
+    plain version's softmax numerator here) returns one thread's share off
+    by up to 1.1e-4 against float64, while every later call is exact to
+    3e-8: five times these tests' 2e-5 tolerance. It shows with PyTorch's
+    CPU build alone (no JAX, no code of this repo) and is not understood;
+    on one thread it has not been seen."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(shape, seed, dtype=np.float32):
     return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
 
@@ -90,6 +105,7 @@ def _bshd(shape, seed, dtype):
 
 
 # the grid of tests/test_kernels.py::test_flash_attention, plus the ViT's
+@pytest.mark.usefixtures("one_intra_op_thread")
 @pytest.mark.parametrize("B,S,T,Hq,Hkv,hd,causal,window,dtype", [
     (2, 128, 128, 4, 2, 64, True, 0, jnp.float32),
     (1, 256, 256, 4, 4, 128, True, 0, jnp.float32),
@@ -114,6 +130,7 @@ def test_flash_attention_matches_pallas(B, S, T, Hq, Hkv, hd, causal, window,
                                atol=_tol(dtype), rtol=0)
 
 
+@pytest.mark.usefixtures("one_intra_op_thread")
 @pytest.mark.parametrize("causal,window,kv_len", [(False, 0, 200),
                                                   (True, 0, 160),
                                                   (True, 96, 230)])

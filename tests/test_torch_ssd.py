@@ -138,3 +138,78 @@ def test_scan_rejects_a_chunk_that_does_not_divide_s():
     xh, dt, A, Bm, Cm = _inputs(np.random.default_rng(0), 1, 48, 2, 4, 4)
     with pytest.raises(ValueError, match="does not divide"):
         ops.ssd_scan(*_t(xh, dt, dt * A, Bm, Cm), chunk=32)
+
+
+# the decomposition the CUDA kernels carry out (C.B^T per chunk, chunk
+# states, the states entering each chunk, chunk outputs), with fp32
+# products and with the products emulating the card's 3xTF32 split; nc >= 3
+# and P, N < 64 among the shapes
+@pytest.mark.parametrize("mm", ["fp32", "3xtf32"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 256, 4, 64, 64, 64),
+    (1, 384, 3, 32, 16, 128),
+    (1, 200, 2, 20, 7, 40),
+    (1, 256, 2, 64, 64, 256),
+])
+def test_decomposed_scan_matches_pallas_kernel(B, S, H, P, N, chunk, mm):
+    xh, dt, A, Bm, Cm = _inputs(np.random.default_rng(S + P), B, S, H, P, N)
+    a = dt * A
+    want = jops.ssd_scan(xh, dt, a, Bm, Cm, chunk=chunk, interpret=True)
+    got = ref.ssd_decomposed(*_t(xh, dt, a, Bm, Cm), chunk=chunk,
+                             mm=torch.matmul if mm == "fp32"
+                             else ref.matmul_3xtf32)
+    _close(got, want)
+    _close(got, ref.ssd_scan_ref(*_t(xh, dt, a, Bm, Cm), chunk=chunk))
+
+
+def test_decomposed_states_match_the_layer_scan():
+    """The states entering each chunk, carried one chunk further, are the
+    final state of the reference layer's ``ssd_chunked``."""
+    rng = np.random.default_rng(9)
+    B, S, H, P, N, chunk = 2, 192, 3, 16, 8, 64
+    xh, dt, A, Bm, Cm = _inputs(rng, B, S, H, P, N)
+    _, want_h = jmamba.ssd_chunked(xh, dt, A, Bm, Cm, chunk, None)
+    txh, tdt, tA, tBm = _t(xh, dt, A, Bm)
+    cum = ref.ssd_chunk_cumsum(tdt * tA, chunk)
+    st = ref.ssd_chunk_state(txh, tdt, cum, tBm, chunk)
+    h_in = ref.ssd_state_pass(st, cum)
+    assert h_in.shape == (B, H, S // chunk, P, N)
+    assert float(h_in[:, :, 0].abs().max()) == 0.0
+    last = h_in[:, :, -1] * torch.exp(cum[:, :, -1, -1])[..., None, None] \
+        + st[:, :, -1]
+    _close(last, want_h)
+
+
+@pytest.mark.parametrize("what", ["C.B^T", "M.x"])
+def test_3xtf32_split_product_keeps_fp32_accuracy(what):
+    """The 3xTF32 split at the LM scan's widths (N = 64, chunk Q = 256, P =
+    64) stays within 1e-5 of the largest float64 value, as a plain fp32
+    product does; one TF32 product (the hi parts alone) does not."""
+    rng = np.random.default_rng(4)
+    Q, N, P = 256, 64, 64
+    if what == "C.B^T":
+        a = rng.standard_normal((Q, N)).astype(np.float32)
+        b = rng.standard_normal((N, Q)).astype(np.float32)
+    else:   # the masked, decayed intra-chunk matrix times x
+        cb = rng.standard_normal((Q, Q)) * np.sqrt(N)
+        cum = np.cumsum(-np.log1p(np.exp(rng.standard_normal(Q))) * 0.1)
+        decay = np.exp(np.minimum(cum[:, None] - cum[None, :], 0.0))
+        a = np.tril(cb * decay).astype(np.float32)
+        b = rng.standard_normal((Q, P)).astype(np.float32)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    scale = float(np.abs(exact).max())
+    split = ref.matmul_3xtf32(torch.from_numpy(a), torch.from_numpy(b))
+    fp32 = torch.from_numpy(a) @ torch.from_numpy(b)
+    one = ref.tf32_round(torch.from_numpy(a)) @ \
+        ref.tf32_round(torch.from_numpy(b))
+    assert float(np.abs(split.double().numpy() - exact).max()) \
+        <= 1e-5 * scale
+    assert float(np.abs(fp32.double().numpy() - exact).max()) <= 1e-5 * scale
+    assert float(np.abs(one.double().numpy() - exact).max()) > 1e-5 * scale
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    x = torch.tensor([1.0 + 2 ** -11, 1.0 + 2 ** -12, -(1.0 + 2 ** -11),
+                      1.0 + 3 * 2 ** -11, 3.0, 0.0])
+    want = [1.0 + 2 ** -10, 1.0, -(1.0 + 2 ** -10), 1.0 + 2 ** -9, 3.0, 0.0]
+    assert ref.tf32_round(x).tolist() == want
