@@ -825,15 +825,29 @@ def codec_kernel_checks(state, fraction=0.1):
     def equal(a, b):
         return all(torch.equal(x, y) for x, y in zip(a, b))
 
+    def split(name, fn, names):
+        ms = kernel_split(fn, names)
+        print(f"  {name} by CUDA kernel (profiler, L2-warm): "
+              + ", ".join(f"{k} {ms.get(k, 0.0):.4f} ms" for k in names),
+              flush=True)
+
     # int8 quant and dequant: bit-identical (IEEE division and rint on both)
     q, scales = ops.wire_int8_encode(flat, segs, nscales)
     wq, ws = ref.int8_encode_ref(flat, segs, nscales)
     line("int8_quant_matrix", equal((q, scales), (wq, ws)),
          "q and scales bit-identical to the plain version")
+    line("int8_quant_matrix", equal(wc.int8_quant(flat, segs, nscales),
+                                    (q, scales)),
+         "a second call gives the same bits")
+    split("int8_quant_matrix", lambda: wc.int8_quant(flat, segs, nscales),
+          ("int8_absmax_kernel", "int8_quant_kernel", "Memset", "Memcpy"))
     dec = ops.wire_int8_decode(q, scales, segs, n)
     wdec = ref.int8_decode_ref(q, scales, segs, n)
     line("int8_dequant_matrix", torch.equal(dec, wdec),
          "bit-identical to the plain version")
+    split("int8_dequant_matrix",
+          lambda: wc.int8_dequant(q, scales, segs, n),
+          ("int8_dequant_kernel", "Memcpy"))
     rec["int8_quant_matrix"] = dict(
         max_abs_err=float((q.int() - wq.int()).abs().max()),
         ms=time_ms([lambda: ops.wire_int8_encode(flat, segs, nscales)]),
@@ -883,7 +897,13 @@ def codec_kernel_checks(state, fraction=0.1):
              int(sel) == k and equal(got, want),
              f"{int(sel)} selected of k = {k}; residual, idx and val "
              f"bit-identical to the plain version")
+        line(f"topk_ef_update ({what})",
+             equal(wc.topk_ef_update(comp, th.reshape(1), nd.reshape(1), k),
+                   got), "a second call gives the same bits")
         errs.append(max(max_err(g, w) for g, w in zip(got, want)))
+    split("topk_ef_update", lambda: wc.topk_ef_update(
+        c, thresh.reshape(1), needed.reshape(1), k),
+        ("ef_update_kernel", "Memset"))
     rec["topk_ef_update"] = dict(
         max_abs_err=max(errs),
         ms=time_ms([lambda: ops.topk_ef_update(c, thresh, needed, k)]),
@@ -1241,8 +1261,7 @@ KERNEL_NAMES = {"gather_pack": ("gather_pack_kernel",),
                                       "int8_quant_kernel"),
                 "int8_dequant_matrix": ("int8_dequant_kernel",),
                 "compensate": ("compensate_kernel",),
-                "topk_ef_update": ("ef_count_kernel", "ef_scan_kernel",
-                                   "ef_select_kernel"),
+                "topk_ef_update": ("ef_update_kernel",),
                 "info_nce_rows": ("info_nce_logits_kernel<0>",
                                   "info_nce_rows_kernel"),
                 "info_nce_rows_dq": ("info_nce_logits_kernel<1>",

@@ -117,6 +117,38 @@ def topk_ef_update_ref(comp: torch.Tensor, thresh: torch.Tensor,
     return new_res, idx.to(torch.int32), comp[idx]
 
 
+def topk_ef_update_tiled(comp: torch.Tensor, thresh: torch.Tensor,
+                         needed: torch.Tensor, tile: int):
+    """``topk_ef_update_ref`` as the CUDA kernel's chained scan computes
+    it: per-tile counts of ``> thresh`` and ``== thresh``, their exclusive
+    prefixes, and each tile's first output slot ``gt_prefix + min(needed,
+    tie_prefix)``; inside a tile, the ties of local rank below ``needed -
+    tie_prefix`` are kept, and an entry's slot adds the tile's earlier
+    ``>`` entries and kept ties. Returns what ``topk_ef_update_ref``
+    returns."""
+    n = comp.shape[0]
+    ntiles = -(-n // tile)
+    a = torch.abs(comp)
+    pad = ntiles * tile - n
+    gt = torch.nn.functional.pad(a > thresh, (0, pad)).reshape(ntiles, tile)
+    eq = torch.nn.functional.pad(a == thresh, (0, pad)).reshape(ntiles, tile)
+    gt_n, eq_n = gt.sum(1), eq.sum(1)
+    gt_pre = torch.cumsum(gt_n, 0) - gt_n
+    eq_pre = torch.cumsum(eq_n, 0) - eq_n
+    budget = torch.clamp(needed - eq_pre, min=0)[:, None]
+    out0 = (gt_pre + torch.minimum(needed, eq_pre))[:, None]
+    gt_before = torch.cumsum(gt.to(torch.int64), 1) - gt.to(torch.int64)
+    eq_before = torch.cumsum(eq.to(torch.int64), 1) - eq.to(torch.int64)
+    sel = gt | (eq & (eq_before < budget))
+    pos = out0 + gt_before + torch.minimum(eq_before, budget)
+    sel, pos = sel.reshape(-1)[:n], pos.reshape(-1)[:n]
+    new_res = torch.where(sel, torch.zeros_like(comp), comp)
+    count = int(sel.sum())
+    idx = torch.empty(count, dtype=torch.int64, device=comp.device)
+    idx[pos[sel]] = torch.arange(n, device=comp.device)[sel]
+    return new_res, idx.to(torch.int32), comp[idx]
+
+
 def topk_ef_ref(flat: torch.Tensor, ref: torch.Tensor,
                 res: Optional[torch.Tensor], k: int):
     """The whole top-k upload: compensated delta, exact top-k set,

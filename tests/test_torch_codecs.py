@@ -23,8 +23,9 @@ from repro_torch.kernels import ops, ref
 
 torch.set_num_threads(2)
 
-# the port's EF update runs 2048-element blocks (csrc/wire_codecs.cu)
-EF_CHUNK = 2048
+# the port's EF update scans 4096-element tiles (EF_TILE in
+# csrc/wire_codecs.cu)
+EF_CHUNK = 8192
 
 
 def _normal(shape, seed, scale=1.0):
@@ -148,6 +149,30 @@ def test_topk_ef_update_bit_identical_to_pallas(case):
     assert idx.numel() == k and torch.equal(val, t[idx.long()])
     if case == "zero_threshold":
         assert float(thresh) == 0.0 and int(needed) > 3 * EF_CHUNK
+
+
+@pytest.mark.parametrize("case", sorted(TOPK_CASES))
+@pytest.mark.parametrize("tile", [1, 64, 1000, EF_CHUNK])
+@pytest.mark.parametrize("keep", ["needed", "none"])
+def test_topk_ef_update_tiled_matches_plain_and_pallas(case, tile, keep):
+    """The CUDA kernel's chained scan in plain PyTorch: per-tile counts and
+    each tile's first slot gt_prefix + min(needed, tie_prefix) give the
+    plain version's bits, and the Pallas kernel's residual, at every tile
+    size; with ``needed`` as top-k gives it, and with no tie kept."""
+    comp, k = TOPK_CASES[case]
+    t = torch.from_numpy(comp)
+    thresh, needed = ref.topk_threshold(t.abs(), k)
+    if keep == "none":
+        needed = torch.zeros_like(needed)
+    got = ref.topk_ef_update_tiled(t, thresh, needed, tile)
+    want = ref.topk_ef_update_ref(t, thresh, needed)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    pallas = jwc.topk_ef_update(jnp.asarray(comp),
+                                jnp.asarray([float(thresh)], jnp.float32),
+                                jnp.asarray([int(needed)], jnp.int32),
+                                interpret=True)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(pallas))
+    assert got[1].numel() == int((t.abs() > thresh).sum()) + int(needed)
 
 
 @pytest.mark.parametrize("case", sorted(TOPK_CASES))

@@ -245,8 +245,11 @@ def _int8_segs(shapes):
     return tuple(segs), off, soff
 
 
-def test_int8_quant_dequant_bit_exact(dev):
-    segs, total, nscales = _int8_segs(INT8_SHAPES)
+@pytest.mark.parametrize("lead", [(), ((37, 1),)], ids=["aligned", "odd"])
+def test_int8_quant_dequant_bit_exact(dev, lead):
+    # "odd": a 37-element slot first leaves every later offset off the
+    # 16-byte grid, so the quantizer takes its scalar path throughout
+    segs, total, nscales = _int8_segs(list(lead) + INT8_SHAPES)
     before = ops.launch_counts()
     # the second call's smaller values would expose a stale absmax scratch
     for seed, spread in ((0, 3.0), (1, 0.01)):
@@ -258,8 +261,10 @@ def test_int8_quant_dequant_bit_exact(dev):
         assert torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs)
         dec = ops.wire_int8_decode(q, s, segs, total)
         assert torch.equal(dec, ref.int8_decode_ref(wq, ws, segs, total))
+    q2, s2 = ops.wire_int8_encode(flat, segs, nscales)       # same bits
+    assert torch.equal(q2, q) and torch.equal(s2, s)
     after = ops.launch_counts()
-    assert after["int8_quant_matrix"] == before["int8_quant_matrix"] + 2
+    assert after["int8_quant_matrix"] == before["int8_quant_matrix"] + 3
     assert after["int8_dequant_matrix"] == before["int8_dequant_matrix"] + 2
 
 
@@ -275,25 +280,42 @@ def test_compensate_bit_exact(dev, n, offset, with_res):
     assert torch.equal(c, wc) and torch.equal(a, wa)
 
 
+# elements a tile of the EF update scans (EF_TILE in csrc/wire_codecs.cu)
+EF_TILE = 8192
+
+
 def _topk_cases(dev):
     rng = np.random.default_rng(4)
     tie = np.tile(np.asarray([5.0, -3.0, 3.0, 1.0, 3.0, -5.0], np.float32),
                   40)
     # a delta that is mostly exact zeros: thresh == 0, and the tie set runs
-    # over many of the kernel's 2048-element blocks
+    # over many of the kernel's tiles
     zeros = np.zeros(300_000, np.float32)
     hot = rng.choice(zeros.size, 5000, replace=False)
     zeros[hot] = rng.standard_normal(5000).astype(np.float32)
     big = rng.standard_normal(21177920).astype(np.float32)
-    return [(torch.from_numpy(tie).to(dev), 100),
-            (torch.from_numpy(zeros).to(dev), 60_000),
-            (torch.from_numpy(rng.standard_normal(700).astype(np.float32))
-             .to(dev), 70),
-            (torch.from_numpy(big).to(dev), 2117792)]
+    small = rng.standard_normal(3 * EF_TILE + 1).astype(np.float32)
+
+    def card(x):
+        return torch.from_numpy(x).to(dev)
+
+    cases = [(card(tie), 100), (card(zeros), 60_000),
+             (card(rng.standard_normal(700).astype(np.float32)), 70),
+             (card(big), 2117792),
+             (card(small), 1), (card(small), small.size)]     # k == 1, k == n
+    # one entry short of five tiles and one over (a tile of one entry)
+    for n in (5 * EF_TILE - 1, 5 * EF_TILE + 1):
+        cases.append((card(rng.standard_normal(n).astype(np.float32)),
+                      n // 7))
+    # a view one float past a 16-byte boundary: the kernel's scalar path
+    cases.append((card(rng.standard_normal(70_001).astype(np.float32))[1:],
+                  7_000))
+    return cases
 
 
 def test_topk_ef_update_bit_exact(dev):
     from repro_torch.kernels import wire_codecs
+    assert wire_codecs._lib().ef_tile_elems() == EF_TILE
     for comp, k in _topk_cases(dev):
         absc = comp.abs()
         thresh, needed = ref.topk_threshold(absc, k)
@@ -304,6 +326,71 @@ def test_topk_ef_update_bit_exact(dev):
         assert int(selected) == k == widx.numel()
         assert torch.equal(idx, widx) and torch.equal(val, wval)
         assert torch.equal(res, wres)
+        again = wire_codecs.topk_ef_update(comp, thresh.reshape(1),
+                                           needed.reshape(1), k)
+        assert all(torch.equal(a, b) for a, b in zip(again, (res, idx, val)))
+
+
+def test_topk_ef_update_tie_budgets(dev):
+    """Ties on both sides of every tile boundary, with thresh and needed
+    given directly: no tie kept, some, a boundary's worth, and all."""
+    from repro_torch.kernels import wire_codecs
+    rng = np.random.default_rng(11)
+    n = 4 * EF_TILE + 77
+    x = rng.uniform(-0.5, 0.5, n).astype(np.float32)
+    ties = np.concatenate([np.arange(b - 20, b + 20)
+                           for b in range(EF_TILE, n, EF_TILE)])
+    x[ties] = rng.choice([-1.0, 1.0], ties.size)
+    free = np.setdiff1d(np.arange(n), ties)
+    x[rng.choice(free, 50, replace=False)] = 3.0
+    comp = torch.from_numpy(x).to(dev)
+    thresh = torch.ones(1, device=dev)
+    for keep in (0, 1, 20, 21, 61, ties.size - 1, ties.size):
+        needed = torch.full((1,), keep, dtype=torch.int64, device=dev)
+        k = 50 + keep
+        selected = torch.empty(1, dtype=torch.int64, device=dev)
+        got = wire_codecs.topk_ef_update(comp, thresh, needed, k,
+                                         selected=selected)
+        want = ref.topk_ef_update_ref(comp, thresh[0], needed[0])
+        tiled = ref.topk_ef_update_tiled(comp, thresh[0], needed[0],
+                                         EF_TILE)
+        assert int(selected) == k == want[1].numel()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert all(torch.equal(t, w) for t, w in zip(tiled, want))
+
+
+def test_topk_ef_update_back_to_back_calls(dev):
+    """Calls queued without a sync, n decreasing, so that each call's
+    look-back scratch can reuse the last one's memory: every result is
+    still the plain version's."""
+    from repro_torch.kernels import wire_codecs
+    rng = np.random.default_rng(12)
+    runs = []
+    for n in (3 * EF_TILE + 5, 2 * EF_TILE + 1, EF_TILE, 7):
+        comp = torch.from_numpy(rng.standard_normal(n).astype(np.float32)) \
+            .to(dev)
+        k = max(1, n // 5)
+        thresh, needed = ref.topk_threshold(comp.abs(), k)
+        runs.append((comp, thresh, needed, wire_codecs.topk_ef_update(
+            comp, thresh.reshape(1), needed.reshape(1), k)))
+    for comp, thresh, needed, got in runs:
+        want = ref.topk_ef_update_ref(comp, thresh, needed)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_topk_ef_update_refuses_2_31_entries(dev):
+    # 8.6 GB that the wrapper must refuse before any launch: int32 indices
+    # and the look-back's 31-bit counts
+    from repro_torch.kernels import wire_codecs
+    comp = torch.empty(2 ** 31, dtype=torch.float32, device=dev)
+    try:
+        with pytest.raises(ValueError, match="2\\*\\*31"):
+            wire_codecs.topk_ef_update(
+                comp, torch.zeros(1, device=dev),
+                torch.zeros(1, dtype=torch.int64, device=dev), 1)
+    finally:
+        del comp
+        torch.cuda.empty_cache()
 
 
 def test_topk_encode_matches_plain_on_card(dev):
