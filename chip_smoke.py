@@ -47,6 +47,23 @@ Phases, each of which must pass (any failure exits non-zero):
    ``scatter_unpack`` are held bit-identical to their plain versions on
    every download and upload layout of the run's plan over the trained
    tree (up to 747,364,160 floats, 2.99 GB), and timed at the largest.
+2e. observability on the card: (a) phase 2b's int8 run again, traced with
+   ``make_obs(trace=True, metrics=True, health=True)``: its wire bytes per
+   round and its kernel launches equal the untraced run's, its losses
+   are bit-identical to the untraced run's (two runs of this path give the
+   same bits on the card), the ``fl.rounds``, ``comm.*`` and ``wire.*``
+   counters equal the history, one ``round`` span a round carries the
+   history's bytes, and no health alert fires; prints the span count and
+   the traced and untraced seconds per round. (b) the launcher on the card,
+   ``python -m repro_torch.launch.train --mode vit --rounds 2 --clients 2
+   --layers 2 --d-model 256 --codec int8 --trace --metrics --health
+   --profile-dir D --obs-dir D``: every artifact parses (the JSONL trace,
+   the Chrome trace, the metrics CSV, ``health.json``,
+   ``run_history.json``), and the ``torch.profiler`` trace names every
+   CUDA kernel of that path (``KERNEL_NAMES``: pack and unpack, RMSNorm,
+   attention (fp32: the launcher's ``reduced()`` model computes in fp32),
+   InfoNCE forward and dq, int8 quantize and dequantize).
+   Prints the phase's seconds.
 3. reference: one SSL loss at full width on 8 images, fp32 compute, on the
    card (kernels) against the CPU (plain PyTorch versions); then one
    ``lm_ssl_loss`` with alignment on the trained zamba2 model, one stage
@@ -62,7 +79,8 @@ Phases, each of which must pass (any failure exits non-zero):
    dtype). The codec kernels run on the stage-12 upload of
    the trained model (21,177,920 floats in 24 slots; top-k keeps
    k = 2,117,792), bit-identical to their plain versions, plus a top-k case
-   whose threshold is 0 with ties over the whole payload. The InfoNCE
+   whose threshold is 0 with ties over the whole payload; the dequantizer's
+   calls must run ``int8_dequant_kernel`` alone (no table copy). The InfoNCE
    forward, dq and dk kernels run at (C, B, d) = (1, 256, 256) (the main
    path's MoCo terms), (1, 256, 192) (its alignment terms), (4, 256, 256)
    (the vmap path's) and a ragged (2, 96, 200), within 1e-5 of the largest
@@ -93,7 +111,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -188,10 +208,11 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 def main_path(device, *, model_cfg, ssl_cfg, clients=4, rounds=12,
               batch=256, samples=4096, eval_epochs=10, seed=0, codec="fp32",
-              rounds_per_stage=(), engine="sequential"):
+              rounds_per_stage=(), engine="sequential", obs=None):
     """LW-FedSSL through ``run_fedssl`` (and ``linear_eval`` unless
-    ``eval_epochs`` is 0) on ``device``. Returns (state, history, accuracy
-    or None, per-round seconds, images)."""
+    ``eval_epochs`` is 0) on ``device``, recorded by ``obs`` if given.
+    Returns (state, history, accuracy or None, per-round seconds,
+    images)."""
     import torch
     from repro_torch.configs.base import FLConfig, TrainConfig
     from repro_torch.convert import subtree
@@ -218,7 +239,8 @@ def main_path(device, *, model_cfg, ssl_cfg, clients=4, rounds=12,
     t0 = time.perf_counter()
     state, hist = run_fedssl(model_cfg, ssl_cfg, fl, tc, images=images,
                              client_indices=idx, aux_images=aux, log=log,
-                             device=device, codec=codec, engine=engine)
+                             device=device, codec=codec, engine=engine,
+                             obs=obs)
     secs = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
     if not eval_epochs:
         return state, hist, None, secs, images
@@ -497,6 +519,132 @@ def lm_pack_checks(params, plans):
               f"plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
               f"bound {r['bound_ms']} ms ({r['bound_by']})", flush=True)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 2e: observability on the card
+# ---------------------------------------------------------------------------
+def traced_codec_run(model_cfg, ssl_cfg, untraced, untraced_launches):
+    """Phase 2b's int8 run traced, with metrics and the health monitor,
+    held to the untraced run ``untraced`` (its history and per-round
+    seconds) and its launch counts. Returns the traced seconds a round."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.obs import make_obs
+
+    uhist, usecs = untraced
+    obs = make_obs(trace=True, metrics=True, health=True, mode="chip_smoke")
+    ops.reset_launch_counts()
+    _, hist, _, secs, _ = main_path("cuda", model_cfg=model_cfg,
+                                    ssl_cfg=ssl_cfg, eval_epochs=0,
+                                    codec="int8", obs=obs)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(hist.wire_download_bytes == uhist.wire_download_bytes
+          and hist.wire_upload_bytes == uhist.wire_upload_bytes,
+          f"traced wire bytes {hist.wire_download_bytes} / "
+          f"{hist.wire_upload_bytes} differ from the untraced run's")
+    check(launches == untraced_launches,
+          f"traced launches {launches} differ from the untraced run's "
+          f"{untraced_launches}")
+    counters = obs.metrics.to_dict()["counters"]
+    want = {"fl.rounds": len(hist.loss),
+            "comm.download_bytes": sum(hist.download_bytes),
+            "comm.upload_bytes": sum(hist.upload_bytes),
+            "wire.download_bytes": sum(hist.wire_download_bytes),
+            "wire.upload_bytes": sum(hist.wire_upload_bytes)}
+    check(counters == want, f"counters {counters}, history {want}")
+    rounds = sorted((e for e in obs.tracer.events if e["name"] == "round"),
+                    key=lambda e: e["seq"])
+    check(len(rounds) == len(hist.loss),
+          f"{len(rounds)} round spans for {len(hist.loss)} rounds")
+    for r, e in enumerate(rounds):
+        for name in ("download_bytes", "upload_bytes", "wire_download_bytes",
+                     "wire_upload_bytes"):
+            check(e["args"][name] == getattr(hist, name)[r],
+                  f"round {r} span {name} {e['args'][name]}, history "
+                  f"{getattr(hist, name)[r]}")
+    check(obs.health.alerts == [] and obs.health.rounds_observed == 12,
+          f"health alerts {obs.health.alerts}")
+    diff = max(abs(a - b) for a, b in zip(hist.loss, uhist.loss))
+    print(f"  traced int8: {len(obs.tracer.events)} events "
+          f"({len(rounds)} round spans); wire bytes and launches equal the "
+          f"untraced run's; counters equal the history; no health alert; "
+          f"largest loss difference to the untraced run {diff:.3e} "
+          f"(bit-identical required)", flush=True)
+    print(f"  traced seconds per round {[round(x, 3) for x in secs]} "
+          f"(untraced {[round(x, 3) for x in usecs]}); rounds 2-12 "
+          f"{sum(secs[1:]):.3f} s traced, {sum(usecs[1:]):.3f} s untraced",
+          flush=True)
+    check(hist.loss == uhist.loss,
+          f"traced losses {hist.loss} differ from the untraced "
+          f"{uhist.loss}")
+    return secs
+
+
+# the CUDA kernels the launcher's int8 ViT run must show in its profile;
+# its reduced() model computes in fp32 (as the reference's launcher does),
+# so its attention is the fp32 kernel
+CLI_KERNELS = ("gather_pack_kernel", "scatter_unpack_kernel",
+               "rmsnorm_rows_kernel", "flash_fwd_kernel",
+               "int8_absmax_kernel", "int8_quant_kernel",
+               "int8_dequant_kernel", "info_nce_logits_kernel<0>",
+               "info_nce_rows_kernel", "info_nce_logits_kernel<1>",
+               "info_nce_grad_kernel<false>")
+
+
+def obs_cli_run():
+    """``repro_torch.launch.train`` with every observability flag on the
+    card; checks that each artifact parses and that the profiler's trace
+    names the path's kernels. The artifacts go to ``results/`` (ignored by
+    git) and are removed after the checks."""
+    from repro_torch.obs import read_jsonl
+    from repro_torch.obs.core import PROFILE_TRACE
+
+    out = ROOT / "results" / "chip_smoke_obs"
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--mode", "vit",
+           "--rounds", "2", "--clients", "2", "--layers", "2", "--d-model",
+           "256", "--codec", "int8", "--trace", "--metrics", "--health",
+           "--profile-dir", str(out), "--obs-dir", str(out)]
+    print("  " + " ".join(cmd[1:]), flush=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=900)
+    check(proc.returncode == 0,
+          f"the launcher exited {proc.returncode}: {proc.stderr[-3000:]}")
+    for ln in proc.stdout.splitlines():
+        if ln.startswith(("round ", "obs: ", "training done")):
+            print("  | " + ln, flush=True)
+    _, events = read_jsonl(out / "run_trace.jsonl")
+    check(sum(e["name"] == "round" for e in events) == 2,
+          "the JSONL trace does not hold 2 round spans")
+    chrome = json.loads((out / "run_trace.chrome.json").read_text())
+    check(len(chrome["traceEvents"]) >= len(events),
+          "the Chrome trace lacks events")
+    csv = (out / "run_metrics.csv").read_text().splitlines()
+    check(csv[0] == "metric,type,field,value" and len(csv) > 1,
+          f"metrics CSV {csv[:2]}")
+    health = json.loads((out / "health.json").read_text())
+    check(health["rounds_observed"] == 2 and not health["fatal"],
+          f"health {health}")
+    hist = json.loads((out / "run_history.json").read_text())["fields"]
+    check(len(hist["loss"]) == 2 and all(math.isfinite(x)
+                                         for x in hist["loss"]),
+          f"history losses {hist['loss']}")
+    prof_path = out / PROFILE_TRACE
+    prof = json.loads(prof_path.read_text())
+    kernels = {e["name"] for e in prof["traceEvents"]
+               if e.get("cat") == "kernel"}
+    missing = [k for k in CLI_KERNELS if not any(k in n for n in kernels)]
+    print(f"  artifacts parse: {len(events)} trace events, {len(csv) - 1} "
+          f"metric rows, health {health['counts']}; torch.profiler trace "
+          f"{prof_path.stat().st_size / 2**20:.1f} MiB, "
+          f"{len(kernels)} distinct CUDA kernels, the path's "
+          f"{len(CLI_KERNELS) - len(missing)} of {len(CLI_KERNELS)} among "
+          f"them", flush=True)
+    check(not missing, f"the profiler trace lacks {missing}")
+    shutil.rmtree(out)
 
 
 # ---------------------------------------------------------------------------
@@ -845,9 +993,16 @@ def codec_kernel_checks(state, fraction=0.1):
     wdec = ref.int8_decode_ref(q, scales, segs, n)
     line("int8_dequant_matrix", torch.equal(dec, wdec),
          "bit-identical to the plain version")
-    split("int8_dequant_matrix",
-          lambda: wc.int8_dequant(q, scales, segs, n),
-          ("int8_dequant_kernel", "Memcpy"))
+    line("int8_dequant_matrix",
+         torch.equal(wc.int8_dequant(q, scales, segs, n), dec),
+         "a second call gives the same bits")
+    dsplit = kernel_split(lambda: wc.int8_dequant(q, scales, segs, n),
+                          ("int8_dequant_kernel", "Memcpy", "Memset"))
+    print(f"  int8_dequant_matrix by CUDA kernel (profiler, L2-warm): "
+          f"int8_dequant_kernel {dsplit.get('int8_dequant_kernel', 0.0):.4f}"
+          f" ms", flush=True)
+    line("int8_dequant_matrix", set(dsplit) == {"int8_dequant_kernel"},
+         f"one kernel a call, no copy or memset: {sorted(dsplit)}")
     rec["int8_quant_matrix"] = dict(
         max_abs_err=float((q.int() - wq.int()).abs().max()),
         ms=time_ms([lambda: ops.wire_int8_encode(flat, segs, nscales)]),
@@ -1551,6 +1706,7 @@ def run(profile: bool = False) -> int:
     print("[2b] codec paths: the same run on the int8 wire (12 rounds) and "
           "the top-k wire (fraction 0.1, rounds per stage "
           f"{TOPK_ROUNDS_PER_STAGE}); no linear eval", flush=True)
+    untraced = {}
     for codec, kw in (("int8", {}),
                       ("topk", {"rounds": sum(TOPK_ROUNDS_PER_STAGE),
                                 "rounds_per_stage": TOPK_ROUNDS_PER_STAGE})):
@@ -1561,6 +1717,7 @@ def run(profile: bool = False) -> int:
             codec=codec, **kw)
         torch.cuda.synchronize()
         launches[codec] = ops.launch_counts()
+        untraced[codec] = (chist, csecs)
         check_history(chist, cstate["online"], codec, **kw)
         print(f"  {codec}: seconds per round "
               f"{[round(x, 3) for x in csecs]}")
@@ -1653,6 +1810,15 @@ def run(profile: bool = False) -> int:
     print("  LM payloads: gather_pack and scatter_unpack against their "
           "plain versions on every layout of the plan", flush=True)
     lm_pack_rec = lm_pack_checks(lparams, lplans)
+
+    print("[2e] observability: phase 2b's int8 run traced (spans, metrics, "
+          "health), then the launcher with every observability flag",
+          flush=True)
+    t2e = time.perf_counter()
+    torch.cuda.empty_cache()
+    traced_codec_run(model_cfg, ssl_cfg, untraced["int8"], launches["int8"])
+    obs_cli_run()
+    print(f"  phase 2e took {time.perf_counter() - t2e:.1f}s", flush=True)
 
     print("[3] full-width SSL loss on 8 images, fp32: card kernels against "
           "CPU plain versions", flush=True)

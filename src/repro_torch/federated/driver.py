@@ -10,10 +10,25 @@ next-token SSL and alignment, every client in every round.
 ``FLHistory`` is the reference's, with the same versioned ``to_dict``, so
 two histories compare field by field; the fleet-simulation and privacy
 fields stay empty until those features are ported.
+
+Observability (``obs=``, ``repro_torch.obs``; ``NOOP_OBS`` by default) as
+in the reference: the spans ``run > round > {stage_transition, download,
+local_train, calibrate}`` with the round's bytes, loss and rate on its
+``round`` span, the counters ``fl.rounds``, ``comm.*_bytes`` and
+``wire.*_bytes``, the histograms ``round.loss`` and ``round.host_seconds``
+and the gauge ``wire.compression_ratio``, the health monitor's ``health.*``
+instants (with ``halt_on_fatal``, the run stops after the round that
+raised a fatal alert) and the profiler around the rounds. The reference's
+``jit.recompiles`` and ``jit.cache_entries`` count XLA programs, which the
+port does not have; its health monitor is fed ``recompiles=0``. Tracing
+reads each client's loss inside its span, as the reference does; with
+everything off nothing is added on the card.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List
 
@@ -28,6 +43,7 @@ from repro_torch.federated.draws import TorchDraws
 from repro_torch.federated.engine import make_engine
 from repro_torch.federated.transport import Transport
 from repro_torch.models import lm as lm_mod
+from repro_torch.obs import NOOP_OBS, format_round_line
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.schedules import learning_rate, scaled_base_lr
 
@@ -97,15 +113,6 @@ class FLHistory:
         return cls(**kw)
 
 
-def format_round_line(round_idx: int, rounds: int, stage: int, loss: float,
-                      *, lr: float, down_mb: float, up_mb: float,
-                      wire_mb: float) -> str:
-    """The per-round progress line (``repro.obs.format_round_line``)."""
-    return (f"round {round_idx + 1}/{rounds} stage {stage} loss {loss:.4f} "
-            f"lr {lr:.2e} down {down_mb:.2f}MB up {up_mb:.2f}MB "
-            f"wire {wire_mb:.2f}MB")
-
-
 def resolve_device(device) -> torch.device:
     """The run's device; asking for the card without one raises rather
     than carrying on on the CPU."""
@@ -123,7 +130,7 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                aux_images=None, draws=None, encoder=None,
                image_size: int = 32, log=None, device="cuda",
                engine: str = "sequential", codec: str = "fp32",
-               transport_kernels: str = "xla"):
+               transport_kernels: str = "xla", obs=None):
     """Run the FL process; returns (final state, FLHistory).
 
     images: (n, H, W, 3) training pool; client_indices: one index array
@@ -137,7 +144,9 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
     topk[:fraction]); transport_kernels: the reference's wire-engine name
     (``xla`` or ``pallas``), accepted so that its calls carry over: both
     select the port's one wire path, the kernels on the card and their
-    plain versions on the CPU.
+    plain versions on the CPU. obs: an ``repro_torch.obs.Observability``
+    (spans, metrics, health, profiler); the default records nothing, and
+    tracing never changes what is trained.
     """
     if transport_kernels not in TRANSPORT_KERNELS:
         raise ValueError(f"unknown transport kernels '{transport_kernels}'; "
@@ -156,11 +165,14 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
     plans = sched.build_schedule(fl, encoder.num_stages)
     base_lr = scaled_base_lr(train_cfg.base_lr, train_cfg.batch_size)
     hist = FLHistory()
-    wire = Transport(codec, include_heads=fl.include_heads)
+    obs = obs if obs is not None else NOOP_OBS
+    tracer, met = obs.tracer, obs.metrics
+    wire = Transport(codec, include_heads=fl.include_heads,
+                     kernels=transport_kernels, obs=obs)
     eng = make_engine(engine, encoder=encoder, ssl_cfg=ssl_cfg, opt=opt,
                       fl=fl, images=images, client_indices=client_indices,
                       transport=wire, draws=draws,
-                      batch_size=train_cfg.batch_size)
+                      batch_size=train_cfg.batch_size, obs=obs)
 
     # stage-relative step counters for the cyclic LR strategy
     stage_start: Dict[int, int] = {}
@@ -169,49 +181,137 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
     stage_lengths = {s: sum(1 for p in plans if p.stage == s)
                      for s in stage_start}
 
-    for plan in plans:
-        if plan.new_stage:
-            state = server.begin_stage(state, plan.stage,
-                                       weight_transfer=fl.weight_transfer)
-        lr = learning_rate(plan.round_idx, fl.rounds, base_lr,
-                           train_cfg.lr_schedule,
-                           stage_step=plan.round_idx - stage_start[plan.stage],
-                           stage_total=stage_lengths[plan.stage],
-                           warmup_steps=train_cfg.warmup_steps)
-        participants = server.sample_clients(draws, fl.num_clients,
-                                             fl.clients_per_round)
-        # clients (and the alignment loss's global model) see the
-        # wire-decoded broadcast, not the server's tree
-        dstate, down = server.broadcast_download(state, plan, wire)
-        global_enc = (subtree(dstate["online"], "enc")
-                      if plan.align else None)
-        batch_plans = [draws.batch_plan(eng.counts[i], fl.local_epochs,
-                                        train_cfg.batch_size)
-                       for i in participants]
-        new_online, losses, up = eng.run_round(
-            dstate, plan, participants, batch_plans, lr, global_enc,
-            server_online=state["online"])
-        state = {**state, "online": new_online}
-        if plan.server_calibrate and aux_images is not None:
-            state = server.server_calibrate(
-                state, aux_images, draws, opt, encoder=encoder,
-                ssl_cfg=ssl_cfg, sub_layers=plan.sub_layers,
-                epochs=fl.server_epochs, batch_size=train_cfg.batch_size,
-                lr=lr)
-        cb = comm.round_comm_bytes(state["online"], plan,
-                                   include_heads=fl.include_heads)
-        hist.loss.append(sum(losses) / len(losses))
-        hist.round_stage.append(plan.stage)
-        hist.download_bytes.append(cb["download"])
-        hist.upload_bytes.append(cb["upload"])
-        hist.wire_download_bytes.append(down["wire_bytes"])
-        hist.wire_upload_bytes.append(up["wire_bytes"])
-        if log:
-            log(format_round_line(
-                plan.round_idx, fl.rounds, plan.stage, hist.loss[-1], lr=lr,
-                down_mb=cb["download"] / 1e6, up_mb=cb["upload"] / 1e6,
-                wire_mb=(down["wire_bytes"] + up["wire_bytes"]) / 1e6))
+    obs.start_profiler()
+    try:
+        with tracer.span("run", cat="fl", mode="fedssl",
+                         schedule=fl.schedule, engine=engine,
+                         codec=wire.codec.name, kernels=transport_kernels,
+                         rounds=fl.rounds, clients=fl.num_clients, sim=None):
+            for plan in plans:
+                host_t0 = time.perf_counter()
+                round_span = tracer.span("round", cat="fl",
+                                         round=plan.round_idx,
+                                         stage=plan.stage)
+                with round_span:
+                    if plan.new_stage:
+                        tracer.instant("stage_transition", cat="fl",
+                                       stage=plan.stage)
+                        state = server.begin_stage(
+                            state, plan.stage,
+                            weight_transfer=fl.weight_transfer)
+                    lr = learning_rate(
+                        plan.round_idx, fl.rounds, base_lr,
+                        train_cfg.lr_schedule,
+                        stage_step=plan.round_idx - stage_start[plan.stage],
+                        stage_total=stage_lengths[plan.stage],
+                        warmup_steps=train_cfg.warmup_steps)
+                    participants = server.sample_clients(
+                        draws, fl.num_clients, fl.clients_per_round)
+                    # clients (and the alignment loss's global model) see
+                    # the wire-decoded broadcast, not the server's tree
+                    with tracer.span("download", cat="fl"):
+                        dstate, down = server.broadcast_download(state, plan,
+                                                                 wire)
+                    global_enc = (subtree(dstate["online"], "enc")
+                                  if plan.align else None)
+                    batch_plans = [draws.batch_plan(
+                        eng.counts[i], fl.local_epochs,
+                        train_cfg.batch_size) for i in participants]
+                    with tracer.span("local_train", cat="fl",
+                                     participants=len(participants)):
+                        new_online, losses, up = eng.run_round(
+                            dstate, plan, participants, batch_plans, lr,
+                            global_enc, server_online=state["online"])
+                    state = {**state, "online": new_online}
+                    if plan.server_calibrate and aux_images is not None:
+                        with tracer.span("calibrate", cat="fl",
+                                         sub_layers=plan.sub_layers):
+                            state = server.server_calibrate(
+                                state, aux_images, draws, opt,
+                                encoder=encoder, ssl_cfg=ssl_cfg,
+                                sub_layers=plan.sub_layers,
+                                epochs=fl.server_epochs,
+                                batch_size=train_cfg.batch_size, lr=lr)
+                    cb = comm.round_comm_bytes(
+                        state["online"], plan,
+                        include_heads=fl.include_heads)
+                    hist.loss.append(sum(losses) / len(losses))
+                    hist.round_stage.append(plan.stage)
+                    hist.download_bytes.append(cb["download"])
+                    hist.upload_bytes.append(cb["upload"])
+                    hist.wire_download_bytes.append(down["wire_bytes"])
+                    hist.wire_upload_bytes.append(up["wire_bytes"])
+                    round_span.set(
+                        loss=hist.loss[-1], lr=lr,
+                        download_bytes=cb["download"],
+                        upload_bytes=cb["upload"],
+                        wire_download_bytes=down["wire_bytes"],
+                        wire_upload_bytes=up["wire_bytes"],
+                        participants=len(participants), dropped=0)
+                if obs.enabled:
+                    _round_metrics(met, cb, down, up, hist.loss[-1],
+                                   host_t0)
+                if log:
+                    log(format_round_line(
+                        plan.round_idx, fl.rounds, plan.stage, hist.loss[-1],
+                        lr=lr, down_mb=cb["download"] / 1e6,
+                        up_mb=cb["upload"] / 1e6,
+                        wire_mb=(down["wire_bytes"] + up["wire_bytes"])
+                        / 1e6))
+                if _observe_health(obs, plan, fl.rounds, hist.loss[-1], cb,
+                                   down, up, len(participants), log,
+                                   value=True):
+                    break
+        if obs.enabled:
+            met.gauge("wire.compression_ratio").set(hist.compression_ratio)
+    finally:
+        obs.stop_profiler()
     return state, hist
+
+
+def _round_metrics(met, cb, down, up, loss: float, host_t0: float) -> None:
+    """The reference's per-round counters and histograms."""
+    met.counter("fl.rounds").inc()
+    met.counter("comm.download_bytes").inc(cb["download"])
+    met.counter("comm.upload_bytes").inc(cb["upload"])
+    met.counter("wire.download_bytes").inc(down["wire_bytes"])
+    met.counter("wire.upload_bytes").inc(up["wire_bytes"])
+    met.histogram("round.host_seconds").observe(time.perf_counter()
+                                                - host_t0)
+    met.histogram("round.loss").observe(loss)
+
+
+def _observe_health(obs, plan, rounds: int, loss: float, cb, down, up,
+                    participants: int, log, *, value: bool) -> bool:
+    """Feed the round to the health monitor, record its alerts as
+    ``health.*`` instants (``value``: with the alert's value, as the
+    reference's vit driver records it and its LM loop does not); True when
+    the run must halt."""
+    if obs.health is None:
+        return False
+    tracer = obs.tracer
+    ratio = ((cb["download"] + cb["upload"])
+             / max(1, down["wire_bytes"] + up["wire_bytes"]))
+    for alert in obs.health.observe_round(
+            plan.round_idx, loss=loss, compression_ratio=ratio,
+            participants=participants, recompiles=0,
+            new_stage=plan.new_stage):
+        attrs = {"level": alert.level, "round": plan.round_idx}
+        if value:
+            attrs["value"] = (float(alert.value)
+                              if math.isfinite(alert.value) else None)
+        attrs["message"] = alert.message
+        tracer.instant("health." + alert.kind, cat="health", **attrs)
+        if log:
+            log(f"health[{alert.level}] round {plan.round_idx}: "
+                f"{alert.message}")
+    if not obs.health.should_halt:
+        return False
+    tracer.instant("health.halt", cat="health", round=plan.round_idx)
+    if log:
+        log(f"health: fatal alert; halting after round "
+            f"{plan.round_idx + 1}/{rounds}")
+    return True
 
 
 # the alignment weight of the LM family's loss (the reference's train_lm)
@@ -219,7 +319,8 @@ LM_ALIGN_WEIGHT = 0.01
 
 
 def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
-                  device="cuda", codec: str = "fp32", log=None):
+                  device="cuda", codec: str = "fp32",
+                  transport_kernels: str = "xla", log=None, obs=None):
     """The LM family's layer-wise FedSSL loop; returns (final params,
     FLHistory).
 
@@ -230,7 +331,9 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
     alignment where the plan aligns), at the round's cosine rate; FedAvg
     consumes the decoded uploads. Tensors are moved to
     ``device``, which defaults to the card. A client's round loss is its
-    last step's."""
+    last step's. obs: as in ``run_fedssl``, with the spans of the
+    reference's LM loop (``run > round > local_train`` and the transport's).
+    """
     device = resolve_device(device)
     tokens = to_tensor(tokens, device, torch.int64)
     labels = to_tensor(labels, device, torch.int64)
@@ -242,44 +345,79 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
     B = train_cfg.batch_size
     w = aggregate.client_weights([len(ix) for ix in shards])
     clients = list(range(len(shards)))
-    wire = Transport(codec)
+    obs = obs if obs is not None else NOOP_OBS
+    tracer = obs.tracer
+    wire = Transport(codec, kernels=transport_kernels, obs=obs)
     hist = FLHistory()
-    for plan in plans:
-        if plan.new_stage and fl.weight_transfer:
-            params = sched.transfer_model(params, plan.stage)
-        lr = learning_rate(plan.round_idx, fl.rounds, base_lr,
-                           train_cfg.lr_schedule)
-        # clients, and the alignment's global model, see the decoded
-        # broadcast; no step writes into it
-        dparams, down = wire.broadcast(params, plan)
-        outs, losses = [], []
-        for ix in shards:
-            p_i, o_i = dparams, opt.init(dparams)
-            nb = max(1, len(ix) // B)
-            for b in range(nb * fl.local_epochs):
-                # the reference's batch_start rule
-                sel = ix[(b * B) % max(1, len(ix) - B):][:B]
-                p_i, o_i, m = lm_train_step(
-                    p_i, o_i, {"tokens": tokens[sel], "labels": labels[sel]},
-                    lr, cfg=cfg, opt=opt, sub_layers=plan.sub_layers,
-                    active_from=plan.active_from,
-                    global_params=dparams if plan.align else None,
-                    align_weight=LM_ALIGN_WEIGHT if plan.align else 0.0)
-            outs.append(p_i)
-            losses.append(float(m["loss"]))
-        params, up = wire.aggregate_uploads(params, outs, clients, plan, w,
-                                            ref_online=dparams)
-        del outs        # the trained trees are not needed past FedAvg
-        cb = comm.round_comm_bytes(params, plan)
-        hist.loss.append(sum(losses) / len(losses))
-        hist.round_stage.append(plan.stage)
-        hist.download_bytes.append(cb["download"])
-        hist.upload_bytes.append(cb["upload"])
-        hist.wire_download_bytes.append(down["wire_bytes"])
-        hist.wire_upload_bytes.append(up["wire_bytes"])
-        if log:
-            log(format_round_line(
-                plan.round_idx, fl.rounds, plan.stage, hist.loss[-1], lr=lr,
-                down_mb=cb["download"] / 1e6, up_mb=cb["upload"] / 1e6,
-                wire_mb=(down["wire_bytes"] + up["wire_bytes"]) / 1e6))
+    obs.start_profiler()
+    try:
+        with tracer.span("run", cat="fl", mode="lm-fedssl",
+                         schedule=fl.schedule, engine="sequential",
+                         codec=wire.codec.name, kernels=transport_kernels,
+                         rounds=fl.rounds, clients=len(clients)):
+            for plan in plans:
+                round_span = tracer.span("round", cat="fl",
+                                         round=plan.round_idx,
+                                         stage=plan.stage)
+                host_t0 = time.perf_counter()
+                with round_span:
+                    if plan.new_stage and fl.weight_transfer:
+                        params = sched.transfer_model(params, plan.stage)
+                    lr = learning_rate(plan.round_idx, fl.rounds, base_lr,
+                                       train_cfg.lr_schedule)
+                    # clients, and the alignment's global model, see the
+                    # decoded broadcast; no step writes into it
+                    dparams, down = wire.broadcast(params, plan)
+                    outs, losses = [], []
+                    with tracer.span("local_train", cat="fl",
+                                     engine="sequential",
+                                     clients=len(clients)):
+                        for ix in shards:
+                            p_i, o_i = dparams, opt.init(dparams)
+                            nb = max(1, len(ix) // B)
+                            for b in range(nb * fl.local_epochs):
+                                # the reference's batch_start rule
+                                sel = ix[(b * B) % max(1, len(ix) - B):][:B]
+                                p_i, o_i, m = lm_train_step(
+                                    p_i, o_i, {"tokens": tokens[sel],
+                                               "labels": labels[sel]},
+                                    lr, cfg=cfg, opt=opt,
+                                    sub_layers=plan.sub_layers,
+                                    active_from=plan.active_from,
+                                    global_params=(dparams if plan.align
+                                                   else None),
+                                    align_weight=(LM_ALIGN_WEIGHT
+                                                  if plan.align else 0.0))
+                            outs.append(p_i)
+                            losses.append(float(m["loss"]))
+                    params, up = wire.aggregate_uploads(
+                        params, outs, clients, plan, w, ref_online=dparams)
+                    del outs  # the trained trees are not needed past FedAvg
+                    cb = comm.round_comm_bytes(params, plan)
+                    hist.loss.append(sum(losses) / len(losses))
+                    hist.round_stage.append(plan.stage)
+                    hist.download_bytes.append(cb["download"])
+                    hist.upload_bytes.append(cb["upload"])
+                    hist.wire_download_bytes.append(down["wire_bytes"])
+                    hist.wire_upload_bytes.append(up["wire_bytes"])
+                    round_span.set(loss=hist.loss[-1], lr=lr,
+                                   download_bytes=cb["download"],
+                                   upload_bytes=cb["upload"],
+                                   wire_download_bytes=down["wire_bytes"],
+                                   wire_upload_bytes=up["wire_bytes"])
+                if obs.enabled:
+                    _round_metrics(obs.metrics, cb, down, up, hist.loss[-1],
+                                   host_t0)
+                if log:
+                    log(format_round_line(
+                        plan.round_idx, fl.rounds, plan.stage, hist.loss[-1],
+                        lr=lr, down_mb=cb["download"] / 1e6,
+                        up_mb=cb["upload"] / 1e6,
+                        wire_mb=(down["wire_bytes"] + up["wire_bytes"])
+                        / 1e6))
+                if _observe_health(obs, plan, fl.rounds, hist.loss[-1], cb,
+                                   down, up, len(clients), log, value=False):
+                    break
+    finally:
+        obs.stop_profiler()
     return params, hist

@@ -19,6 +19,13 @@ the same numbers. Ragged shards are padded to the longest participant's
 step count; a padded step runs but its update is discarded. Uploads go
 through ``transport.aggregate_uploads`` in both, so every codec and its
 error-feedback residuals work the same on either engine.
+
+Observability (``obs=``, off by default), the reference's spans: the
+sequential engine's ``client.train`` (client, loss) per participant and
+``aggregate`` (engine, clients); the vmap engine's ``engine.dispatch``
+(engine, participants) around the whole round. The reference's vmap round
+is one XLA program with the wire inside it; here the transport's
+``wire.upload`` spans run inside ``engine.dispatch``.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from repro_torch.core import schedule as sched
 from repro_torch.data.augment import two_views
 from repro_torch.data.partition import stack_shards
 from repro_torch.federated import aggregate, client as client_mod
+from repro_torch.obs import NOOP_OBS, is_tracing
 
 ENGINES = ("sequential", "vmap")
 
@@ -38,12 +46,14 @@ class SequentialEngine:
     name = "sequential"
 
     def __init__(self, *, encoder, ssl_cfg, opt, fl, images: torch.Tensor,
-                 client_indices: Sequence[torch.Tensor], transport, draws):
+                 client_indices: Sequence[torch.Tensor], transport, draws,
+                 obs=None):
         self.encoder, self.ssl_cfg, self.opt = encoder, ssl_cfg, opt
         self.fl, self.images = fl, images
         self.client_indices = list(client_indices)
         self.counts = [len(ix) for ix in self.client_indices]
         self.transport, self.draws = transport, draws
+        self.obs = obs if obs is not None else NOOP_OBS
 
     def run_round(self, state, plan, participants, batch_plans, lr: float,
                   global_enc, server_online):
@@ -52,20 +62,29 @@ class SequentialEngine:
         losses, upload stats). The participants' indices are the client
         ids of the transport's error-feedback residuals, and the broadcast
         tree is the reference its delta codecs subtract."""
+        tracer = self.obs.tracer
         outs, losses = [], []
         for i, bplan in zip(participants, batch_plans):
-            online_i, m = client_mod.local_train(
-                state, self.images[self.client_indices[i]], bplan,
-                self.draws, self.opt, encoder=self.encoder,
-                ssl_cfg=self.ssl_cfg, lr=lr, sub_layers=plan.sub_layers,
-                active_from=plan.active_from, align=plan.align,
-                depth_dropout=plan.depth_dropout, global_enc=global_enc)
-            outs.append(online_i)
-            losses.append(m["loss"])
+            with tracer.span("client.train", cat="engine",
+                             client=int(i)) as sp:
+                online_i, m = client_mod.local_train(
+                    state, self.images[self.client_indices[i]], bplan,
+                    self.draws, self.opt, encoder=self.encoder,
+                    ssl_cfg=self.ssl_cfg, lr=lr, sub_layers=plan.sub_layers,
+                    active_from=plan.active_from, align=plan.align,
+                    depth_dropout=plan.depth_dropout, global_enc=global_enc)
+                outs.append(online_i)
+                losses.append(m["loss"])
+                if is_tracing(tracer):
+                    # the reference reads every client's loss here; an
+                    # untraced round reads them once, after the last client
+                    sp.set(loss=float(losses[-1]))
         w = aggregate.client_weights([self.counts[i] for i in participants])
-        new_online, stats = self.transport.aggregate_uploads(
-            server_online, outs, list(participants), plan, w,
-            ref_online=state["online"])
+        with tracer.span("aggregate", cat="engine", engine=self.name,
+                         clients=len(participants)):
+            new_online, stats = self.transport.aggregate_uploads(
+                server_online, outs, list(participants), plan, w,
+                ref_online=state["online"])
         return new_online, [float(x) for x in losses], stats
 
 
@@ -83,11 +102,12 @@ class VmapEngine:
 
     def __init__(self, *, encoder, ssl_cfg, opt, fl, images: torch.Tensor,
                  client_indices: Sequence[torch.Tensor], transport, draws,
-                 batch_size: int):
+                 batch_size: int, obs=None):
         self.encoder, self.ssl_cfg, self.opt = encoder, ssl_cfg, opt
         self.images = images
         self.counts = [len(ix) for ix in client_indices]
         self.transport, self.draws = transport, draws
+        self.obs = obs if obs is not None else NOOP_OBS
         if min(self.counts) < batch_size:
             # the sequential engine cannot train such a client either (it
             # would run no local step); fail here rather than average an
@@ -145,6 +165,16 @@ class VmapEngine:
                   global_enc, server_online):
         """As ``SequentialEngine.run_round``: each local step is one batched
         step of all participants."""
+        with self.obs.tracer.span("engine.dispatch", cat="engine",
+                                  engine=self.name,
+                                  participants=len(participants)):
+            new_online, losses, stats = self._round(
+                state, plan, participants, batch_plans, lr, global_enc,
+                server_online)
+        return new_online, [float(x) for x in losses.tolist()], stats
+
+    def _round(self, state, plan, participants, batch_plans, lr: float,
+               global_enc, server_online):
         C = len(participants)
         steps = [len(b) for b in batch_plans]
         pool_idx, v1, v2, gates, T = self._round_inputs(plan, participants,
@@ -183,7 +213,7 @@ class VmapEngine:
         new_online, stats = self.transport.aggregate_uploads(
             server_online, outs, list(participants), plan, w,
             ref_online=state["online"])
-        return new_online, [float(x) for x in losses.tolist()], stats
+        return new_online, losses, stats
 
 
 def make_engine(name: str, *, batch_size: int, **kw):

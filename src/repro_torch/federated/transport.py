@@ -31,7 +31,13 @@ the parity contract (``docs/kernels.md``). The port has one wire path: the
 kernels of ``kernels.ops`` (slot-table pack / unpack, int8 quant / dequant
 over a segment table, compensate and the top-k EF update) on the card,
 their plain versions on the CPU. Casts and the top-k decode are plain
-PyTorch on both, as in the reference.
+PyTorch on both, as in the reference. ``kernels`` keeps the reference's
+wire-engine name as a label of the spans.
+
+Observability (``obs=``, off by default): the reference's spans
+``wire.download`` (codec, kernels, wire and payload bytes, ``dense_sync``
+in a top-k re-sync round), ``wire.upload`` (codec, kernels, clients, wire
+and payload bytes) and one ``wire.upload.client`` per upload.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ import torch
 from repro_torch.federated import aggregate, comm
 from repro_torch.federated.leaves import classify_leaf, path_keys
 from repro_torch.kernels import ops
+from repro_torch.obs import NOOP_OBS
 
 WIRE_DTYPE = torch.float32
 CODECS = ("fp32", "fp16", "bf16", "int8", "topk")
@@ -294,9 +301,12 @@ class Transport:
     per-client error-feedback residuals, the server's download mirror and
     the wire bytes ``run_fedssl`` records in ``FLHistory``."""
 
-    def __init__(self, codec="fp32", *, include_heads: bool = True):
+    def __init__(self, codec="fp32", *, include_heads: bool = True,
+                 kernels: str = "xla", obs=None):
         self.codec = make_codec(codec) if isinstance(codec, str) else codec
         self.include_heads = include_heads
+        self.kernels = kernels
+        self.obs = obs if obs is not None else NOOP_OBS
         self._specs: Dict[Tuple, PayloadSpec] = {}
         # client id -> (spec the residual was made under, residual)
         self._resid: Dict[object, Tuple[PayloadSpec, torch.Tensor]] = {}
@@ -367,20 +377,27 @@ class Transport:
         mirror by what was sent, so what a round drops stays in the next
         round's delta."""
         spec = self.plan_specs(online, plan)["download"]
-        flat = pack_stage_payload(online, spec)
-        wire_bytes = None
-        if not self.codec.delta:
-            dec = self._roundtrip(flat, spec)
-        else:
-            held = self._mirror
-            if held is None or held[0] != spec:
-                dec, wire_bytes = flat, spec.payload_bytes
+        with self.obs.tracer.span("wire.download", cat="transport",
+                                  codec=self.codec.name,
+                                  kernels=self.kernels) as sp:
+            flat = pack_stage_payload(online, spec)
+            wire_bytes = None
+            if not self.codec.delta:
+                dec = self._roundtrip(flat, spec)
             else:
-                wire, _ = self.codec.encode_delta(flat, held[1], None, spec)
-                dec = _sparse_add(held[1], wire)
-            self._mirror = (spec, dec)
-        view = unpack_stage_payload(online, dec, spec)
-        return view, self.stats(spec, wire_bytes)
+                held = self._mirror
+                if held is None or held[0] != spec:
+                    dec, wire_bytes = flat, spec.payload_bytes
+                    sp.set(dense_sync=True)
+                else:
+                    wire, _ = self.codec.encode_delta(flat, held[1], None,
+                                                      spec)
+                    dec = _sparse_add(held[1], wire)
+                self._mirror = (spec, dec)
+            view = unpack_stage_payload(online, dec, spec)
+            stats = self.stats(spec, wire_bytes)
+            sp.set(**stats)
+        return view, stats
 
     def decode_uploads(self, server_online: Tree, outs: Sequence[Tree],
                        client_ids, plan, ref_online: Optional[Tree] = None
@@ -393,21 +410,32 @@ class Transport:
         spec = self.plan_specs(server_online, plan)["upload"]
         ref_online = server_online if ref_online is None else ref_online
         codec = self.codec
-        ref_flat = (pack_stage_payload(ref_online, spec) if codec.delta
-                    else None)
-        device = next(iter(server_online.values())).device
-        residuals = self.gather_residuals(client_ids, spec, device)
-        trees, new_res = [], []
-        for out, res in zip(outs, residuals):
-            flat = pack_stage_payload(out, spec)
-            if codec.delta:
-                wire, res = codec.encode_delta(flat, ref_flat, res, spec)
-                full = _sparse_add(ref_flat, wire)
-            else:
-                full = self._roundtrip(flat, spec)
-            trees.append(unpack_stage_payload(server_online, full, spec))
-            new_res.append(res)
-        self.store_residuals(client_ids, spec, new_res)
+        tracer = self.obs.tracer
+        with tracer.span("wire.upload", cat="transport", codec=codec.name,
+                         kernels=self.kernels, clients=len(client_ids),
+                         **self.stats(spec)):
+            ref_flat = (pack_stage_payload(ref_online, spec) if codec.delta
+                        else None)
+            device = next(iter(server_online.values())).device
+            residuals = self.gather_residuals(client_ids, spec, device)
+            trees, new_res = [], []
+            for cid, out, res in zip(client_ids, outs, residuals):
+                # client ids are ints in the drivers but any hashable in
+                # direct use: strings stay strings in the span
+                with tracer.span("wire.upload.client", cat="transport",
+                                 client=cid if isinstance(cid, str)
+                                 else int(cid), codec=codec.name):
+                    flat = pack_stage_payload(out, spec)
+                    if codec.delta:
+                        wire, res = codec.encode_delta(flat, ref_flat, res,
+                                                       spec)
+                        full = _sparse_add(ref_flat, wire)
+                    else:
+                        full = self._roundtrip(flat, spec)
+                    trees.append(unpack_stage_payload(server_online, full,
+                                                      spec))
+                new_res.append(res)
+            self.store_residuals(client_ids, spec, new_res)
         return trees, self.stats(spec)
 
     def aggregate_uploads(self, server_online: Tree, outs: Sequence[Tree],

@@ -38,8 +38,15 @@
 //       bit-identical to the plain PyTorch version and to Int8Codec.
 //       Bytes: 4n read twice (the second partly from L2), n written, against
 //       the least of 4n read and n written (plus 4 per scale).
-// int8 dequant  One launch over its own chunk table (int8_chunk_rows):
-//       out = float(q) * scale[col]. n in, 4n out.
+// int8 dequant  out = float(q) * scale[col], one launch over the
+//       quantizer's tile table (the same tiles, row groups and column
+//       slabs), so a call copies nothing from the host: DQ_SPLIT blocks a
+//       tile, char4 loads of q and float4 stores of out, each thread's
+//       column scales loaded once. A slot whose offset or width is
+//       not a multiple of 4, or a q base that is not 4-byte aligned (out is
+//       16-byte aligned), takes the scalar path; the table's alignment key
+//       says which. One IEEE multiply per element: bit-identical to the
+//       plain version. n in, 4n out (plus 4 per scale).
 // compensate  c = (flat - ref) + res and |c| in one pass (res null: adds
 //       +0.0f, exactly what a residual of zeros gives). 12n in, 8n out.
 // top-k EF update  Given the k-th magnitude thresh and needed, the number
@@ -72,67 +79,16 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr long long QCHUNK = 8192;    // target elements per dequant chunk
-constexpr long long MIN_ROWS = 16;    // rows per dequant chunk at least
-constexpr long long QTILE = 16384;    // target elements per quant tile
-constexpr int QUNROLL = 4;            // quant rows of loads in flight
-constexpr int QCOLS = 64;             // vector columns a quant tile spans
+constexpr long long QTILE = 16384;    // target elements per int8 tile
+constexpr int QUNROLL = 4;            // int8 rows of loads in flight
+constexpr int QCOLS = 64;             // vector columns an int8 tile spans
+constexpr int DQ_SPLIT = 8;           // dequant blocks a tile
 constexpr int EF_THREADS = 256;
 constexpr int EF_VECS = 8;            // float4 loads per thread
 constexpr int EF_WARP_ELEMS = 32 * 4 * EF_VECS;
 constexpr int EF_TILE = EF_THREADS * 4 * EF_VECS;
 
-struct QuantSeg {          // one row of the dequant chunk table (all int64)
-  long long off;           // first element of the segment in the payload
-  long long rows;          // size / ch
-  long long ch;            // columns, one scale each
-  long long soff;          // first scale of the segment
-  long long rpc;           // rows per chunk
-  long long chunk_begin;   // first chunk index of this segment
-};
-
-long long chunk_rows(long long ch) {
-  long long r = (QCHUNK + ch - 1) / ch;
-  return r < MIN_ROWS ? MIN_ROWS : r;
-}
-
-__device__ __forceinline__ int find_seg(const QuantSeg* segs, int nsegs,
-                                        long long chunk) {
-  int s = 0;
-  while (s + 1 < nsegs && segs[s + 1].chunk_begin <= chunk) ++s;
-  return s;
-}
-
-// The (rows x columns) work of one chunk for this thread. Columns narrower
-// than the block are repeated in G row groups: thread t takes column t % ch
-// of rows r0 + t / ch, r0 + t / ch + G, ... (consecutive threads read
-// consecutive elements). Wider segments give every thread the columns
-// t, t + THREADS, ... of every row of the chunk.
-struct ChunkWork {
-  long long r0, r1;   // row range of the chunk
-  int g, G;           // this thread's first row offset and the row step
-  int c0, cstep;      // first column and column step
-  bool active;
-};
-
-__device__ __forceinline__ ChunkWork chunk_work(const QuantSeg& s,
-                                                long long chunk) {
-  ChunkWork w;
-  const long long j = chunk - s.chunk_begin;
-  w.r0 = j * s.rpc;
-  w.r1 = w.r0 + s.rpc < s.rows ? w.r0 + s.rpc : s.rows;
-  const int ch = static_cast<int>(s.ch);
-  const int t = threadIdx.x;
-  if (ch >= THREADS) {
-    w.G = 1; w.g = 0; w.c0 = t; w.cstep = THREADS; w.active = true;
-  } else {
-    w.G = THREADS / ch; w.g = t / ch; w.c0 = t % ch; w.cstep = ch;
-    w.active = t < w.G * ch;
-  }
-  return w;
-}
-
-// One row of the quantizer's table (all int64), made on the host by
+// One row of the int8 tile table (all int64), made on the host by
 // int8_quant_plan, which appends each tile's row index. A matrix slot
 // (ch > 1) is cut into row blocks of `rpt` rows and column slabs of `cols`
 // (at most QCOLS) vectors of `vec` floats; thread t takes vector column
@@ -400,24 +356,90 @@ int8_quant_kernel(const QuantTile* __restrict__ segs,
     quant_tile<1>(s, j, flat, amax, q, scales);
 }
 
+template <int V>
+__device__ __forceinline__ void load_q(const int8_t* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const char4 t = *reinterpret_cast<const char4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_dq(float* p, const float (&v)[V],
+                                         const float (&sc)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(
+        v[0] * sc[0], v[1] * sc[1], v[2] * sc[2], v[3] * sc[3]);
+  } else {
+    *p = v[0] * sc[0];
+  }
+}
+
+// Part `part` of DQ_SPLIT of tile j: every DQ_SPLIT-th of its row groups'
+// rows (ch == 1: of its runs of THREADS vectors), a row or two a thread.
+// Several small blocks a tile keep the blocks in flight on a narrow band
+// of the output and the last wave short: on the H100 this ran the
+// ViT-Tiny upload faster than one block a tile (PERF.md, row 7).
+template <int V>
+__device__ __forceinline__ void dequant_tile(const QuantTile& s, int j,
+                                             int part,
+                                             const int8_t* __restrict__ q,
+                                             const float* __restrict__ scales,
+                                             float* __restrict__ out) {
+  const int8_t* qs = q + s.off;
+  float* o = out + s.off;
+  if (s.ch == 1) {
+    const float scale = scales[s.soff];
+    float sc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) sc[e] = scale;
+    const long long units = s.rows / V;
+    const long long u1 = (j + 1) * s.rpt < units ? (j + 1) * s.rpt : units;
+    constexpr long long STEP = static_cast<long long>(DQ_SPLIT) * THREADS;
+    for (long long u = j * s.rpt + part * THREADS + threadIdx.x; u < u1;
+         u += STEP) {
+      float a[V];
+      load_q<V>(qs + u * V, a);
+      store_dq<V>(o + u * V, a, sc);
+    }
+    if (part == 0 && (j + 1) * s.rpt * V >= s.rows)  // the last tile's tail
+      for (long long i = units * V + threadIdx.x; i < s.rows; i += THREADS)
+        o[i] = static_cast<float>(qs[i]) * scale;
+    return;
+  }
+  const MatrixTile w = matrix_tile(s, j);
+  if (!w.active) return;
+  float sc[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) sc[e] = scales[s.soff + w.c * V + e];
+  const int8_t* p = qs + w.c * V;
+  float* op = o + w.c * V;
+  const long long G = static_cast<long long>(w.G) * DQ_SPLIT;
+  for (long long r = w.r0 + w.g + static_cast<long long>(part) * w.G;
+       r < w.r1; r += G) {
+    float a[V];
+    load_q<V>(p + r * s.ch, a);
+    store_dq<V>(op + r * s.ch, a, sc);
+  }
+}
+
+// DQ_SPLIT blocks per tile of the quantizer's table.
 __global__ void __launch_bounds__(THREADS)
-int8_dequant_kernel(const QuantSeg* __restrict__ segs, int nsegs,
+int8_dequant_kernel(const QuantTile* __restrict__ segs,
+                    const long long* __restrict__ tile_seg,
                     const int8_t* __restrict__ q,
                     const float* __restrict__ scales,
                     float* __restrict__ out) {
-  const long long chunk = blockIdx.x;
-  const QuantSeg s = segs[find_seg(segs, nsegs, chunk)];
-  const ChunkWork w = chunk_work(s, chunk);
-  if (!w.active) return;
-  const int8_t* qs = q + s.off;
-  float* o = out + s.off;
-  for (long long c = w.c0; c < s.ch; c += w.cstep) {
-    const float scale = scales[s.soff + c];
-    for (long long r = w.r0 + w.g; r < w.r1; r += w.G) {
-      const long long i = r * s.ch + c;
-      o[i] = static_cast<float>(qs[i]) * scale;
-    }
-  }
+  const int tile = blockIdx.x / DQ_SPLIT;
+  const int part = blockIdx.x % DQ_SPLIT;
+  const QuantTile s = segs[tile_seg[tile]];
+  const int j = tile - static_cast<int>(s.tile_begin);
+  if (s.vec == 4)
+    dequant_tile<4>(s, j, part, q, scales, out);
+  else
+    dequant_tile<1>(s, j, part, q, scales, out);
 }
 
 template <bool VEC>
@@ -726,14 +748,14 @@ const char* wire_codecs_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-long long int8_chunk_rows(long long ch) { return chunk_rows(ch); }
-
 long long ef_tile_elems() { return EF_TILE; }
 
-// Host side: the quantizer's table. segs: nsegs rows of (offset, size,
-// channels, scale_offset); flat_aligned: the payload's first element is
-// 16-byte aligned. Returns the number of tiles; unless out is null, writes
-// there nsegs QuantTile rows (10 int64 each), then each tile's row index.
+// Host side: the quantizer's and dequantizer's table. segs: nsegs rows of
+// (offset, size, channels, scale_offset); flat_aligned: the payload's base
+// allows vector accesses (quant: the fp32 input 16-byte aligned; dequant:
+// q 4-byte and out 16-byte aligned). Returns the number of tiles; unless
+// out is null, writes there nsegs QuantTile rows (10 int64 each), then
+// each tile's row index.
 long long int8_quant_plan(const long long* segs, int nsegs, int flat_aligned,
                           long long* out) {
   long long tiles = 0;
@@ -794,13 +816,16 @@ int int8_quant_launch(const void* table, int nsegs, long long ntiles,
   return last_error();
 }
 
-int int8_dequant_launch(const void* table, int nsegs, long long nchunks,
+// table and ntiles: int8_quant_plan's, made with flat_aligned set only if
+// q is 4-byte and out 16-byte aligned.
+int int8_dequant_launch(const void* table, int nsegs, long long ntiles,
                         const int8_t* q, const float* scales, float* out,
                         void* stream) {
-  if (nchunks <= 0) return 0;
-  int8_dequant_kernel<<<static_cast<unsigned>(nchunks), THREADS, 0,
+  if (ntiles <= 0) return 0;
+  int8_dequant_kernel<<<static_cast<unsigned>(ntiles * DQ_SPLIT), THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const QuantSeg*>(table), nsegs, q, scales, out);
+      static_cast<const QuantTile*>(table),
+      static_cast<const long long*>(table) + 10LL * nsegs, q, scales, out);
   return last_error();
 }
 

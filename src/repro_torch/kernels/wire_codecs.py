@@ -1,4 +1,4 @@
-"""Hopper wire codecs: int8 quant / dequant over a device-side segment
+"""Hopper wire codecs: int8 quant / dequant over one device-side tile
 table, and top-k with error feedback.
 
 Replaces ``src/repro/kernels/wire_codecs.py::int8_quant_matrix``
@@ -8,8 +8,9 @@ Replaces ``src/repro/kernels/wire_codecs.py::int8_quant_matrix``
 (bytes) and how the TPU's sequential grids became Hopper designs: the int8
 absmax carried from phase 0 to phase 1 is a pass with one ``atomicMax`` per
 column and block, then a quantize pass that walks the tiles backwards to
-find pass 1's last lines in L2 (4n bytes read twice, n written); the
-running tie count of the EF update is a single-pass chained scan with
+find pass 1's last lines in L2 (4n bytes read twice, n written), and the
+dequantizer runs over the same tiles with char4 loads and float4 stores
+(n read, 4n written); the running tie count of the EF update is a single-pass chained scan with
 decoupled look-back (4n read, 4n written, 8 bytes per selected entry).
 
 The TPU quantizer takes one (R, C) matrix per call; this one takes the
@@ -24,7 +25,7 @@ the plain versions in ``ref.py``.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Tuple
 
 import torch
 
@@ -32,8 +33,8 @@ from repro_torch.kernels import build
 
 _c = ctypes.c_void_p
 _ll = ctypes.c_longlong
-# (device, segments, scales, alignment) -> (quantizer table on the card,
-# tile count)
+# (device, segments, scales, alignment) -> (int8 tile table on the card,
+# tile count), shared by the quantizer and the dequantizer
 _QUANT_TABLES: dict = {}
 
 
@@ -53,8 +54,6 @@ def _declare(lib) -> None:
     lib.topk_ef_update_launch.restype = ctypes.c_int
     lib.wire_codecs_error_string.argtypes = [ctypes.c_int]
     lib.wire_codecs_error_string.restype = ctypes.c_char_p
-    lib.int8_chunk_rows.argtypes = [_ll]
-    lib.int8_chunk_rows.restype = _ll
     lib.ef_tile_elems.argtypes = []
     lib.ef_tile_elems.restype = _ll
 
@@ -85,40 +84,27 @@ def _check_segs(segs, total: int, nscales: int) -> None:
                              f"fit a payload of {total} and {nscales} scales")
 
 
-def _seg_table(lib, segs: Sequence[Tuple[int, int, int, int]], total: int,
-               nscales: int, device) -> Tuple[torch.Tensor, int]:
-    """The dequant chunk table on the card and its chunk count."""
-    _check_segs(segs, total, nscales)
-    rows, nchunks = [], 0
-    for off, size, ch, soff in segs:
-        nrows = size // ch
-        rpc = lib.int8_chunk_rows(ch)
-        rows.append((off, nrows, ch, soff, rpc, nchunks))
-        nchunks += -(-nrows // rpc)
-    host = torch.tensor(rows, dtype=torch.int64).pin_memory()
-    return host.to(device, non_blocking=True), nchunks
-
-
-def _quant_table(lib, flat: torch.Tensor, segs, nscales: int
+def _quant_table(lib, device, segs, nscales: int, aligned: bool
                  ) -> Tuple[torch.Tensor, int]:
-    """The quantizer's table on the card (``int8_quant_plan``: float4 tiles
-    where the slot's offset and width allow, then each tile's row) and its
-    tile count. Kept per layout: an upload of one stage reuses it, so a
-    call moves nothing from the host."""
-    aligned = int(flat.data_ptr() % 16 == 0)
-    key = (flat.device, tuple(map(tuple, segs)), nscales, aligned)
+    """The int8 tile table on the card (``int8_quant_plan``: float4 tiles
+    where ``aligned`` and the slot's offset and width allow, then each
+    tile's row) and its tile count, shared by the quantizer and the
+    dequantizer. Kept per layout and alignment: an upload of one stage
+    reuses it, so a call moves nothing from the host."""
+    key = (device, tuple(map(tuple, segs)), nscales, aligned)
     if key not in _QUANT_TABLES:
-        _check_segs(segs, flat.numel(), nscales)
+        total = sum(s[1] for s in segs)
+        _check_segs(segs, total, nscales)
         spec = torch.tensor(segs, dtype=torch.int64).reshape(-1, 4)
-        ntiles = lib.int8_quant_plan(spec.data_ptr(), len(segs), aligned,
-                                     None)
+        ntiles = lib.int8_quant_plan(spec.data_ptr(), len(segs),
+                                     int(aligned), None)
         host = torch.empty(10 * len(segs) + ntiles, dtype=torch.int64)
-        lib.int8_quant_plan(spec.data_ptr(), len(segs), aligned,
+        lib.int8_quant_plan(spec.data_ptr(), len(segs), int(aligned),
                             host.data_ptr())
         if len(_QUANT_TABLES) >= 16:
             _QUANT_TABLES.clear()
         # a blocking copy: the table is ready for any stream that reads it
-        _QUANT_TABLES[key] = (host.to(flat.device), ntiles)
+        _QUANT_TABLES[key] = (host.to(device), ntiles)
     return _QUANT_TABLES[key]
 
 
@@ -134,7 +120,8 @@ def int8_quant(flat: torch.Tensor, segs, nscales: int
                          "and its scales")
     lib = _lib()
     device = flat.device
-    table, ntiles = _quant_table(lib, flat, segs, nscales)
+    table, ntiles = _quant_table(lib, device, segs, nscales,
+                                 flat.data_ptr() % 16 == 0)
     amax = torch.empty(nscales, dtype=torch.int32, device=device)
     q = torch.empty(flat.numel(), dtype=torch.int8, device=device)
     scales = torch.empty(nscales, dtype=torch.float32, device=device)
@@ -155,9 +142,11 @@ def int8_dequant(q: torch.Tensor, scales: torch.Tensor, segs,
         raise ValueError("int8_dequant: the segments must cover the payload")
     lib = _lib()
     device = q.device
-    table, nchunks = _seg_table(lib, segs, total, scales.numel(), device)
     out = torch.empty(total, dtype=torch.float32, device=device)
-    build.check(lib.int8_dequant_launch(table.data_ptr(), len(segs), nchunks,
+    table, ntiles = _quant_table(
+        lib, device, segs, scales.numel(),
+        q.data_ptr() % 4 == 0 and out.data_ptr() % 16 == 0)
+    build.check(lib.int8_dequant_launch(table.data_ptr(), len(segs), ntiles,
                                         q.data_ptr(), scales.data_ptr(),
                                         out.data_ptr(), _stream(device)),
                 lib.wire_codecs_error_string, "int8_dequant")

@@ -17,7 +17,12 @@ round's participants train together, one batched step at a time).
 ``--codec`` picks the wire compression (fp32, fp16, bf16, int8,
 topk[:fraction]); ``--transport-kernels xla|pallas`` is accepted so that
 the reference's command lines parse, and both select the port's one wire
-path.
+path. ``--trace``, ``--metrics``, ``--health``, ``--halt-on-unhealthy``
+and ``--profile-dir`` record the run as the reference does and write the
+artifacts under ``--obs-dir`` (``run_trace.jsonl``,
+``run_trace.chrome.json``, ``run_metrics.csv``, ``run_history.json``,
+``health.json``; the profiler's ``torch_profile.json`` under
+``--profile-dir``); ``--live`` rewrites one progress line in place.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit \\
@@ -29,10 +34,13 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
       --arch zamba2-2.7b --device cpu --rounds 4 --batch 8 --samples 64 \\
       --seq-len 64
+  PYTHONPATH=src python -m repro_torch.launch.train --mode vit --trace \\
+      --metrics --health --obs-dir results/obs
 """
 from __future__ import annotations
 
 import argparse
+import pathlib
 import time
 
 import torch
@@ -50,6 +58,7 @@ from repro_torch.federated.driver import (TRANSPORT_KERNELS, resolve_device,
 from repro_torch.federated.engine import ENGINES
 from repro_torch.federated.transport import make_codec
 from repro_torch.models import lm as lm_mod
+from repro_torch.obs import ConsoleRenderer, make_obs, write_history_json
 
 # flags of the reference launcher whose features the port does not have
 # yet: flag -> (the value that means "off", what is missing)
@@ -60,14 +69,40 @@ NOT_PORTED = {
     "dp_noise_multiplier": (0.0, "differential privacy"),
     "dp_epsilon_budget": (0.0, "differential privacy"),
     "secure_agg": (False, "secure aggregation"),
-    "trace": (False, "tracing"),
-    "metrics": (False, "metrics"),
-    "health": (False, "the health monitor"),
-    "halt_on_unhealthy": (False, "the health monitor"),
     "measure_resources": (False, "resource measurement"),
-    "profile_dir": ("", "profiling"),
-    "live": (False, "the live console"),
 }
+
+
+def obs_from_args(args, mode):
+    """Observability bundle from --trace/--metrics/--profile-dir plus the
+    health monitor (--health/--halt-on-unhealthy)."""
+    return make_obs(trace=args.trace, metrics=args.metrics,
+                    profile_dir=args.profile_dir or None,
+                    health=args.health,
+                    halt_on_unhealthy=args.halt_on_unhealthy,
+                    mode=mode, schedule=args.schedule, engine=args.engine,
+                    codec=args.codec, seed=args.seed)
+
+
+def export_obs(obs, args, hist=None):
+    """Write the enabled artifacts under --obs-dir and report the paths."""
+    if not obs.enabled:
+        return {}
+    out = pathlib.Path(args.obs_dir)
+    written = obs.export(
+        trace_jsonl=out / "run_trace.jsonl" if args.trace else None,
+        chrome_trace=out / "run_trace.chrome.json" if args.trace else None,
+        metrics_csv=out / "run_metrics.csv" if args.metrics else None,
+        health_json=(out / "health.json" if obs.health is not None
+                     else None),
+        schedule=args.schedule, engine=args.engine, codec=args.codec)
+    if args.metrics and hist is not None:
+        written["history_json"] = write_history_json(
+            hist, out / "run_history.json", schedule=args.schedule,
+            engine=args.engine, codec=args.codec)
+    for kind, path in sorted(written.items()):
+        print(f"obs: wrote {kind} -> {path}")
+    return written
 
 
 def train_vit(args):
@@ -89,12 +124,16 @@ def train_vit(args):
     else:
         idx = iid_partition(args.samples, fl.num_clients, seed=args.seed)
     aux = images[:max(args.batch, args.samples // 10)]
+    obs = obs_from_args(args, "vit")
     t0 = time.time()
-    state, hist = run_fedssl(cfg, ssl_cfg, fl, tc, images=images,
-                             client_indices=idx, aux_images=aux, log=print,
-                             device=device, engine=args.engine,
-                             codec=args.codec,
-                             transport_kernels=args.transport_kernels)
+    with ConsoleRenderer(live=args.live) as log:
+        state, hist = run_fedssl(cfg, ssl_cfg, fl, tc, images=images,
+                                 client_indices=idx, aux_images=aux,
+                                 log=log, device=device, engine=args.engine,
+                                 codec=args.codec,
+                                 transport_kernels=args.transport_kernels,
+                                 obs=obs)
+    export_obs(obs, args, hist=hist)
     print(f"training done in {time.time() - t0:.1f}s; "
           f"total comm {hist.total_comm / 1e6:.2f} MB analytic, "
           f"{hist.total_wire / 1e6:.2f} MB on the wire "
@@ -127,9 +166,13 @@ def train_lm(args):
                                   cfg.vocab_size)
     shards = iid_partition(args.samples, fl.num_clients, seed=args.seed)
     params = lm_mod.init_lm(cfg, gen, device)
-    params, hist = run_lm_fedssl(cfg, fl, tc, tokens=toks, labels=labs,
-                                 shards=shards, params=params, device=device,
-                                 codec=args.codec, log=print)
+    obs = obs_from_args(args, "lm")
+    with ConsoleRenderer(live=args.live) as log:
+        params, hist = run_lm_fedssl(
+            cfg, fl, tc, tokens=toks, labels=labs, shards=shards,
+            params=params, device=device, codec=args.codec,
+            transport_kernels=args.transport_kernels, log=log, obs=obs)
+    export_obs(obs, args)
     print(f"final loss {hist.loss[-1]:.4f} (start {hist.loss[0]:.4f}); "
           f"{hist.total_wire / 1e6:.2f} MB/client on the wire "
           f"({args.codec}: {hist.compression_ratio:.2f}x)")
@@ -179,10 +222,33 @@ def main(argv=None):
     ap.add_argument("--dp-noise-multiplier", type=float, default=0.0)
     ap.add_argument("--dp-epsilon-budget", type=float, default=0.0)
     ap.add_argument("--secure-agg", action="store_true")
-    for flag in ("--trace", "--metrics", "--health", "--halt-on-unhealthy",
-                 "--measure-resources", "--live"):
-        ap.add_argument(flag, action="store_true")
-    ap.add_argument("--profile-dir", default="")
+    ap.add_argument("--measure-resources", action="store_true")
+    ap.add_argument("--trace", action="store_true",
+                    help="record a span trace of the run and write "
+                         "run_trace.jsonl + run_trace.chrome.json (the "
+                         "latter loads in Perfetto / chrome://tracing) "
+                         "under --obs-dir; analyse with `python -m "
+                         "repro.launch.trace`; spans are host-timed")
+    ap.add_argument("--metrics", action="store_true",
+                    help="record typed counters/gauges/histograms and "
+                         "write run_metrics.csv + run_history.json under "
+                         "--obs-dir")
+    ap.add_argument("--health", action="store_true",
+                    help="attach the streaming health monitor (NaN/inf "
+                         "loss, z-score loss spikes, compression-ratio "
+                         "drift) and write health.json under --obs-dir")
+    ap.add_argument("--halt-on-unhealthy", action="store_true",
+                    help="stop training on a fatal health alert "
+                         "(implies --health)")
+    ap.add_argument("--profile-dir", default="",
+                    help="also capture a torch.profiler trace (CPU, and "
+                         "CUDA on the card) into this directory as "
+                         "torch_profile.json")
+    ap.add_argument("--obs-dir", default="results",
+                    help="directory for observability artifacts")
+    ap.add_argument("--live", action="store_true",
+                    help="render round progress as a single live-updating "
+                         "console line instead of one line per round")
     args = ap.parse_args(argv)
     for name, (off, what) in NOT_PORTED.items():
         if getattr(args, name) != off:

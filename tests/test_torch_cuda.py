@@ -245,11 +245,24 @@ def _int8_segs(shapes):
     return tuple(segs), off, soff
 
 
-@pytest.mark.parametrize("lead", [(), ((37, 1),)], ids=["aligned", "odd"])
-def test_int8_quant_dequant_bit_exact(dev, lead):
+def _unaligned_view(q):
+    """``q`` copied into a view one byte past an aligned base: char4 loads
+    of it would be misaligned, so the dequantizer takes its scalar path."""
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)
+    view = buf[1:]
+    view.copy_(q)
+    assert view.data_ptr() % 4 != 0
+    return view
+
+
+@pytest.mark.parametrize("case", ["aligned", "odd", "view"])
+def test_int8_quant_dequant_bit_exact(dev, case):
     # "odd": a 37-element slot first leaves every later offset off the
-    # 16-byte grid, so the quantizer takes its scalar path throughout
-    segs, total, nscales = _int8_segs(list(lead) + INT8_SHAPES)
+    # 16-byte grid, so quantizer and dequantizer take their scalar paths
+    # throughout; "view": aligned slots, but the dequantizer's q is a view
+    # whose base is not 4-byte aligned
+    lead = [(37, 1)] if case == "odd" else []
+    segs, total, nscales = _int8_segs(lead + INT8_SHAPES)
     before = ops.launch_counts()
     # the second call's smaller values would expose a stale absmax scratch
     for seed, spread in ((0, 3.0), (1, 0.01)):
@@ -259,13 +272,77 @@ def test_int8_quant_dequant_bit_exact(dev, lead):
         assert torch.equal(q, wq) and torch.equal(s, ws)
         cq, cs = ref.int8_encode_ref(flat.cpu(), segs, nscales)
         assert torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs)
+        if case == "view":
+            q = _unaligned_view(q)
         dec = ops.wire_int8_decode(q, s, segs, total)
-        assert torch.equal(dec, ref.int8_decode_ref(wq, ws, segs, total))
+        want = ref.int8_decode_ref(wq, ws, segs, total)
+        assert torch.equal(dec, want)
+        assert torch.equal(ops.wire_int8_decode(q, s, segs, total), dec)
+        assert torch.equal(dec.cpu(), ref.int8_decode_ref(cq, cs, segs,
+                                                          total))
     q2, s2 = ops.wire_int8_encode(flat, segs, nscales)       # same bits
-    assert torch.equal(q2, q) and torch.equal(s2, s)
+    assert torch.equal(q2, wq) and torch.equal(s2, ws)
     after = ops.launch_counts()
     assert after["int8_quant_matrix"] == before["int8_quant_matrix"] + 3
-    assert after["int8_dequant_matrix"] == before["int8_dequant_matrix"] + 2
+    assert after["int8_dequant_matrix"] == before["int8_dequant_matrix"] + 4
+
+
+def test_int8_dequant_back_to_back_layouts(dev):
+    """Two layouts dequantized in turns, queued without a sync: each call
+    reads its own layout's tile table (a stale or shared table would give
+    the other layout's columns), and an unaligned view of q its own."""
+    cases = []
+    for i, shapes in enumerate((INT8_SHAPES, [(37, 1)] + INT8_SHAPES[::-1],
+                                [(4096, 4096), (192, 768)])):
+        segs, total, nscales = _int8_segs(shapes)
+        flat = _rand((total,), torch.float32, dev, 20 + i)
+        q, s = ref.int8_encode_ref(flat, segs, nscales)
+        cases.append((segs, total, q, s))
+    cases.append((cases[0][0], cases[0][1], _unaligned_view(cases[0][2]),
+                  cases[0][3]))
+    torch.cuda.synchronize()
+    outs = [ops.wire_int8_decode(q, s, segs, total)
+            for _ in range(2) for segs, total, q, s in cases]
+    for out, (segs, total, q, s) in zip(outs, cases * 2):
+        assert torch.equal(out, ref.int8_decode_ref(q, s, segs, total))
+
+
+def test_traced_run_matches_untraced_on_card(dev):
+    """A 2-round run on the int8 wire, traced with metrics and health and
+    untraced: the same wire bytes and kernel launches; the trace's counters
+    equal the history."""
+    from repro_torch import obs as tobs
+    from repro_torch.configs.base import (FLConfig, SSLConfig, TrainConfig,
+                                          load_arch, reduced)
+    from repro_torch.data.partition import iid_partition
+    from repro_torch.data.synthetic import synthetic_images
+    from repro_torch.federated.driver import run_fedssl
+    # head dim 64, one the attention kernels take
+    cfg = reduced(load_arch("vit-tiny"), num_layers=2, d_model=128,
+                  num_heads=2, num_kv_heads=2, d_ff=256)
+    runs = []
+    for obs in (None, tobs.make_obs(trace=True, metrics=True, health=True)):
+        gen = torch.Generator(dev).manual_seed(0)
+        images, _ = synthetic_images(gen, 128, 10, 32)
+        before = ops.launch_counts()
+        _, hist = run_fedssl(
+            cfg, SSLConfig(proj_hidden=64, pred_hidden=64, proj_dim=32),
+            FLConfig(num_clients=2, rounds=2, local_epochs=1, seed=0),
+            TrainConfig(batch_size=32), images=images,
+            client_indices=iid_partition(128, 2, seed=0),
+            aux_images=images[:32], device="cuda", codec="int8", obs=obs)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        runs.append((hist, {k: after[k] - before[k] for k in after}, obs))
+    (h0, l0, _), (h1, l1, obs) = runs
+    assert h1.wire_download_bytes == h0.wire_download_bytes
+    assert h1.wire_upload_bytes == h0.wire_upload_bytes
+    assert l1 == l0 and l0["int8_dequant_matrix"] > 0
+    c = obs.metrics.to_dict()["counters"]
+    assert c["fl.rounds"] == 2
+    assert c["wire.upload_bytes"] == sum(h1.wire_upload_bytes)
+    assert sum(e["name"] == "round" for e in obs.tracer.events) == 2
+    assert obs.health.alerts == []
 
 
 @pytest.mark.parametrize("n,offset", [(21177920, 0), (1001, 1), (7, 0)])

@@ -120,16 +120,27 @@ def test_cli_rejects_unknown_codec(capsys):
     assert e.value.code == 2 and "unknown codec" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--secure-agg"], ["--fleet", "uniform"],
-                                  ["--mode", "lm", "--engine", "vmap"],
-                                  ["--trace"],
-                                  ["--mode", "lm", "--arch",
-                                   "internlm2-1.8b"]])
+NOT_PORTED_CASES = [["--secure-agg"], ["--fleet", "uniform"],
+                    ["--mode", "lm", "--engine", "vmap"],
+                    ["--measure-resources"],
+                    ["--mode", "lm", "--arch", "internlm2-1.8b"],
+                    ["--round-policy", "deadline"], ["--dp-clip", "1.0"],
+                    ["--dp-noise-multiplier", "1.1"],
+                    ["--dp-epsilon-budget", "8.0"]]
+
+
+@pytest.mark.parametrize("flag", NOT_PORTED_CASES)
 def test_cli_rejects_features_not_ported(flag, capsys):
     with pytest.raises(SystemExit) as e:
         train.main(["--device", "cpu", *flag])
     assert e.value.code == 2
     assert "not ported to repro_torch yet" in capsys.readouterr().err
+
+
+def test_every_refused_flag_has_a_case():
+    flags = {f[0] for f in NOT_PORTED_CASES}
+    for name in train.NOT_PORTED:
+        assert "--" + name.replace("_", "-") in flags, name
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
