@@ -12,6 +12,7 @@ branch).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -118,10 +119,11 @@ def lm_train_step(params: Tree, opt_state, batch, lr: float, *, cfg, opt,
 def local_train(global_state, images: torch.Tensor, plan, draws, opt, *,
                 encoder, ssl_cfg, lr: float, sub_layers: int,
                 active_from: int, align: bool, depth_dropout: float,
-                global_enc: Optional[Tree] = None):
+                global_enc: Optional[Tree] = None, probe=None):
     """Run one client's batch plan (from ``draws.batch_plan``) over its
     shard ``images`` (n_i, H, W, 3). Returns (online params, last metrics
-    with the step count)."""
+    with the step count). ``probe`` (resource measurement) is held around
+    the first step and told its batch size."""
     state = {"online": dict(global_state["online"]),
              # target re-initialised from the global model each round
              "target": {k: global_state["online"][k]
@@ -130,7 +132,7 @@ def local_train(global_state, images: torch.Tensor, plan, draws, opt, *,
     align_w = ssl_cfg.align_weight if align else 0.0
     _, H, W, _ = images.shape
     last = {}
-    for idx, handle in plan:
+    for n, (idx, handle) in enumerate(plan):
         batch = images[idx]
         x1, x2 = two_views(batch, *draws.views(handle, batch.shape[0], H, W))
         gates = None
@@ -138,8 +140,13 @@ def local_train(global_state, images: torch.Tensor, plan, draws, opt, *,
             gates = sched.depth_dropout_gates(
                 draws.gate_uniforms(handle, encoder.num_stages),
                 active_from, depth_dropout)
-        state, opt_state, last = train_step(
-            state, opt_state, x1, x2, lr, encoder=encoder, ssl_cfg=ssl_cfg,
-            opt=opt, sub_layers=sub_layers, active_from=active_from,
-            layer_gates=gates, global_enc=global_enc, align_weight=align_w)
+        counted = probe if probe is not None and n == 0 else None
+        with counted if counted is not None else contextlib.nullcontext():
+            state, opt_state, last = train_step(
+                state, opt_state, x1, x2, lr, encoder=encoder,
+                ssl_cfg=ssl_cfg, opt=opt, sub_layers=sub_layers,
+                active_from=active_from, layer_gates=gates,
+                global_enc=global_enc, align_weight=align_w)
+        if counted is not None:
+            counted.samples = batch.shape[0]
     return state["online"], {**last, "steps": len(plan)}

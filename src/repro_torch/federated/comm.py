@@ -15,6 +15,11 @@ import torch
 from repro_torch.federated.leaves import classify_leaf
 
 
+def tree_bytes(tree: Dict[str, torch.Tensor]) -> int:
+    """Bytes of every leaf of a flat tree (``meta`` tensors included)."""
+    return int(sum(t.numel() * t.element_size() for t in tree.values()))
+
+
 def _leaf_bytes(path, a: torch.Tensor, stage_range, include_embed,
                 include_heads) -> int:
     kind = classify_leaf(path)

@@ -8,21 +8,38 @@ and its codec, server-side calibration and communication accounting.
 ``repro.launch.train``): layer-wise FedSSL on token shards with
 next-token SSL and alignment, every client in every round.
 ``FLHistory`` is the reference's, with the same versioned ``to_dict``, so
-two histories compare field by field; the fleet-simulation and privacy
-fields stay empty until those features are ported.
+two histories compare field by field; the privacy fields stay empty until
+that feature is ported.
+
+Fleet simulation (``sim=``, ``repro_torch.federated.simulation``; off by
+default): the reference's round clock and round policies. The simulator
+prices the round's cohort (overcommitted for the deadline policy), draws
+availability and picks who trains; the engines train those clients, and
+the buffered-async policy gets each client's decoded tree
+(``collect=True``) and aggregates its arrivals staleness-weighted.
+``FLHistory`` then carries the simulated wall clock, device-seconds,
+energy, drops and participants of every round. With the synchronous
+policy over a uniform fleet training is bit-identical to ``sim=None``.
 
 Observability (``obs=``, ``repro_torch.obs``; ``NOOP_OBS`` by default) as
 in the reference: the spans ``run > round > {stage_transition, download,
 local_train, calibrate}`` with the round's bytes, loss and rate on its
 ``round`` span, the counters ``fl.rounds``, ``comm.*_bytes`` and
 ``wire.*_bytes``, the histograms ``round.loss`` and ``round.host_seconds``
-and the gauge ``wire.compression_ratio``, the health monitor's ``health.*``
+and the gauge ``wire.compression_ratio`` (and with a simulator the
+``sim.*`` metrics), the live memory watermark (``mem.*``,
+``repro_torch.obs.resources``) on every round span when anything
+records, the health monitor's ``health.*``
 instants (with ``halt_on_fatal``, the run stops after the round that
 raised a fatal alert) and the profiler around the rounds. The reference's
 ``jit.recompiles`` and ``jit.cache_entries`` count XLA programs, which the
 port does not have; its health monitor is fed ``recompiles=0``. Tracing
 reads each client's loss inside its span, as the reference does; with
-everything off nothing is added on the card.
+everything off nothing is added on the card. With
+``obs.measure_resources`` the first local step of every stage runs under
+a FLOP counter and its count goes on the stage-opening round span
+(``res.*``, recorded under a ``resources.measure`` span after the round's
+training; the reference lowers the step before it and records there).
 """
 from __future__ import annotations
 
@@ -44,6 +61,7 @@ from repro_torch.federated.engine import make_engine
 from repro_torch.federated.transport import Transport
 from repro_torch.models import lm as lm_mod
 from repro_torch.obs import NOOP_OBS, format_round_line
+from repro_torch.obs import resources as obs_resources
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.schedules import learning_rate, scaled_base_lr
 
@@ -64,7 +82,8 @@ class FLHistory:
     # measured per-client wire bytes
     wire_download_bytes: List[int] = field(default_factory=list)
     wire_upload_bytes: List[int] = field(default_factory=list)
-    # fleet-simulator accounting (not ported yet: always empty)
+    # fleet-simulator accounting (populated only when a Simulation is
+    # passed to run_fedssl; empty lists otherwise)
     round_wall_clock: List[float] = field(default_factory=list)
     device_seconds: List[float] = field(default_factory=list)
     energy_joules: List[float] = field(default_factory=list)
@@ -89,6 +108,32 @@ class FLHistory:
         if self.total_wire == 0:
             return float("nan")
         return self.total_comm / self.total_wire
+
+    @property
+    def total_wall_clock(self) -> float:
+        return sum(self.round_wall_clock)
+
+    @property
+    def total_device_seconds(self) -> float:
+        return sum(self.device_seconds)
+
+    @property
+    def total_energy(self) -> float:
+        return sum(self.energy_joules)
+
+    @property
+    def total_dropped(self) -> int:
+        return sum(self.dropped_clients)
+
+    def wall_clock_to_loss(self, target: float):
+        """Cumulative simulated seconds until the round-mean loss first
+        reaches ``target``; None if it never does (or no simulation ran)."""
+        t = 0.0
+        for wall, loss in zip(self.round_wall_clock, self.loss):
+            t += wall
+            if loss <= target:
+                return t
+        return None
 
     def to_dict(self) -> Dict[str, Any]:
         fields: Dict[str, list] = {}
@@ -130,7 +175,7 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                aux_images=None, draws=None, encoder=None,
                image_size: int = 32, log=None, device="cuda",
                engine: str = "sequential", codec: str = "fp32",
-               transport_kernels: str = "xla", obs=None):
+               transport_kernels: str = "xla", sim=None, obs=None):
     """Run the FL process; returns (final state, FLHistory).
 
     images: (n, H, W, 3) training pool; client_indices: one index array
@@ -174,6 +219,15 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                       transport=wire, draws=draws,
                       batch_size=train_cfg.batch_size, obs=obs)
 
+    if sim is not None:
+        sim.obs = obs
+        # ViT patch grid prices the per-step FLOPs (4x4 patches)
+        sim.prepare(model_cfg, num_stages=encoder.num_stages,
+                    counts=eng.counts,
+                    batch=train_cfg.batch_size,
+                    tokens=(image_size // 4) ** 2,
+                    local_epochs=fl.local_epochs)
+
     # stage-relative step counters for the cyclic LR strategy
     stage_start: Dict[int, int] = {}
     for p in plans:
@@ -186,27 +240,37 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
         with tracer.span("run", cat="fl", mode="fedssl",
                          schedule=fl.schedule, engine=engine,
                          codec=wire.codec.name, kernels=transport_kernels,
-                         rounds=fl.rounds, clients=fl.num_clients, sim=None):
+                         rounds=fl.rounds, clients=fl.num_clients,
+                         sim=sim.policy.name if sim else None):
             for plan in plans:
                 host_t0 = time.perf_counter()
                 round_span = tracer.span("round", cat="fl",
                                          round=plan.round_idx,
                                          stage=plan.stage)
                 with round_span:
+                    probe = None
                     if plan.new_stage:
                         tracer.instant("stage_transition", cat="fl",
                                        stage=plan.stage)
+                        if sim is not None:
+                            sim.begin_stage()
                         state = server.begin_stage(
                             state, plan.stage,
                             weight_transfer=fl.weight_transfer)
+                        if obs.measure_resources:
+                            probe = obs_resources.StepProbe()
                     lr = learning_rate(
                         plan.round_idx, fl.rounds, base_lr,
                         train_cfg.lr_schedule,
                         stage_step=plan.round_idx - stage_start[plan.stage],
                         stage_total=stage_lengths[plan.stage],
                         warmup_steps=train_cfg.warmup_steps)
-                    participants = server.sample_clients(
-                        draws, fl.num_clients, fl.clients_per_round)
+                    # with the default overcommit (1.0) this draws the
+                    # cohort it always drew
+                    cohort = server.sample_clients(
+                        draws, fl.num_clients, fl.clients_per_round,
+                        overcommit=sim.overcommit if sim is not None
+                        else 1.0)
                     # clients (and the alignment loss's global model) see
                     # the wire-decoded broadcast, not the server's tree
                     with tracer.span("download", cat="fl"):
@@ -214,14 +278,50 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                                                                  wire)
                     global_enc = (subtree(dstate["online"], "enc")
                                   if plan.align else None)
+                    outcome = None
+                    participants = cohort
+                    if sim is not None:
+                        up_spec = wire.plan_specs(state["online"],
+                                                  plan)["upload"]
+                        outcome = sim.begin_round(
+                            plan, cohort, down_bytes=down["wire_bytes"],
+                            up_bytes=wire.wire_bytes(up_spec))
+                        participants = list(outcome.train_ids)
                     batch_plans = [draws.batch_plan(
                         eng.counts[i], fl.local_epochs,
                         train_cfg.batch_size) for i in participants]
-                    with tracer.span("local_train", cat="fl",
-                                     participants=len(participants)):
-                        new_online, losses, up = eng.run_round(
-                            dstate, plan, participants, batch_plans, lr,
-                            global_enc, server_online=state["online"])
+                    train_span = tracer.span("local_train", cat="fl",
+                                             participants=len(participants))
+                    if sim is not None and sim.policy.needs_client_trees:
+                        # buffered-async: the engine returns each client's
+                        # decoded tree; the policy buffers them and
+                        # aggregates arrivals staleness-weighted, possibly
+                        # rounds after they trained
+                        with train_span:
+                            if participants:
+                                trees, losses, up = eng.run_round(
+                                    dstate, plan, participants, batch_plans,
+                                    lr, global_enc,
+                                    server_online=state["online"],
+                                    collect=True, probe=probe)
+                            else:  # every sampled client busy or offline
+                                trees, losses = [], []
+                                up = wire.stats(up_spec)
+                        new_online, outcome = sim.complete_round_async(
+                            outcome, trees)
+                    else:
+                        with train_span:
+                            new_online, losses, up = eng.run_round(
+                                dstate, plan, participants, batch_plans, lr,
+                                global_enc, server_online=state["online"],
+                                probe=probe)
+                        if sim is not None:
+                            outcome = sim.complete_round(outcome)
+                    if probe is not None and probe.flops is not None:
+                        with tracer.span("resources.measure", cat="obs",
+                                         stage=plan.stage):
+                            round_span.set(
+                                **obs_resources.stage_cost_attrs(probe))
                     state = {**state, "online": new_online}
                     if plan.server_calibrate and aux_images is not None:
                         with tracer.span("calibrate", cat="fl",
@@ -235,32 +335,57 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                     cb = comm.round_comm_bytes(
                         state["online"], plan,
                         include_heads=fl.include_heads)
-                    hist.loss.append(sum(losses) / len(losses))
+                    if losses:
+                        hist.loss.append(sum(losses) / len(losses))
+                    else:  # async round with no launches: carry the loss
+                        hist.loss.append(hist.loss[-1] if hist.loss
+                                         else float("nan"))
                     hist.round_stage.append(plan.stage)
                     hist.download_bytes.append(cb["download"])
                     hist.upload_bytes.append(cb["upload"])
                     hist.wire_download_bytes.append(down["wire_bytes"])
                     hist.wire_upload_bytes.append(up["wire_bytes"])
+                    sim_log = ""
+                    dropped = 0
+                    if outcome is not None:
+                        dropped = len(outcome.dropped)
+                        hist.round_wall_clock.append(outcome.wall_clock_s)
+                        hist.device_seconds.append(outcome.device_seconds)
+                        hist.energy_joules.append(outcome.energy_j)
+                        hist.dropped_clients.append(dropped)
+                        hist.participants.append(tuple(participants))
+                        sim_log = (f" sim {outcome.wall_clock_s:.1f}s "
+                                   f"dropped {dropped}")
                     round_span.set(
                         loss=hist.loss[-1], lr=lr,
                         download_bytes=cb["download"],
                         upload_bytes=cb["upload"],
                         wire_download_bytes=down["wire_bytes"],
                         wire_upload_bytes=up["wire_bytes"],
-                        participants=len(participants), dropped=0)
+                        participants=len(participants), dropped=dropped)
+                    if obs.enabled:
+                        # live watermark (mem.* attrs are excluded from
+                        # Tracer.structure(): environment, not structure)
+                        round_span.set(
+                            **obs_resources.memory_span_attrs(device))
                 if obs.enabled:
                     _round_metrics(met, cb, down, up, hist.loss[-1],
                                    host_t0)
+                    if outcome is not None:
+                        met.histogram("sim.round_wall_clock_s").observe(
+                            outcome.wall_clock_s)
+                        met.counter("sim.energy_j").inc(outcome.energy_j)
+                        met.counter("sim.dropped_clients").inc(dropped)
                 if log:
                     log(format_round_line(
                         plan.round_idx, fl.rounds, plan.stage, hist.loss[-1],
                         lr=lr, down_mb=cb["download"] / 1e6,
                         up_mb=cb["upload"] / 1e6,
                         wire_mb=(down["wire_bytes"] + up["wire_bytes"])
-                        / 1e6))
+                        / 1e6, extra=sim_log))
                 if _observe_health(obs, plan, fl.rounds, hist.loss[-1], cb,
                                    down, up, len(participants), log,
-                                   value=True):
+                                   value=True, dropped=dropped):
                     break
         if obs.enabled:
             met.gauge("wire.compression_ratio").set(hist.compression_ratio)
@@ -282,7 +407,8 @@ def _round_metrics(met, cb, down, up, loss: float, host_t0: float) -> None:
 
 
 def _observe_health(obs, plan, rounds: int, loss: float, cb, down, up,
-                    participants: int, log, *, value: bool) -> bool:
+                    participants: int, log, *, value: bool,
+                    dropped: int = 0) -> bool:
     """Feed the round to the health monitor, record its alerts as
     ``health.*`` instants (``value``: with the alert's value, as the
     reference's vit driver records it and its LM loop does not); True when
@@ -294,7 +420,7 @@ def _observe_health(obs, plan, rounds: int, loss: float, cb, down, up,
              / max(1, down["wire_bytes"] + up["wire_bytes"]))
     for alert in obs.health.observe_round(
             plan.round_idx, loss=loss, compression_ratio=ratio,
-            participants=participants, recompiles=0,
+            dropped=dropped, participants=participants, recompiles=0,
             new_stage=plan.new_stage):
         attrs = {"level": alert.level, "round": plan.round_idx}
         if value:

@@ -20,6 +20,13 @@ step count; a padded step runs but its update is discarded. Uploads go
 through ``transport.aggregate_uploads`` in both, so every codec and its
 error-feedback residuals work the same on either engine.
 
+``collect=True`` (the buffered-async round policy's form) returns each
+participant's decoded upload tree in place of the FedAvg, on both engines.
+``probe=`` (a ``repro_torch.obs.resources.StepProbe``, resource
+measurement) is held around the round's first local step: the first
+participant's on the sequential engine, the first batched step on the
+vmap engine.
+
 Observability (``obs=``, off by default), the reference's spans: the
 sequential engine's ``client.train`` (client, loss) per participant and
 ``aggregate`` (engine, clients); the vmap engine's ``engine.dispatch``
@@ -29,6 +36,7 @@ is one XLA program with the wire inside it; here the transport's
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -56,15 +64,17 @@ class SequentialEngine:
         self.obs = obs if obs is not None else NOOP_OBS
 
     def run_round(self, state, plan, participants, batch_plans, lr: float,
-                  global_enc, server_online):
+                  global_enc, server_online, collect: bool = False,
+                  probe=None):
         """Train ``participants`` from the broadcast ``state`` along their
-        ``batch_plans``; returns (aggregated online tree, per-client last
-        losses, upload stats). The participants' indices are the client
+        ``batch_plans``; returns (aggregated online tree, or with
+        ``collect`` the list of decoded per-client trees; per-client last
+        losses; upload stats). The participants' indices are the client
         ids of the transport's error-feedback residuals, and the broadcast
         tree is the reference its delta codecs subtract."""
         tracer = self.obs.tracer
         outs, losses = [], []
-        for i, bplan in zip(participants, batch_plans):
+        for n, (i, bplan) in enumerate(zip(participants, batch_plans)):
             with tracer.span("client.train", cat="engine",
                              client=int(i)) as sp:
                 online_i, m = client_mod.local_train(
@@ -72,13 +82,19 @@ class SequentialEngine:
                     self.draws, self.opt, encoder=self.encoder,
                     ssl_cfg=self.ssl_cfg, lr=lr, sub_layers=plan.sub_layers,
                     active_from=plan.active_from, align=plan.align,
-                    depth_dropout=plan.depth_dropout, global_enc=global_enc)
+                    depth_dropout=plan.depth_dropout, global_enc=global_enc,
+                    probe=probe if n == 0 else None)
                 outs.append(online_i)
                 losses.append(m["loss"])
                 if is_tracing(tracer):
                     # the reference reads every client's loss here; an
                     # untraced round reads them once, after the last client
                     sp.set(loss=float(losses[-1]))
+        if collect:
+            trees, stats = self.transport.decode_uploads(
+                server_online, outs, list(participants), plan,
+                ref_online=state["online"])
+            return trees, [float(x) for x in losses], stats
         w = aggregate.client_weights([self.counts[i] for i in participants])
         with tracer.span("aggregate", cat="engine", engine=self.name,
                          clients=len(participants)):
@@ -162,19 +178,20 @@ class VmapEngine:
                 per_step(gates) if plan.depth_dropout > 0.0 else None, T)
 
     def run_round(self, state, plan, participants, batch_plans, lr: float,
-                  global_enc, server_online):
+                  global_enc, server_online, collect: bool = False,
+                  probe=None):
         """As ``SequentialEngine.run_round``: each local step is one batched
         step of all participants."""
         with self.obs.tracer.span("engine.dispatch", cat="engine",
                                   engine=self.name,
                                   participants=len(participants)):
-            new_online, losses, stats = self._round(
+            result, losses, stats = self._round(
                 state, plan, participants, batch_plans, lr, global_enc,
-                server_online)
-        return new_online, [float(x) for x in losses.tolist()], stats
+                server_online, collect, probe)
+        return result, [float(x) for x in losses.tolist()], stats
 
     def _round(self, state, plan, participants, batch_plans, lr: float,
-               global_enc, server_online):
+               global_enc, server_online, collect, probe):
         C = len(participants)
         steps = [len(b) for b in batch_plans]
         pool_idx, v1, v2, gates, T = self._round_inputs(plan, participants,
@@ -191,13 +208,18 @@ class VmapEngine:
             x1, x2 = two_views(self.images[pool_idx[t]],
                                {f: v[t] for f, v in v1.items()},
                                {f: v[t] for f, v in v2.items()})
-            new_state, new_opt, loss = client_mod.stacked_train_step(
-                cstate, opt_state, x1.unflatten(0, (C, -1)),
-                x2.unflatten(0, (C, -1)), lr, encoder=self.encoder,
-                ssl_cfg=self.ssl_cfg, opt=self.opt,
-                sub_layers=plan.sub_layers, active_from=plan.active_from,
-                layer_gates=None if gates is None else gates[t],
-                global_enc=global_enc, align_weight=align_w)
+            with (probe if probe is not None and t == 0
+                  else contextlib.nullcontext()):
+                new_state, new_opt, loss = client_mod.stacked_train_step(
+                    cstate, opt_state, x1.unflatten(0, (C, -1)),
+                    x2.unflatten(0, (C, -1)), lr, encoder=self.encoder,
+                    ssl_cfg=self.ssl_cfg, opt=self.opt,
+                    sub_layers=plan.sub_layers,
+                    active_from=plan.active_from,
+                    layer_gates=None if gates is None else gates[t],
+                    global_enc=global_enc, align_weight=align_w)
+            if probe is not None and t == 0:
+                probe.samples = x1.shape[0]
             if all(t < s for s in steps):
                 cstate, opt_state, losses = new_state, new_opt, loss
                 continue
@@ -209,6 +231,11 @@ class VmapEngine:
             losses = torch.where(keep, loss, losses)
         outs = [{k: v[c] for k, v in cstate["online"].items()}
                 for c in range(C)]
+        if collect:
+            trees, stats = self.transport.decode_uploads(
+                server_online, outs, list(participants), plan,
+                ref_online=state["online"])
+            return trees, losses, stats
         w = aggregate.client_weights([self.counts[i] for i in participants])
         new_online, stats = self.transport.aggregate_uploads(
             server_online, outs, list(participants), plan, w,

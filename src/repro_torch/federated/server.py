@@ -3,6 +3,8 @@ Algorithm 1 line 7), stage transitions with weight transfer, the download
 broadcast and client sampling."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core import schedule as sched
@@ -43,6 +45,12 @@ def begin_stage(state, stage: int, *, weight_transfer: bool):
             "target": sched.transfer_model(state["target"], stage, "enc/")}
 
 
-def sample_clients(draws, num_clients: int, clients_per_round: int):
-    """The round's cohort (everyone when ``clients_per_round`` is 0)."""
-    return draws.cohort(num_clients, clients_per_round or num_clients)
+def sample_clients(draws, num_clients: int, clients_per_round: int, *,
+                   overcommit: float = 1.0):
+    """The round's cohort (everyone when ``clients_per_round`` is 0).
+    ``overcommit > 1`` (the deadline policy's straggler insurance) inflates
+    the sample by that factor, clamped to the population; ``overcommit=1``
+    draws what it always drew."""
+    n = clients_per_round or num_clients
+    return draws.cohort(num_clients,
+                        min(num_clients, math.ceil(n * overcommit)))

@@ -24,12 +24,27 @@ stay per client).
 ``wire_cast_encode`` / ``wire_cast_decode`` and ``wire_topk_decode`` are
 plain PyTorch on every device: in the reference they are not Pallas
 kernels either.
+
+FLOP counting. ``torch.utils.flop_counter.FlopCounterMode`` counts aten ops
+at the dispatcher. On the card the forwards of attention, InfoNCE (and its
+gradients) and the SSD scan leave PyTorch for a hand-written kernel, which
+the counter cannot see; on the CPU they run the plain versions, whose
+products it does see. So while a dispatch mode is active each of them goes
+through a ``torch.library.custom_op`` with a registered FLOP formula
+(``attention_flops``, ``info_nce_flops``, ``ssd_scan_flops``): the counter
+counts the op once, by its formula, on either device, and the op's body
+runs with the mode switched off, so the counter never descends into the
+kernel's plain version. Without a dispatch mode the bodies are called
+directly: the dispatcher adds host time to every call of a host-bound
+step (``chip_smoke.py`` phase 2f times both routes) and changes nothing
+else.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import infonce as nce
@@ -62,6 +77,36 @@ def _device_kind(*tensors: torch.Tensor) -> str:
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device type '{kind}'")
     return kind
+
+
+def _counting() -> bool:
+    """True while a dispatch mode (``FlopCounterMode``) is active."""
+    return torch._C._len_torch_dispatch_stack() > 0
+
+
+def attention_flops(q_shape, k_shape, causal: bool) -> int:
+    """The two products of attention over BSHD shapes: 4 B Hq S T hd,
+    halved where causal."""
+    B, S, Hq, hd = q_shape
+    flops = 4 * B * Hq * S * k_shape[1] * hd
+    return flops // 2 if causal else flops
+
+
+def info_nce_flops(q_shape, k_shape, products: int = 1) -> int:
+    """``products`` (C, Bq, d) x (C, Bk, d)^T products: 2 C Bq Bk d each
+    (the forward has one; each gradient recomputes the logits and makes
+    one more)."""
+    C, Bq, d = q_shape
+    return products * 2 * C * Bq * k_shape[1] * d
+
+
+def ssd_scan_flops(xh_shape, bm_shape, chunk: int) -> int:
+    """The scan's forward as the roofline counts it
+    (``roofline.analysis.chunk_loop_correction``): per sequence 2 S Q N
+    (C.B) + 2 S Q H P (mask.x) + 4 S N H P (state in and out)."""
+    B, S, H, P = xh_shape
+    N = bm_shape[-1]
+    return B * (2 * S * chunk * N + 2 * S * chunk * H * P + 4 * S * N * H * P)
 
 
 # -- wire pack / unpack -------------------------------------------------------
@@ -225,7 +270,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 
 
 # -- attention -----------------------------------------------------------------
-def _attention_fwd(q, k, v, causal, window, kv_len, scale):
+def _attention_impl(q, k, v, causal, window, kv_len, scale):
     if _device_kind(q, k, v) == "cpu":
         out = ref.sdpa_ref(q.transpose(1, 2), k.transpose(1, 2),
                            v.transpose(1, 2), causal=causal, window=window,
@@ -235,6 +280,24 @@ def _attention_fwd(q, k, v, causal, window, kv_len, scale):
                                   kv_len=kv_len, scale=scale)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+@torch.library.custom_op("repro_torch::attention_fwd", mutates_args=())
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: int, kv_len: Optional[int],
+                  scale: Optional[float]) -> torch.Tensor:
+    return _attention_impl(q, k, v, causal, window, kv_len, scale)
+
+
+@register_flop_formula(torch.ops.repro_torch.attention_fwd)
+def _attention_op_flops(q, k, v, causal, *args, **kwargs) -> int:
+    return attention_flops(q, k, causal)
+
+
+def _attention_fwd(q, k, v, causal, window, kv_len, scale):
+    if _counting():
+        return _attention_op(q, k, v, causal, window, kv_len, scale)
+    return _attention_impl(q, k, v, causal, window, kv_len, scale)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -281,7 +344,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # -- InfoNCE -------------------------------------------------------------------
-def _info_nce_fwd(q, k, tau):
+def _info_nce_impl(q, k, tau):
     if _device_kind(q, k) == "cpu":
         return ref.info_nce_rows_ref(q, k, tau)
     out = nce.info_nce_fwd(q.contiguous(), k.contiguous(), tau)
@@ -289,13 +352,48 @@ def _info_nce_fwd(q, k, tau):
     return out
 
 
-def _info_nce_bwd(q, k, lse, g, tau, wrt_k):
+def _info_nce_bwd_impl(q, k, lse, g, tau, wrt_k):
     if _device_kind(q, k, lse, g) == "cpu":
         return ref.info_nce_rows_bwd_ref(q, k, lse, g, tau, wrt_k)
     out = nce.info_nce_bwd(q.contiguous(), k.contiguous(), lse.contiguous(),
                            g.to(torch.float32).contiguous(), tau, wrt_k)
     LAUNCHES["info_nce_rows_dk" if wrt_k else "info_nce_rows_dq"] += 1
     return out
+
+
+@torch.library.custom_op("repro_torch::info_nce_fwd", mutates_args=())
+def _info_nce_op(q: torch.Tensor, k: torch.Tensor,
+                 tau: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _info_nce_impl(q, k, tau)
+
+
+@register_flop_formula(torch.ops.repro_torch.info_nce_fwd)
+def _info_nce_op_flops(q, k, *args, **kwargs) -> int:
+    return info_nce_flops(q, k)
+
+
+@torch.library.custom_op("repro_torch::info_nce_bwd", mutates_args=())
+def _info_nce_bwd_op(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
+                     g: torch.Tensor, tau: float,
+                     wrt_k: bool) -> torch.Tensor:
+    return _info_nce_bwd_impl(q, k, lse, g, tau, wrt_k)
+
+
+@register_flop_formula(torch.ops.repro_torch.info_nce_bwd)
+def _info_nce_bwd_op_flops(q, k, *args, **kwargs) -> int:
+    return info_nce_flops(q, k, products=2)
+
+
+def _info_nce_fwd(q, k, tau):
+    if _counting():
+        return _info_nce_op(q, k, tau)
+    return _info_nce_impl(q, k, tau)
+
+
+def _info_nce_bwd(q, k, lse, g, tau, wrt_k):
+    if _counting():
+        return _info_nce_bwd_op(q, k, lse, g, tau, wrt_k)
+    return _info_nce_bwd_impl(q, k, lse, g, tau, wrt_k)
 
 
 def _fold_clients(info, in_dims, *tensors):
@@ -375,12 +473,29 @@ def info_nce_rows(q: torch.Tensor, k: torch.Tensor,
 
 
 # -- Mamba2 SSD scan -------------------------------------------------------------
-def _ssd_fwd(xh, dt, a, Bm, Cm, chunk):
+def _ssd_impl(xh, dt, a, Bm, Cm, chunk):
     if _device_kind(xh, dt, a, Bm, Cm) == "cpu":
         return ref.ssd_scan_ref(xh, dt, a, Bm, Cm, chunk=chunk)
     out = ms.ssd_scan_bshpn(xh, dt, a, Bm, Cm, chunk=chunk)
     LAUNCHES["ssd_scan"] += 1
     return out
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=())
+def _ssd_op(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor, chunk: int) -> torch.Tensor:
+    return _ssd_impl(xh, dt, a, Bm, Cm, chunk)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_fwd)
+def _ssd_op_flops(xh, dt, a, Bm, Cm, chunk, *args, **kwargs) -> int:
+    return ssd_scan_flops(xh, Bm, chunk)
+
+
+def _ssd_fwd(xh, dt, a, Bm, Cm, chunk):
+    if _counting():
+        return _ssd_op(xh, dt, a, Bm, Cm, chunk)
+    return _ssd_impl(xh, dt, a, Bm, Cm, chunk)
 
 
 class SSDScanFn(torch.autograd.Function):

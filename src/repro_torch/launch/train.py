@@ -22,7 +22,13 @@ and ``--profile-dir`` record the run as the reference does and write the
 artifacts under ``--obs-dir`` (``run_trace.jsonl``,
 ``run_trace.chrome.json``, ``run_metrics.csv``, ``run_history.json``,
 ``health.json``; the profiler's ``torch_profile.json`` under
-``--profile-dir``); ``--live`` rewrites one progress line in place.
+``--profile-dir``); ``--live`` rewrites one progress line in place;
+``--measure-resources`` (vit) counts the FLOPs of each stage's first
+local step onto its round span (``res.*``). ``--fleet`` and
+``--round-policy`` (vit) simulate a heterogeneous device fleet and its
+round policy (``--deadline-s``, ``--overcommit``, ``--async-buffer``,
+``--staleness-alpha``), and the summary adds the simulated wall clock,
+device-seconds, energy and dropped client-rounds.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit \\
@@ -36,6 +42,8 @@ Examples:
       --seq-len 64
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit --trace \\
       --metrics --health --obs-dir results/obs
+  PYTHONPATH=src python -m repro_torch.launch.train --mode vit \\
+      --fleet pareto-stragglers --round-policy deadline --codec int8
 """
 from __future__ import annotations
 
@@ -53,6 +61,8 @@ from repro_torch.core import ssl as ssl_mod
 from repro_torch.data.partition import dirichlet_partition, iid_partition
 from repro_torch.data.synthetic import synthetic_images, synthetic_tokens
 from repro_torch.federated import eval as fl_eval
+from repro_torch.federated import fleet as fleet_mod
+from repro_torch.federated import simulation as sim_mod
 from repro_torch.federated.driver import (TRANSPORT_KERNELS, resolve_device,
                                           run_fedssl, run_lm_fedssl)
 from repro_torch.federated.engine import ENGINES
@@ -63,13 +73,10 @@ from repro_torch.obs import ConsoleRenderer, make_obs, write_history_json
 # flags of the reference launcher whose features the port does not have
 # yet: flag -> (the value that means "off", what is missing)
 NOT_PORTED = {
-    "fleet": ("", "fleet simulation"),
-    "round_policy": ("synchronous", "fleet round policies"),
     "dp_clip": (0.0, "differential privacy"),
     "dp_noise_multiplier": (0.0, "differential privacy"),
     "dp_epsilon_budget": (0.0, "differential privacy"),
     "secure_agg": (False, "secure aggregation"),
-    "measure_resources": (False, "resource measurement"),
 }
 
 
@@ -80,6 +87,7 @@ def obs_from_args(args, mode):
                     profile_dir=args.profile_dir or None,
                     health=args.health,
                     halt_on_unhealthy=args.halt_on_unhealthy,
+                    measure_resources=args.measure_resources,
                     mode=mode, schedule=args.schedule, engine=args.engine,
                     codec=args.codec, seed=args.seed)
 
@@ -124,6 +132,7 @@ def train_vit(args):
     else:
         idx = iid_partition(args.samples, fl.num_clients, seed=args.seed)
     aux = images[:max(args.batch, args.samples // 10)]
+    sim = make_sim_from_args(args, fl.num_clients)
     obs = obs_from_args(args, "vit")
     t0 = time.time()
     with ConsoleRenderer(live=args.live) as log:
@@ -132,12 +141,18 @@ def train_vit(args):
                                  log=log, device=device, engine=args.engine,
                                  codec=args.codec,
                                  transport_kernels=args.transport_kernels,
-                                 obs=obs)
+                                 sim=sim, obs=obs)
     export_obs(obs, args, hist=hist)
     print(f"training done in {time.time() - t0:.1f}s; "
           f"total comm {hist.total_comm / 1e6:.2f} MB analytic, "
           f"{hist.total_wire / 1e6:.2f} MB on the wire "
           f"({args.codec}: {hist.compression_ratio:.2f}x)")
+    if sim is not None:
+        print(f"simulated fleet '{args.fleet}' / policy "
+              f"'{args.round_policy}': {hist.total_wall_clock:.1f}s "
+              f"wall-clock, {hist.total_device_seconds:.1f} device-s, "
+              f"{hist.total_energy:.1f}J, "
+              f"{hist.total_dropped} dropped client-rounds")
     enc = ssl_mod.make_vit_encoder(cfg)
     n_eval = min(args.samples // 2, 512)
     acc = fl_eval.linear_eval(
@@ -179,6 +194,25 @@ def train_lm(args):
     return params, hist
 
 
+def make_sim_from_args(args, num_clients):
+    """The fleet simulator of the CLI flags; None when --fleet is unset."""
+    if not args.fleet:
+        if args.round_policy != "synchronous":
+            raise SystemExit(
+                "--round-policy needs --fleet (one of "
+                + ", ".join(fleet_mod.PROFILES) + ")")
+        return None
+    kw = {}
+    if args.round_policy == "deadline":
+        kw = {"overcommit": args.overcommit}
+        if args.deadline_s > 0:
+            kw["deadline_s"] = args.deadline_s
+    elif args.round_policy == "buffered-async":
+        kw = {"buffer": args.async_buffer, "alpha": args.staleness_alpha}
+    return sim_mod.make_sim(args.fleet, args.round_policy,
+                            num_clients=num_clients, seed=args.seed, **kw)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", default="vit", choices=("vit", "lm"))
@@ -214,15 +248,38 @@ def main(argv=None):
                     choices=TRANSPORT_KERNELS,
                     help="the reference's wire-engine names; both select "
                          "the port's one wire path")
+    ap.add_argument("--fleet", default="",
+                    choices=("",) + fleet_mod.PROFILES,
+                    help="simulate a heterogeneous device fleet drawn from "
+                         "this named profile; empty = no simulation")
+    ap.add_argument("--round-policy", default="synchronous",
+                    choices=sim_mod.POLICIES,
+                    help="round scheduling policy over the simulated "
+                         "fleet: synchronous (wait for all), deadline "
+                         "(overcommit + drop stragglers), buffered-async "
+                         "(staleness-weighted FedBuff aggregation)")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="fixed round deadline in simulated seconds "
+                         "(0 = adaptive: the cohort's 60th percentile)")
+    ap.add_argument("--overcommit", type=float, default=1.5,
+                    help="deadline policy: sample this factor more "
+                         "clients, clamped to the population")
+    ap.add_argument("--async-buffer", type=int, default=0,
+                    help="buffered-async: aggregate once this many "
+                         "updates arrived (0 = half the cohort)")
+    ap.add_argument("--staleness-alpha", type=float, default=0.5,
+                    help="buffered-async: (1+staleness)^-alpha weight "
+                         "discount")
     # accepted so that the reference's command lines parse; any value
     # other than "off" is refused below
-    ap.add_argument("--fleet", default="")
-    ap.add_argument("--round-policy", default="synchronous")
     ap.add_argument("--dp-clip", type=float, default=0.0)
     ap.add_argument("--dp-noise-multiplier", type=float, default=0.0)
     ap.add_argument("--dp-epsilon-budget", type=float, default=0.0)
     ap.add_argument("--secure-agg", action="store_true")
-    ap.add_argument("--measure-resources", action="store_true")
+    ap.add_argument("--measure-resources", action="store_true",
+                    help="count the FLOPs of each stage's first local step "
+                         "(torch.utils.flop_counter) and attach them (res.*) "
+                         "to the stage-opening round span (--mode vit)")
     ap.add_argument("--trace", action="store_true",
                     help="record a span trace of the run and write "
                          "run_trace.jsonl + run_trace.chrome.json (the "
@@ -260,6 +317,11 @@ def main(argv=None):
         ap.error(f"--codec {args.codec}: {e}")
     if args.mode == "vit":
         return train_vit(args)
+    if args.fleet:
+        ap.error("--fleet simulation drives the vit driver; use --mode vit")
+    if args.measure_resources:
+        ap.error("--measure-resources measures the vit driver's steps; use "
+                 "--mode vit")
     if args.engine != "sequential":
         ap.error(f"--engine {args.engine} with --mode lm: the LM vmap engine "
                  f"is not ported to repro_torch yet")

@@ -1,5 +1,5 @@
-"""Structured tracing, metrics and training health for the port's FL stack
-(``repro.obs``; the reference's ``resources`` is not ported yet).
+"""Structured tracing, metrics, training health and measured resources for
+the port's FL stack (``repro.obs``).
 
 Public surface:
 
@@ -16,13 +16,19 @@ Public surface:
   write_jsonl / read_jsonl / write_chrome_trace / write_metrics_csv /
   write_history_json / format_round_line / ConsoleRenderer
                                          exporters (repro_torch.obs.export)
+  resources                              FLOPs counted per local step,
+                                         peak and live memory, the
+                                         paper table's measurements
+                                         (repro_torch.obs.resources)
 
 Everything is off by default: the drivers, engines and transport hold
 ``NOOP_OBS`` unless a real bundle is passed in (``run_fedssl(obs=...)``,
 ``run_lm_fedssl(obs=...)``, ``--trace`` / ``--metrics`` / ``--health`` /
-``--profile-dir`` on ``repro_torch.launch.train``). The trace files have
+``--profile-dir`` / ``--measure-resources`` on
+``repro_torch.launch.train``). The trace files have
 the reference's format, so ``python -m repro.launch.trace`` analyses them.
 """
+from repro_torch.obs import resources
 from repro_torch.obs.core import NOOP_OBS, Observability, make_obs
 from repro_torch.obs.export import (ConsoleRenderer, chrome_trace_doc,
                                     format_round_line, metrics_csv_text,
@@ -36,7 +42,7 @@ from repro_torch.obs.trace import (NOOP_TRACER, NoopTracer, Span, Tracer,
                                    is_tracing)
 
 __all__ = [
-    "NOOP_OBS", "Observability", "make_obs",
+    "NOOP_OBS", "Observability", "make_obs", "resources",
     "ConsoleRenderer", "chrome_trace_doc", "format_round_line",
     "metrics_csv_text", "read_jsonl", "trace_header", "write_chrome_trace",
     "write_history_json", "write_jsonl", "write_metrics_csv",

@@ -32,11 +32,15 @@ class Observability:
     """Tracer + metrics + health + profiler hooks. Prefer ``make_obs``."""
 
     def __init__(self, tracer=NOOP_TRACER, metrics=NOOP_METRICS,
-                 profile_dir: Optional[str] = None, health=None):
+                 profile_dir: Optional[str] = None, health=None,
+                 measure_resources: bool = False):
         self.tracer = tracer
         self.metrics = metrics
         self.profile_dir = profile_dir
         self.health = health
+        # the drivers count the FLOPs of each stage's first local step and
+        # put them (res.*) on the stage-opening round span
+        self.measure_resources = measure_resources
         self._profiler = None
 
     @property
@@ -104,12 +108,9 @@ def make_obs(*, trace: bool = False, metrics: bool = False,
              **meta) -> Observability:
     """Build an enabled bundle; extra kwargs become trace run metadata.
     ``health=True`` attaches a ``HealthMonitor`` the driver feeds each
-    round; ``halt_on_unhealthy`` arms its halt-on-fatal hook.
-    ``measure_resources`` (the reference's per-stage cost attribution) is
-    not ported and raises."""
-    if measure_resources:
-        raise NotImplementedError("measure_resources: resource measurement "
-                                  "is not ported to repro_torch yet")
+    round; ``halt_on_unhealthy`` arms its halt-on-fatal hook;
+    ``measure_resources`` the per-stage FLOP count
+    (``repro_torch.obs.resources``)."""
     if trace:
         tracer = Tracer(clock) if clock is not None else Tracer()
         tracer.meta.update(meta)
@@ -122,4 +123,5 @@ def make_obs(*, trace: bool = False, metrics: bool = False,
     return Observability(
         tracer=tracer,
         metrics=MetricsRegistry() if metrics else NOOP_METRICS,
-        profile_dir=profile_dir, health=monitor)
+        profile_dir=profile_dir, health=monitor,
+        measure_resources=measure_resources)

@@ -677,3 +677,67 @@ def test_ssd_scan_wrapper_raises_instead_of_falling_back(dev):
             ops.ssd_scan(args[0].to(dtype), *args[1:], chunk=32)
     with pytest.raises(ValueError):
         ops.ssd_scan(*args, chunk=48)                     # 48 does not divide
+
+
+# -- resource measurement ------------------------------------------------------
+def _reduced_config():
+    """The reduced measurement config with 3 heads of 64: its 2 heads of
+    96 are a head dim the attention kernel does not take."""
+    import dataclasses
+    from repro_torch.obs import resources as res
+    cfg, ssl, train = res.measurement_config()
+    return dataclasses.replace(cfg, num_heads=3, num_kv_heads=3), ssl, train
+
+
+def _aligned_plan(num_layers):
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import schedule as sched
+    return [p for p in sched.build_schedule(
+        FLConfig(rounds=num_layers, schedule="lw_fedssl"), num_layers)
+        if p.align and p.active_from > 0][0]
+
+
+@pytest.mark.parametrize("engine,clients", [("sequential", 1), ("vmap", 2)])
+def test_flop_count_is_device_independent(dev, engine, clients):
+    """One reduced local step (a frozen block, a trained one, alignment
+    on) counts the same FLOPs on the card and on the CPU, op by op: the
+    kernel-backed ops are counted by formula on both. Counting changes
+    neither the loss nor the kernel launches."""
+    from repro_torch.obs import resources as res
+    cfg, ssl, train = _reduced_config()
+    plan = _aligned_plan(cfg.num_layers)
+    kw = dict(cfg=cfg, ssl=ssl, train=train, clients=clients)
+    cpu = res.measure_step(plan, engine, device="cpu", **kw)
+    before = ops.launch_counts()
+    card = res.measure_step(plan, engine, device="cuda", **kw)
+    mid = ops.launch_counts()
+    bare = res.measure_step(plan, engine, device="cuda", count=False, **kw)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert card["flops"] == cpu["flops"] and card["by_op"] == cpu["by_op"]
+    assert "repro_torch.attention_fwd" in card["by_op"]
+    assert card["loss"] == bare["loss"]
+    counted = {k: mid[k] - before[k] for k in mid}
+    uncounted = {k: after[k] - mid[k] for k in mid}
+    assert counted == uncounted and counted["flash_attention"] > 0
+
+
+def test_measure_step_peak_is_the_steps_own(dev):
+    """The peak is reset before the step: a larger allocation freed just
+    before it does not count; the peak sits within ``MEMORY_FACTOR`` of the
+    memory model."""
+    from repro_torch.obs import resources as res
+    cfg, ssl, train = _reduced_config()
+    plan = _aligned_plan(cfg.num_layers)
+    spike = torch.empty(4 * 2**30, dtype=torch.uint8, device=dev)
+    del spike
+    m = res.measure_step(plan, "sequential", cfg=cfg, ssl=ssl, train=train,
+                         device="cuda")
+    assert 0 < m["peak_bytes"] < 4 * 2**30
+    model = res.program_memory_analytic(cfg, ssl, train, plan,
+                                        "sequential")["peak_bytes"]
+    assert 1 / res.MEMORY_FACTOR <= m["peak_bytes"] / model \
+        <= res.MEMORY_FACTOR
+    snap = res.device_memory_snapshot(dev)
+    assert snap["source"] == "device" and snap["peak_bytes"] >= \
+        snap["bytes_in_use"]

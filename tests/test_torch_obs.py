@@ -12,8 +12,8 @@ package's (``repro.obs``).
   within the loss tolerance of ``tests/test_torch_fl.py``. What the port
   has no counterpart of is left out by name: the ``programs`` attribute of
   ``engine.dispatch`` and the ``jit.*`` metrics (XLA programs), the
-  reference's ``mem.*`` round attributes (its resources module, not
-  ported), and on the vmap engine the transport's ``wire.upload`` spans,
+  ``mem.*`` round attributes (each machine's own memory watermarks), and
+  on the vmap engine the transport's ``wire.upload`` spans,
   which the reference's vmap round runs inside one XLA program.
 - The launcher: every artifact on the CPU, read by the reference's trace
   analyser; the profiler trace; halting on a fatal alert.
@@ -226,8 +226,11 @@ def test_make_obs_and_noop_surfaces():
     assert tobs.NOOP_OBS.tracer.events == []
     assert tobs.NOOP_OBS.export(trace_jsonl="never.jsonl") == {}
     assert tobs.NOOP_OBS.stop_profiler() is None
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tobs.make_obs(measure_resources=True)
+    # resource measurement is no recorder: it counts FLOPs onto the spans
+    # of whatever else records, as in the reference
+    measured = tobs.make_obs(measure_resources=True)
+    assert measured.measure_resources and not measured.enabled
+    assert not tobs.make_obs().measure_resources
 
 
 # ---------------------------------------------------------------------------

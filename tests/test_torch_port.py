@@ -120,11 +120,10 @@ def test_cli_rejects_unknown_codec(capsys):
     assert e.value.code == 2 and "unknown codec" in capsys.readouterr().err
 
 
-NOT_PORTED_CASES = [["--secure-agg"], ["--fleet", "uniform"],
+NOT_PORTED_CASES = [["--secure-agg"],
                     ["--mode", "lm", "--engine", "vmap"],
-                    ["--measure-resources"],
                     ["--mode", "lm", "--arch", "internlm2-1.8b"],
-                    ["--round-policy", "deadline"], ["--dp-clip", "1.0"],
+                    ["--dp-clip", "1.0"],
                     ["--dp-noise-multiplier", "1.1"],
                     ["--dp-epsilon-budget", "8.0"]]
 
