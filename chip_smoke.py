@@ -86,6 +86,29 @@ Phases, each of which must pass (any failure exits non-zero):
    engines: losses bit-identical to the unmeasured run's, ``res.*`` on
    each stage's first round span (counted FLOPs within ``FLOPS_RTOL`` of
    analytic), ``mem.*`` on every round span. Prints the phase's seconds.
+2g. privacy and checkpoints: (a) phase 2's run again with
+   ``PrivacyConfig(clip=inf)``: losses and final state bit-identical to
+   phase 2's, epsilon inf and clip fraction 0 every round; the clients'
+   update norms are read, and their median, to 3 digits, is the clip C of
+   (b). (b) the int8 run of phase 2b with C and z = 1.1: finite losses,
+   clip fractions in [0, 1] and some above 0, epsilon equal to
+   ``compute_epsilon`` round by round, the last round's noised aggregate
+   minus the noiseless one with a sample std within 1% of sigma, and every
+   launch count equal to the int8 run's but ``gather_pack`` (2 more a
+   round: the clip's shared reference, the aggregate that takes the noise)
+   and ``scatter_unpack`` (1 more: the noised aggregate); then the same on
+   the vmap engine over the top-k wire. (c) secure aggregation at the
+   stage-12 upload (4 clients): masked = unmasked fixed-point sum = the
+   CPU's, to the bit, within n x 2^-40 of the exact FedAvg, int64 add
+   wrapping at +-2^63, masks with the top bit in half the draws, its
+   seconds and bytes; one secure e2e round on each engine, one secure round
+   of the deadline and the buffered-async policies at phase 2f's fleet
+   configuration, each aggregate held to the exact FedAvg of its decoded
+   uploads. (d) phase 2d's LM for 2 rounds with DP (C = 1e-3, z = 1.1) and
+   secure aggregation: finite losses, epsilon, the noise's std, the secure
+   aggregation's seconds and added bytes, the peak memory. (e) (a)'s final
+   state through ``save_fl_state`` and back, bit-identical on the card and
+   on the CPU. Prints each part's seconds and the phase's.
 3. reference: one SSL loss at full width on 8 images, fp32 compute, on the
    card (kernels) against the CPU (plain PyTorch versions); then one
    ``lm_ssl_loss`` with alignment on the trained zamba2 model, one stage
@@ -231,11 +254,12 @@ def card_line() -> str:
 def main_path(device, *, model_cfg, ssl_cfg, clients=4, rounds=12,
               batch=256, samples=4096, eval_epochs=10, seed=0, codec="fp32",
               rounds_per_stage=(), engine="sequential", obs=None, sim=None,
-              clients_per_round=0):
-    """LW-FedSSL through ``run_fedssl`` (and ``linear_eval`` unless
-    ``eval_epochs`` is 0) on ``device``, recorded by ``obs`` and simulated
-    by ``sim`` if given. Returns (state, history, accuracy or None,
-    per-round seconds, images)."""
+              clients_per_round=0, privacy=None, schedule="lw_fedssl"):
+    """LW-FedSSL (or ``schedule``) through ``run_fedssl`` (and
+    ``linear_eval`` unless ``eval_epochs`` is 0) on ``device``, recorded by
+    ``obs``, simulated by ``sim`` and private under ``privacy`` if given.
+    Returns (state, history, accuracy or None, per-round seconds,
+    images)."""
     import torch
     from repro_torch.configs.base import FLConfig, TrainConfig
     from repro_torch.convert import subtree
@@ -246,7 +270,7 @@ def main_path(device, *, model_cfg, ssl_cfg, clients=4, rounds=12,
     from repro_torch.federated.eval import linear_eval
 
     fl = FLConfig(num_clients=clients, rounds=rounds, local_epochs=1,
-                  schedule="lw_fedssl", seed=seed,
+                  schedule=schedule, seed=seed,
                   rounds_per_stage=rounds_per_stage,
                   clients_per_round=clients_per_round)
     tc = TrainConfig(batch_size=batch)
@@ -264,7 +288,7 @@ def main_path(device, *, model_cfg, ssl_cfg, clients=4, rounds=12,
     state, hist = run_fedssl(model_cfg, ssl_cfg, fl, tc, images=images,
                              client_indices=idx, aux_images=aux, log=log,
                              device=device, codec=codec, engine=engine,
-                             obs=obs, sim=sim)
+                             obs=obs, sim=sim, privacy=privacy)
     secs = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
     if not eval_epochs:
         return state, hist, None, secs, images
@@ -422,7 +446,7 @@ def lm_config(groups=LM_GROUPS, **kw):
 
 
 def lm_path(device, *, clients, rounds, batch, seq_len, samples, seed=0,
-            codec="fp32"):
+            codec="fp32", privacy=None):
     """LW-FedSSL through ``run_lm_fedssl`` on ``lm_config()``. Returns
     (cfg, final params, history, per-round seconds, plans, tokens)."""
     import torch
@@ -454,7 +478,7 @@ def lm_path(device, *, clients, rounds, batch, seq_len, samples, seed=0,
     t0 = time.perf_counter()
     params, hist = run_lm_fedssl(cfg, fl, tc, tokens=toks, labels=labs,
                                  shards=shards, params=params, device=device,
-                                 codec=codec, log=log)
+                                 codec=codec, log=log, privacy=privacy)
     secs = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
     steps = [max(1, len(ix) // batch) * fl.local_epochs for ix in shards]
     return (cfg, params, hist, secs,
@@ -900,6 +924,389 @@ def fleet_phase(model_cfg, ssl_cfg):
               f"spans (counted/analytic FLOPs per sample {per}), mem.* on "
               f"all {len(spans)}", flush=True)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# phase 2g: privacy and checkpoints on the card
+# ---------------------------------------------------------------------------
+DP_Z, DP_DELTA = 1.1, 1e-5
+# the LM's clip: below every client's update norm there, so that the noise
+# (sigma = z*C*max_w, 2.75e-4 an element) stays small against its weights
+LM_DP_CLIP = 1e-3
+STAGE12_UPLOAD = 21_177_920
+
+
+def privacy_probe(cfg):
+    """A ``PrivacyEngine`` for ``cfg`` that keeps what phase 2g checks and
+    changes nothing the engine computes: every client's update norm (0-d
+    tensors on the card, read after the run), the last noised round's
+    trees, and for each secure aggregation its seconds, the bytes it adds
+    above what was held at its start, and its largest per-element error
+    against the exact (float64) FedAvg of the same decoded uploads, less
+    the fp32 rounding of the output."""
+    import torch
+    from repro_torch.federated.transport import pack_stage_payload
+    from repro_torch.privacy import PrivacyEngine
+
+    class Probe(PrivacyEngine):
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            self.norms, self.noised, self.secure = [], None, []
+            self.run_peak = 0
+
+        def clip(self, flat, ref_flat):
+            self.norms.append(torch.linalg.vector_norm(flat - ref_flat))
+            return super().clip(flat, ref_flat)
+
+        def add_noise(self, tree, spec, draws, round_idx, sigma):
+            out = super().add_noise(tree, spec, draws, round_idx, sigma)
+            self.noised = (tree, out, spec, sigma)
+            return out
+
+        def secure_fedavg(self, trees, weights, client_ids, **kw):
+            torch.cuda.synchronize()
+            self.run_peak = max(self.run_peak,
+                                torch.cuda.max_memory_allocated())
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = super().secure_fedavg(trees, weights, client_ids, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            extra = torch.cuda.max_memory_allocated() - held
+            spec = kw["spec"]
+            got = pack_stage_payload(out, spec).double()
+            err = torch.zeros_like(got)
+            for t, w in zip(trees, weights):
+                err += pack_stage_payload(t, spec).double() * float(w)
+            err = (got - err).abs() - got.abs() * 2.0 ** -24
+            self.secure.append({"clients": len(trees), "seconds": secs,
+                                "extra_bytes": extra,
+                                "err": float(err.max()) / len(trees)})
+            return out
+
+        def peak(self):
+            return max(self.run_peak, torch.cuda.max_memory_allocated())
+
+    return Probe(cfg)
+
+
+def check_secure_rounds(probe, what):
+    check(probe.secure, f"{what}: no secure aggregation ran")
+    for r in probe.secure:
+        check(r["err"] <= 2.0 ** -40,
+              f"{what}: secure aggregate {r['err']:.3e} per client from the "
+              f"exact FedAvg (bound 2^-40)")
+    return "; ".join(f"{r['clients']} clients {r['seconds'] * 1e3:.2f} ms, "
+                     f"+{r['extra_bytes'] / 2**20:.1f} MiB, err/client "
+                     f"{r['err']:.3e}" for r in probe.secure)
+
+
+def check_dp_history(hist, what, q=1.0):
+    """Finite losses, clip fractions in [0, 1], epsilon round by round
+    equal to ``compute_epsilon`` at sampling fraction ``q``."""
+    from repro_torch.privacy import compute_epsilon
+    check(all(math.isfinite(x) for x in hist.loss),
+          f"{what}: non-finite loss {hist.loss}")
+    check(all(0.0 <= c <= 1.0 for c in hist.clip_fraction)
+          and len(hist.clip_fraction) == len(hist.loss),
+          f"{what}: clip fractions {hist.clip_fraction}")
+    want = [compute_epsilon(q, DP_Z, r + 1, DP_DELTA)
+            for r in range(len(hist.loss))]
+    check(hist.epsilon == want,
+          f"{what}: epsilon {hist.epsilon}, the accountant gives {want}")
+
+
+def check_noise(probe, what):
+    """The noised aggregate minus the noiseless one: its sample std within
+    1% of sigma over the payload. Returns (std, sigma, elements)."""
+    from repro_torch.federated.transport import pack_stage_payload
+    tree, out, spec, sigma = probe.noised
+    diff = (pack_stage_payload(out, spec).double()
+            - pack_stage_payload(tree, spec).double())
+    std = float(diff.std())
+    check(abs(std / sigma - 1.0) <= 0.01,
+          f"{what}: noise std {std} against sigma {sigma}")
+    return std, sigma, spec.total
+
+
+def privacy_phase(model_cfg, ssl_cfg, state, hist, int8_launches):
+    """Phase 2g; ``state``, ``hist`` are phase 2's, ``int8_launches`` phase
+    2b's int8 counts. Returns the launches of its DP paths."""
+    import statistics
+
+    import torch
+    from repro_torch.checkpoint import load_fl_state, save_fl_state
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import schedule as sched
+    from repro_torch.federated import simulation as sim_mod
+    from repro_torch.federated.aggregate import client_weights
+    from repro_torch.federated.transport import (Transport,
+                                                 pack_stage_payload)
+    from repro_torch.kernels import ops
+    from repro_torch.federated.draws import TorchDraws
+    from repro_torch.privacy import (PrivacyConfig, PrivacyEngine,
+                                     SecureAggregator)
+
+    launches, parts = {}, {}
+    tphase = time.perf_counter()
+
+    t = time.perf_counter()
+    probe = privacy_probe(PrivacyConfig(clip=math.inf))
+    astate, ahist, _, asecs, _ = main_path(
+        "cuda", model_cfg=model_cfg, ssl_cfg=ssl_cfg, eval_epochs=0,
+        privacy=probe)
+    check(ahist.loss == hist.loss,
+          f"clip=inf losses {ahist.loss} differ from phase 2's {hist.loss}")
+    for branch, flat in state.items():
+        for k, v in flat.items():
+            check(torch.equal(astate[branch][k], v),
+                  f"clip=inf: {branch}/{k} differs from phase 2's")
+    check(ahist.epsilon == [math.inf] * len(hist.loss)
+          and ahist.clip_fraction == [0.0] * len(hist.loss),
+          f"clip=inf: epsilon {ahist.epsilon}, clip fraction "
+          f"{ahist.clip_fraction}")
+    norms = torch.stack(probe.norms).tolist()
+    clip = float(f"{statistics.median(norms):.3g}")
+    parts["a"] = time.perf_counter() - t
+    print(f"  (a) clip=inf: losses and final state bit-identical to phase "
+          f"2's, epsilon inf and clip fraction 0 in all {len(ahist.loss)} "
+          f"rounds; seconds per round {[round(x, 3) for x in asecs]}; the "
+          f"{len(norms)} client update norms {min(norms):.4g} to "
+          f"{max(norms):.4g}, median -> C = {clip}", flush=True)
+
+    t = time.perf_counter()
+    probe = privacy_probe(PrivacyConfig(clip=clip, noise_multiplier=DP_Z,
+                                        delta=DP_DELTA))
+    ops.reset_launch_counts()
+    _, bhist, _, bsecs, _ = main_path(
+        "cuda", model_cfg=model_cfg, ssl_cfg=ssl_cfg, eval_epochs=0,
+        codec="int8", privacy=probe)
+    torch.cuda.synchronize()
+    launches["dp_int8"] = ops.launch_counts()
+    check_dp_history(bhist, "DP int8")
+    check(any(c > 0 for c in bhist.clip_fraction),
+          f"C = {clip} clipped no client: {bhist.clip_fraction}")
+    # the design: each round packs the shared reference the clip needs
+    # (int8 is not a delta codec, so nothing else packs it) and the
+    # aggregate that takes the noise, and unpacks the noised aggregate
+    rounds = len(bhist.loss)
+    want = dict(int8_launches)
+    want["gather_pack"] += 2 * rounds
+    want["scatter_unpack"] += rounds
+    check(launches["dp_int8"] == want,
+          f"DP int8 launches {launches['dp_int8']}, the design gives {want}")
+    std, sigma, n = check_noise(probe, "DP int8")
+    check(sigma == DP_Z * clip * float(client_weights([1024] * 4).max()),
+          f"sigma {sigma}")
+    print(f"  (b) DP, sequential, int8 wire, C = {clip}, z = {DP_Z}: losses "
+          f"{[round(x, 4) for x in bhist.loss]}; clip fraction "
+          f"{bhist.clip_fraction}; epsilon "
+          f"{[round(e, 4) for e in bhist.epsilon]} (= compute_epsilon); "
+          f"noise std {std:.6g} against sigma "
+          f"{sigma:.6g} over {n} elements; gather_pack "
+          f"{launches['dp_int8']['gather_pack']} and scatter_unpack "
+          f"{launches['dp_int8']['scatter_unpack']} launches (int8 without "
+          f"DP: {int8_launches['gather_pack']}, "
+          f"{int8_launches['scatter_unpack']}); seconds per round "
+          f"{[round(x, 3) for x in bsecs]}", flush=True)
+    probe = privacy_probe(PrivacyConfig(clip=clip, noise_multiplier=DP_Z,
+                                        delta=DP_DELTA))
+    ops.reset_launch_counts()
+    _, vhist, _, vsecs, _ = main_path(
+        "cuda", model_cfg=model_cfg, ssl_cfg=ssl_cfg, eval_epochs=0,
+        codec="topk", engine="vmap", privacy=probe)
+    torch.cuda.synchronize()
+    launches["dp_topk_vmap"] = ops.launch_counts()
+    check_dp_history(vhist, "DP top-k vmap")
+    for name in MAIN_KERNELS + ("compensate", "topk_ef_update"):
+        check(launches["dp_topk_vmap"][name] > 0,
+              f"{name} never launched on the DP top-k vmap path")
+    std, sigma, n = check_noise(probe, "DP top-k vmap")
+    parts["b"] = time.perf_counter() - t
+    print(f"  (b) the same on the vmap engine, top-k wire: losses "
+          f"{[round(x, 4) for x in vhist.loss]}; clip fraction "
+          f"{vhist.clip_fraction}; noise std {std:.6g} against sigma "
+          f"{sigma:.6g}; launches {launches['dp_topk_vmap']}; seconds per "
+          f"round {[round(x, 3) for x in vsecs]}", flush=True)
+
+    t = time.perf_counter()
+    plan = sched.build_schedule(FLConfig(rounds=12, schedule="lw_fedssl"),
+                                12)[-1]
+    spec = Transport("fp32").plan_specs(state["online"], plan)["upload"]
+    check(spec.total == STAGE12_UPLOAD, f"stage-12 upload {spec.total}")
+    base = pack_stage_payload(state["online"], spec)
+    flats = [base * (1.0 + 0.1 * i) for i in range(4)]
+    w = client_weights([1100, 1000, 1000, 996]).tolist()
+    ids, seed = [0, 1, 2, 3], (2024, 20)
+    agg = SecureAggregator()
+    masked = agg.aggregate(flats, w, ids, seed)
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(3):
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        again = agg.aggregate(flats, w, ids, seed)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        extra = torch.cuda.max_memory_allocated() - held
+        check(torch.equal(again, masked), "masked aggregate not repeatable")
+    t0 = time.perf_counter()
+    fedavg = sum(f * wi for f, wi in zip(flats, w))
+    torch.cuda.synchronize()
+    fedavg_secs = time.perf_counter() - t0
+    plain = agg.aggregate(flats, w, ids, seed, mask=False)
+    check(torch.equal(masked, plain), "masked aggregate differs from the "
+          "unmasked fixed-point sum")
+    t0 = time.perf_counter()
+    cpu = agg.aggregate([f.cpu() for f in flats], w, ids, seed, mask=False)
+    cpu_secs = time.perf_counter() - t0
+    check(torch.equal(masked.cpu(), cpu), "card and CPU fixed-point sums "
+          "differ")
+    acc = torch.zeros(spec.total, dtype=torch.int64, device="cuda")
+    for f, wi, c in zip(flats, w, ids):
+        agg.accumulate(acc, f, wi, c, ids, seed)
+    fixed = acc.double() / 2.0 ** 40
+    exact = sum(f.double() * wi for f, wi in zip(flats, w))
+    ferr = float((fixed - exact).abs().max())
+    check(ferr <= len(flats) * 2.0 ** -40,
+          f"fixed-point sum {ferr:.3e} from the exact FedAvg")
+    check(torch.equal(fixed.float(), masked), "output is not the fixed-point "
+          "sum's fp32 rounding")
+    x = torch.tensor([2 ** 63 - 1, -2 ** 63, 2 ** 62], dtype=torch.int64,
+                     device="cuda")
+    y = torch.tensor([1, -1, 2 ** 62], dtype=torch.int64, device="cuda")
+    check((x + y).tolist() == [-2 ** 63, 2 ** 63 - 1, -2 ** 63]
+          and ((x + y) - y).tolist() == x.tolist(),
+          f"int64 add does not wrap on the card: {(x + y).tolist()}")
+    m = agg.pair_mask(seed, 0, 1, STAGE12_UPLOAD, device="cuda")
+    top = float((m < 0).double().mean())
+    check(abs(top - 0.5) <= 0.001, f"mask top bit set in {top} of draws")
+    # one round's clip (the shared reference's pack, then each client's
+    # clip) and noise (pack, draw, add, unpack) at this payload
+    eng = PrivacyEngine(PrivacyConfig(clip=clip, noise_multiplier=DP_Z))
+    draws = TorchDraws(0, "cuda")
+
+    def clip_round():
+        ref = pack_stage_payload(state["online"], spec)
+        for f in flats:
+            eng.clip(f, ref)
+
+    def noise_round():
+        eng.add_noise(state["online"], spec, draws, 0, eng.sigma(0.25))
+
+    step_ms = {}
+    for name, fn in (("clip", clip_round), ("noise", noise_round)):
+        fn()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms[name] = times
+    print(f"  (c) stage-12 upload ({spec.total} floats), 4 clients, chunk "
+          f"{agg.chunk}: masked = unmasked fixed-point sum = the CPU's, to "
+          f"the bit; fixed-point sum {ferr:.3e} from the exact FedAvg "
+          f"(bound {len(flats)} x 2^-40 = {len(flats) * 2.0 ** -40:.3e}), "
+          f"fp32 output {float((masked - fedavg).abs().max()):.3e} from the "
+          f"fp32 FedAvg; int64 add wraps at +-2^63; mask top bit in {top:.5f}"
+          f" of draws; masked aggregate "
+          f"{[round(x * 1e3, 3) for x in secs]} ms (fp32 FedAvg "
+          f"{fedavg_secs * 1e3:.3f} ms, CPU {cpu_secs * 1e3:.1f} ms), "
+          f"+{extra / 2**20:.1f} MiB above its inputs; a round's clip "
+          f"{[round(x, 3) for x in step_ms['clip']]} ms, its noise "
+          f"{[round(x, 3) for x in step_ms['noise']]} ms", flush=True)
+    del flats, masked, plain, acc, fixed, exact, m, fedavg, again
+    for engine in ("sequential", "vmap"):
+        probe = privacy_probe(PrivacyConfig(secure_agg=True))
+        _, shist, _, ssecs, _ = main_path(
+            "cuda", model_cfg=model_cfg, ssl_cfg=ssl_cfg, eval_epochs=0,
+            rounds=1, schedule="e2e", engine=engine, privacy=probe)
+        check(all(math.isfinite(x) for x in shist.loss)
+              and shist.secure_agg_overhead_bytes[0] > 0,
+              f"secure {engine}: {shist.loss}, "
+              f"{shist.secure_agg_overhead_bytes}")
+        print(f"  (c) one secure e2e round, {engine}: loss "
+              f"{shist.loss[0]:.4f}, {ssecs[0]:.3f} s; "
+              f"{check_secure_rounds(probe, engine)}", flush=True)
+    cfg = dataclasses.replace(model_cfg, num_layers=FLEET_LAYERS)
+    for policy, kw in (("deadline", {"overcommit": 1.5}),
+                       ("buffered-async", {})):
+        sim = sim_mod.make_sim("pareto-stragglers", policy,
+                               num_clients=FLEET_RUN["clients"], seed=0,
+                               **kw)
+        probe = privacy_probe(PrivacyConfig(secure_agg=True))
+        _, fhist, _, _, _ = main_path(
+            "cuda", model_cfg=cfg, ssl_cfg=ssl_cfg, sim=sim, privacy=probe,
+            schedule="e2e", **{**FLEET_RUN, "rounds": 1})
+        rec = sim.records[0]
+        check(all(math.isfinite(x) for x in fhist.loss),
+              f"secure {policy}: {fhist.loss}")
+        print(f"  (c) one secure round, {policy} ({FLEET_LAYERS} blocks, "
+              f"{FLEET_RUN['clients']} clients, cohort {len(rec.cohort)}, "
+              f"trained {len(rec.train_ids)}, aggregated "
+              f"{len(rec.aggregated)}): loss {fhist.loss[0]:.4f}; "
+              f"{check_secure_rounds(probe, policy)}", flush=True)
+    parts["c"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    probe = privacy_probe(PrivacyConfig(clip=LM_DP_CLIP,
+                                        noise_multiplier=DP_Z,
+                                        delta=DP_DELTA, secure_agg=True))
+    ops.reset_launch_counts()
+    _, lparams, lhist, lsecs, _, _, _ = lm_path(
+        "cuda", **{**LM_RUN, "rounds": 2}, privacy=probe)
+    torch.cuda.synchronize()
+    launches["lm_dp"] = ops.launch_counts()
+    peak = probe.peak()
+    check_dp_history(lhist, "LM DP")
+    for name in MAIN_KERNELS + ("ssd_scan",):
+        check(launches["lm_dp"][name] > 0,
+              f"{name} never launched on the LM DP path")
+    secure = check_secure_rounds(probe, "LM")
+    std, sigma, n = check_noise(probe, "LM")
+    del lparams
+    parts["d"] = time.perf_counter() - t
+    print(f"  (d) {LM_ARCH}, 2 rounds, DP (C = {LM_DP_CLIP}, z = {DP_Z}) and "
+          f"secure aggregation: losses {[round(x, 4) for x in lhist.loss]}; "
+          f"clip fraction {lhist.clip_fraction}; epsilon "
+          f"{[round(e, 4) for e in lhist.epsilon]}; noise std {std:.6g} "
+          f"against sigma {sigma:.6g} over {n} elements; secure "
+          f"aggregation {secure}; peak device memory {peak / 2**30:.2f} GiB; "
+          f"seconds per round {[round(x, 3) for x in lsecs]}", flush=True)
+
+    t = time.perf_counter()
+    out = ROOT / "results" / "chip_smoke_ckpt"
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        save_fl_state(out, astate, len(ahist.loss), {"schedule": "lw_fedssl"})
+        size = (out / "global_state.npz").stat().st_size
+        for device in ("cuda", "cpu"):
+            like = {b: {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                        for k, v in flat.items()}
+                    for b, flat in astate.items()}
+            got, rnd, meta = load_fl_state(out, like)
+            check(rnd == len(ahist.loss) and meta["schedule"] == "lw_fedssl",
+                  f"checkpoint meta {meta}")
+            for b, flat in astate.items():
+                for k, v in flat.items():
+                    check(got[b][k].device.type == device
+                          and torch.equal(got[b][k].to(v.device), v),
+                          f"checkpoint {b}/{k} on {device} differs")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    parts["e"] = time.perf_counter() - t
+    print(f"  (e) save_fl_state of (a)'s final state ({size} bytes) loads "
+          f"back bit-identical on the card and on the CPU", flush=True)
+    print(f"  phase 2g took {time.perf_counter() - tphase:.1f}s: "
+          + ", ".join(f"({k}) {v:.1f}s" for k, v in parts.items()),
+          flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2197,6 +2604,14 @@ def run(profile: bool = False) -> int:
     paper_table_phase()
     fleet_phase(model_cfg, ssl_cfg)
     print(f"  phase 2f took {time.perf_counter() - t2f:.1f}s", flush=True)
+
+    print("[2g] privacy and checkpoints: DP pass-through against phase 2, "
+          "DP on both engines, secure aggregation at the stage-12 payload "
+          f"and in rounds, the {LM_ARCH} path with DP and secure "
+          "aggregation, the checkpoint round trip", flush=True)
+    torch.cuda.empty_cache()
+    launches.update(privacy_phase(model_cfg, ssl_cfg, state, hist,
+                                  launches["int8"]))
 
     print("[3] full-width SSL loss on 8 images, fp32: card kernels against "
           "CPU plain versions", flush=True)

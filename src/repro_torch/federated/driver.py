@@ -8,8 +8,19 @@ and its codec, server-side calibration and communication accounting.
 ``repro.launch.train``): layer-wise FedSSL on token shards with
 next-token SSL and alignment, every client in every round.
 ``FLHistory`` is the reference's, with the same versioned ``to_dict``, so
-two histories compare field by field; the privacy fields stay empty until
-that feature is ported.
+two histories compare field by field.
+
+Privacy (``privacy=``, a ``repro_torch.privacy.PrivacyConfig`` or
+``PrivacyEngine``; off by default), as in the reference: the transport
+clips every upload, the server adds calibrated Gaussian noise to the
+aggregate, the accountant composes the rounds into ``FLHistory.epsilon``
+(a run halts once it exceeds ``epsilon_budget``), and with ``secure_agg``
+FedAvg runs as the pairwise-masked fixed-point sum: over the engines'
+decoded per-client trees in a synchronous or deadline round, and over each
+buffer flush (the simulator's ``agg_fn``) under the buffered-async
+policy. The noise and the mask seeds come from the draws object's privacy
+stream, so the cohorts and batches are a run's without privacy; clip =
+inf with z = 0 trains bit-identically to ``privacy=None``.
 
 Fleet simulation (``sim=``, ``repro_torch.federated.simulation``; off by
 default): the reference's round clock and round policies. The simulator
@@ -64,6 +75,7 @@ from repro_torch.obs import NOOP_OBS, format_round_line
 from repro_torch.obs import resources as obs_resources
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.schedules import learning_rate, scaled_base_lr
+from repro_torch.privacy import make_privacy
 
 # the reference's wire engines; the port has one wire path for both
 TRANSPORT_KERNELS = ("xla", "pallas")
@@ -89,7 +101,7 @@ class FLHistory:
     energy_joules: List[float] = field(default_factory=list)
     dropped_clients: List[int] = field(default_factory=list)
     participants: List[tuple] = field(default_factory=list)
-    # privacy accounting (not ported yet: always empty)
+    # privacy accounting (populated only when privacy is on)
     epsilon: List[float] = field(default_factory=list)
     clip_fraction: List[float] = field(default_factory=list)
     secure_agg_overhead_bytes: List[int] = field(default_factory=list)
@@ -175,7 +187,8 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                aux_images=None, draws=None, encoder=None,
                image_size: int = 32, log=None, device="cuda",
                engine: str = "sequential", codec: str = "fp32",
-               transport_kernels: str = "xla", sim=None, obs=None):
+               transport_kernels: str = "xla", sim=None, obs=None,
+               privacy=None):
     """Run the FL process; returns (final state, FLHistory).
 
     images: (n, H, W, 3) training pool; client_indices: one index array
@@ -191,7 +204,10 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
     select the port's one wire path, the kernels on the card and their
     plain versions on the CPU. obs: an ``repro_torch.obs.Observability``
     (spans, metrics, health, profiler); the default records nothing, and
-    tracing never changes what is trained.
+    tracing never changes what is trained. privacy: a
+    ``repro_torch.privacy.PrivacyConfig`` (or ``PrivacyEngine``): DP
+    clipping and noise, RDP accounting into ``FLHistory.epsilon`` and
+    secure aggregation, as the module says.
     """
     if transport_kernels not in TRANSPORT_KERNELS:
         raise ValueError(f"unknown transport kernels '{transport_kernels}'; "
@@ -212,8 +228,10 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
     hist = FLHistory()
     obs = obs if obs is not None else NOOP_OBS
     tracer, met = obs.tracer, obs.metrics
+    prv = make_privacy(privacy)
+    secure = prv is not None and prv.cfg.secure_agg
     wire = Transport(codec, include_heads=fl.include_heads,
-                     kernels=transport_kernels, obs=obs)
+                     kernels=transport_kernels, obs=obs, privacy=prv)
     eng = make_engine(engine, encoder=encoder, ssl_cfg=ssl_cfg, opt=opt,
                       fl=fl, images=images, client_indices=client_indices,
                       transport=wire, draws=draws,
@@ -280,9 +298,9 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                                   if plan.align else None)
                     outcome = None
                     participants = cohort
+                    up_spec = wire.plan_specs(state["online"],
+                                              plan)["upload"]
                     if sim is not None:
-                        up_spec = wire.plan_specs(state["online"],
-                                                  plan)["upload"]
                         outcome = sim.begin_round(
                             plan, cohort, down_bytes=down["wire_bytes"],
                             up_bytes=wire.wire_bytes(up_spec))
@@ -296,7 +314,8 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                         # buffered-async: the engine returns each client's
                         # decoded tree; the policy buffers them and
                         # aggregates arrivals staleness-weighted, possibly
-                        # rounds after they trained
+                        # rounds after they trained. Secure aggregation
+                        # masks each flush's arrival set (agg_fn)
                         with train_span:
                             if participants:
                                 trees, losses, up = eng.run_round(
@@ -308,7 +327,29 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                                 trees, losses = [], []
                                 up = wire.stats(up_spec)
                         new_online, outcome = sim.complete_round_async(
-                            outcome, trees)
+                            outcome, trees,
+                            agg_fn=prv.make_secure_agg_fn(
+                                up_spec, state["online"],
+                                draws.mask_seed(plan.round_idx))
+                            if secure else None)
+                    elif secure:
+                        # synchronous or deadline: the decoded per-client
+                        # trees through the masked fixed-point sum in
+                        # place of the engine's float FedAvg
+                        with train_span:
+                            trees, losses, up = eng.run_round(
+                                dstate, plan, participants, batch_plans, lr,
+                                global_enc, server_online=state["online"],
+                                collect=True, probe=probe)
+                        w = aggregate.client_weights(
+                            [eng.counts[i] for i in participants])
+                        new_online = prv.secure_fedavg(
+                            trees, w.tolist(), participants, spec=up_spec,
+                            base=state["online"],
+                            seed=draws.mask_seed(plan.round_idx))
+                        del trees
+                        if sim is not None:
+                            outcome = sim.complete_round(outcome)
                     else:
                         with train_span:
                             new_online, losses, up = eng.run_round(
@@ -322,6 +363,11 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                                          stage=plan.stage):
                             round_span.set(
                                 **obs_resources.stage_cost_attrs(probe))
+                    if prv is not None and prv.noise_enabled:
+                        new_online = prv.add_noise(
+                            new_online, up_spec, draws, plan.round_idx,
+                            prv.sigma(_max_weight(outcome, participants,
+                                                  eng.counts)))
                     state = {**state, "online": new_online}
                     if plan.server_calibrate and aux_images is not None:
                         with tracer.span("calibrate", cat="fl",
@@ -356,6 +402,15 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                         hist.participants.append(tuple(participants))
                         sim_log = (f" sim {outcome.wall_clock_s:.1f}s "
                                    f"dropped {dropped}")
+                    eps = None
+                    if prv is not None:
+                        # the sampled cohort, not the survivors: dropped
+                        # clients were still contacted
+                        eps = _account_round(prv, hist, len(cohort)
+                                             / max(1, fl.num_clients),
+                                             up, up_spec, wire)
+                        if prv.dp:
+                            sim_log += f" eps {eps:.3g}"
                     round_span.set(
                         loss=hist.loss[-1], lr=lr,
                         download_bytes=cb["download"],
@@ -368,6 +423,8 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                         # Tracer.structure(): environment, not structure)
                         round_span.set(
                             **obs_resources.memory_span_attrs(device))
+                    if prv is not None:
+                        _privacy_span_attrs(round_span, hist)
                 if obs.enabled:
                     _round_metrics(met, cb, down, up, hist.loss[-1],
                                    host_t0)
@@ -376,6 +433,12 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                             outcome.wall_clock_s)
                         met.counter("sim.energy_j").inc(outcome.energy_j)
                         met.counter("sim.dropped_clients").inc(dropped)
+                    if prv is not None:
+                        met.gauge("privacy.epsilon").set(eps)
+                        met.histogram("privacy.clip_fraction").observe(
+                            hist.clip_fraction[-1])
+                        met.counter("privacy.secure_agg_overhead_bytes").inc(
+                            hist.secure_agg_overhead_bytes[-1])
                 if log:
                     log(format_round_line(
                         plan.round_idx, fl.rounds, plan.stage, hist.loss[-1],
@@ -387,11 +450,58 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                                    down, up, len(participants), log,
                                    value=True, dropped=dropped):
                     break
+                if _budget_exhausted(prv, eps, plan, fl.rounds, log):
+                    tracer.instant("privacy.budget_exhausted", cat="fl",
+                                   round=plan.round_idx, epsilon=eps,
+                                   budget=prv.cfg.epsilon_budget)
+                    break
         if obs.enabled:
             met.gauge("wire.compression_ratio").set(hist.compression_ratio)
     finally:
         obs.stop_profiler()
     return state, hist
+
+
+def _max_weight(outcome, participants, counts) -> float:
+    """The largest FedAvg weight of the round's aggregate: the async
+    policy's staleness weights, else the sample-count weights of the
+    clients aggregated (fp32, as ``aggregate.client_weights`` gives)."""
+    if outcome is not None and outcome.weights:
+        return max(outcome.weights)
+    ids = list(outcome.aggregated) if outcome is not None else participants
+    return float(aggregate.client_weights([counts[i] for i in ids]).max())
+
+
+def _account_round(prv, hist, q: float, up, spec, wire) -> float:
+    """Account one round at sampling fraction ``q`` and append the
+    round's ``epsilon``, ``clip_fraction`` and secure-aggregation overhead
+    to ``hist``; returns epsilon."""
+    prv.accountant.observe_round(q)
+    eps = float(prv.accountant.epsilon(prv.cfg.delta))
+    hist.epsilon.append(eps)
+    hist.clip_fraction.append(float(up.get("clip_fraction", 0.0)))
+    hist.secure_agg_overhead_bytes.append(
+        prv.secure_overhead_bytes(spec, wire.wire_bytes(spec)))
+    return eps
+
+
+def _privacy_span_attrs(round_span, hist) -> None:
+    round_span.set(epsilon=hist.epsilon[-1],
+                   clip_fraction=hist.clip_fraction[-1],
+                   secure_agg_overhead_bytes=hist
+                   .secure_agg_overhead_bytes[-1])
+
+
+def _budget_exhausted(prv, eps, plan, rounds: int, log) -> bool:
+    """True (and logged) once epsilon exceeds the run's budget."""
+    if prv is None or prv.cfg.epsilon_budget <= 0.0 \
+            or eps <= prv.cfg.epsilon_budget:
+        return False
+    if log:
+        log(f"privacy budget exhausted: eps {eps:.4g} > "
+            f"{prv.cfg.epsilon_budget:.4g} after round "
+            f"{plan.round_idx + 1}/{rounds}; halting")
+    return True
 
 
 def _round_metrics(met, cb, down, up, loss: float, host_t0: float) -> None:
@@ -446,7 +556,8 @@ LM_ALIGN_WEIGHT = 0.01
 
 def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
                   device="cuda", codec: str = "fp32",
-                  transport_kernels: str = "xla", log=None, obs=None):
+                  transport_kernels: str = "xla", log=None, obs=None,
+                  privacy=None, draws=None):
     """The LM family's layer-wise FedSSL loop; returns (final params,
     FLHistory).
 
@@ -459,6 +570,10 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
     ``device``, which defaults to the card. A client's round loss is its
     last step's. obs: as in ``run_fedssl``, with the spans of the
     reference's LM loop (``run > round > local_train`` and the transport's).
+    privacy: as in ``run_fedssl``, with every client in every round (q =
+    1), as the reference's ``train_lm`` accounts it; draws: the source of
+    the privacy draws (default ``TorchDraws(fl.seed, device)``; the loop
+    draws nothing else).
     """
     device = resolve_device(device)
     tokens = to_tensor(tokens, device, torch.int64)
@@ -473,7 +588,10 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
     clients = list(range(len(shards)))
     obs = obs if obs is not None else NOOP_OBS
     tracer = obs.tracer
-    wire = Transport(codec, kernels=transport_kernels, obs=obs)
+    prv = make_privacy(privacy)
+    secure = prv is not None and prv.cfg.secure_agg
+    draws = draws if draws is not None else TorchDraws(fl.seed, device)
+    wire = Transport(codec, kernels=transport_kernels, obs=obs, privacy=prv)
     hist = FLHistory()
     obs.start_profiler()
     try:
@@ -516,9 +634,29 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
                                                   if plan.align else 0.0))
                             outs.append(p_i)
                             losses.append(float(m["loss"]))
-                    params, up = wire.aggregate_uploads(
-                        params, outs, clients, plan, w, ref_online=dparams)
-                    del outs  # the trained trees are not needed past FedAvg
+                    spec = wire.plan_specs(params, plan)["upload"]
+                    if secure:
+                        trees, up = wire.decode_uploads(
+                            params, outs, clients, plan, ref_online=dparams)
+                        del outs  # the decoded trees replace them
+                        params = prv.secure_fedavg(
+                            trees, w.tolist(), clients, spec=spec,
+                            base=params,
+                            seed=draws.mask_seed(plan.round_idx))
+                        del trees
+                    else:
+                        params, up = wire.aggregate_uploads(
+                            params, outs, clients, plan, w,
+                            ref_online=dparams)
+                        del outs  # not needed past FedAvg
+                    eps = None
+                    if prv is not None:
+                        if prv.noise_enabled:
+                            params = prv.add_noise(
+                                params, spec, draws, plan.round_idx,
+                                prv.sigma(float(w.max())))
+                        # every client in every round: q = 1
+                        eps = _account_round(prv, hist, 1.0, up, spec, wire)
                     cb = comm.round_comm_bytes(params, plan)
                     hist.loss.append(sum(losses) / len(losses))
                     hist.round_stage.append(plan.stage)
@@ -531,6 +669,8 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
                                    upload_bytes=cb["upload"],
                                    wire_download_bytes=down["wire_bytes"],
                                    wire_upload_bytes=up["wire_bytes"])
+                    if prv is not None:
+                        _privacy_span_attrs(round_span, hist)
                 if obs.enabled:
                     _round_metrics(obs.metrics, cb, down, up, hist.loss[-1],
                                    host_t0)
@@ -540,9 +680,15 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
                         lr=lr, down_mb=cb["download"] / 1e6,
                         up_mb=cb["upload"] / 1e6,
                         wire_mb=(down["wire_bytes"] + up["wire_bytes"])
-                        / 1e6))
+                        / 1e6,
+                        extra=f" eps {eps:.3g}" if prv is not None
+                        and prv.dp else ""))
                 if _observe_health(obs, plan, fl.rounds, hist.loss[-1], cb,
                                    down, up, len(clients), log, value=False):
+                    break
+                # the reference's LM loop logs the halt and records no
+                # instant
+                if _budget_exhausted(prv, eps, plan, fl.rounds, log):
                     break
     finally:
         obs.stop_profiler()

@@ -20,8 +20,10 @@ step count; a padded step runs but its update is discarded. Uploads go
 through ``transport.aggregate_uploads`` in both, so every codec and its
 error-feedback residuals work the same on either engine.
 
-``collect=True`` (the buffered-async round policy's form) returns each
-participant's decoded upload tree in place of the FedAvg, on both engines.
+``collect=True`` (the buffered-async round policy's form, and every
+secure-aggregation round's) returns each participant's decoded upload tree
+in place of the FedAvg, on both engines. With privacy on, the transport
+clips each upload, so both engines clip alike.
 ``probe=`` (a ``repro_torch.obs.resources.StepProbe``, resource
 measurement) is held around the round's first local step: the first
 participant's on the sequential engine, the first batched step on the

@@ -293,9 +293,14 @@ class BufferedAsyncPolicy:
             energy_j=sum(costs[c].energy_j for c in launch),
             deadline_s=None)
 
-    def complete(self, outcome: RoundOutcome, costs, counts, trees):
+    def complete(self, outcome: RoundOutcome, costs, counts, trees,
+                 agg_fn=None):
         """Attach the newly trained update trees, pop the ``buffer``
-        earliest arrivals, and return (aggregated model, final outcome)."""
+        earliest arrivals, and return (aggregated model, final outcome).
+
+        ``agg_fn(trees, weights, client_ids)`` replaces the plain FedAvg:
+        secure aggregation masks over each flush's arrival set (survivor-
+        set re-masking)."""
         for cid, tree in zip(outcome.train_ids, trees):
             self._pending.append(_Pending(
                 cid, outcome.round_idx,
@@ -309,9 +314,14 @@ class BufferedAsyncPolicy:
         stale = [outcome.round_idx - p.origin_round for p in arrived]
         w = staleness_weights([p.samples for p in arrived], stale,
                               self.alpha)
-        new_online = aggregate.fedavg(
-            [p.tree for p in arrived],
-            torch.as_tensor(w, dtype=torch.float32))
+        if agg_fn is not None:
+            new_online = agg_fn([p.tree for p in arrived],
+                                tuple(float(x) for x in w),
+                                tuple(p.client_id for p in arrived))
+        else:
+            new_online = aggregate.fedavg(
+                [p.tree for p in arrived],
+                torch.as_tensor(w, dtype=torch.float32))
         final = dataclasses.replace(
             outcome,
             aggregated=tuple(p.client_id for p in arrived),
@@ -435,12 +445,15 @@ class Simulation:
         self._emit_round_spans(outcome)
         return outcome
 
-    def complete_round_async(self, outcome: RoundOutcome,
-                             trees) -> Tuple[object, RoundOutcome]:
+    def complete_round_async(self, outcome: RoundOutcome, trees,
+                             agg_fn=None) -> Tuple[object, RoundOutcome]:
         """Buffered-async: hand the per-client decoded trees to the
-        policy's buffer; returns (aggregated online tree, final outcome)."""
+        policy's buffer; returns (aggregated online tree, final outcome).
+        ``agg_fn`` (optional) replaces the buffer's FedAvg: the secure-
+        aggregation hook."""
         new_online, final = self.policy.complete(outcome, self._costs,
-                                                 self.counts, trees)
+                                                 self.counts, trees,
+                                                 agg_fn=agg_fn)
         self.records.append(final)
         self._emit_round_spans(final)
         return new_online, final

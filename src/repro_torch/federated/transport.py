@@ -34,6 +34,12 @@ their plain versions on the CPU. Casts and the top-k decode are plain
 PyTorch on both, as in the reference. ``kernels`` keeps the reference's
 wire-engine name as a label of the spans.
 
+Privacy (``privacy=``, a ``repro_torch.privacy.PrivacyEngine``; off by
+default): with clipping on, every upload's payload is clipped against the
+downloaded payload before the codec, for every codec (DP-FedAvg's clip,
+the reference's ``_upload_one``), and the upload stats carry the round's
+``clip_fraction``, read once a round.
+
 Observability (``obs=``, off by default): the reference's spans
 ``wire.download`` (codec, kernels, wire and payload bytes, ``dense_sync``
 in a top-k re-sync round), ``wire.upload`` (codec, kernels, clients, wire
@@ -302,10 +308,11 @@ class Transport:
     the wire bytes ``run_fedssl`` records in ``FLHistory``."""
 
     def __init__(self, codec="fp32", *, include_heads: bool = True,
-                 kernels: str = "xla", obs=None):
+                 kernels: str = "xla", obs=None, privacy=None):
         self.codec = make_codec(codec) if isinstance(codec, str) else codec
         self.include_heads = include_heads
         self.kernels = kernels
+        self.privacy = privacy
         self.obs = obs if obs is not None else NOOP_OBS
         self._specs: Dict[Tuple, PayloadSpec] = {}
         # client id -> (spec the residual was made under, residual)
@@ -406,19 +413,22 @@ class Transport:
         through the wire (and its error-feedback residual), scattered onto
         the server's tree. ``ref_online`` is the downloaded tree the
         clients started from, the reference delta codecs subtract (default:
-        the server's tree)."""
+        the server's tree). With clipping on, each payload is clipped
+        against the same reference first, and the stats carry the share of
+        clients clipped (``clip_fraction``)."""
         spec = self.plan_specs(server_online, plan)["upload"]
         ref_online = server_online if ref_online is None else ref_online
         codec = self.codec
         tracer = self.obs.tracer
+        clip = self.privacy is not None and self.privacy.dp
         with tracer.span("wire.upload", cat="transport", codec=codec.name,
                          kernels=self.kernels, clients=len(client_ids),
                          **self.stats(spec)):
-            ref_flat = (pack_stage_payload(ref_online, spec) if codec.delta
-                        else None)
+            ref_flat = (pack_stage_payload(ref_online, spec)
+                        if codec.delta or clip else None)
             device = next(iter(server_online.values())).device
             residuals = self.gather_residuals(client_ids, spec, device)
-            trees, new_res = [], []
+            trees, new_res, scales = [], [], []
             for cid, out, res in zip(client_ids, outs, residuals):
                 # client ids are ints in the drivers but any hashable in
                 # direct use: strings stay strings in the span
@@ -426,6 +436,9 @@ class Transport:
                                  client=cid if isinstance(cid, str)
                                  else int(cid), codec=codec.name):
                     flat = pack_stage_payload(out, spec)
+                    if clip:
+                        flat, scale = self.privacy.clip(flat, ref_flat)
+                        scales.append(scale)
                     if codec.delta:
                         wire, res = codec.encode_delta(flat, ref_flat, res,
                                                        spec)
@@ -436,7 +449,12 @@ class Transport:
                                                       spec))
                 new_res.append(res)
             self.store_residuals(client_ids, spec, new_res)
-        return trees, self.stats(spec)
+        stats = self.stats(spec)
+        if scales:
+            # one host read a round, after every client's upload
+            clipped = int((torch.stack(scales) < 1.0).sum())
+            stats["clip_fraction"] = clipped / len(scales)
+        return trees, stats
 
     def aggregate_uploads(self, server_online: Tree, outs: Sequence[Tree],
                           client_ids, plan, weights: torch.Tensor,

@@ -28,7 +28,11 @@ local step onto its round span (``res.*``). ``--fleet`` and
 ``--round-policy`` (vit) simulate a heterogeneous device fleet and its
 round policy (``--deadline-s``, ``--overcommit``, ``--async-buffer``,
 ``--staleness-alpha``), and the summary adds the simulated wall clock,
-device-seconds, energy and dropped client-rounds.
+device-seconds, energy and dropped client-rounds. ``--dp-clip``,
+``--dp-noise-multiplier``, ``--dp-delta``, ``--dp-epsilon-budget`` and
+``--secure-agg`` (both modes) turn on client-level DP-FedAvg and
+pairwise-mask secure aggregation (``repro_torch.privacy``), and the
+summary adds the reference's ``privacy: eps ...`` line.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit \\
@@ -44,6 +48,8 @@ Examples:
       --metrics --health --obs-dir results/obs
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit \\
       --fleet pareto-stragglers --round-policy deadline --codec int8
+  PYTHONPATH=src python -m repro_torch.launch.train --mode vit \\
+      --dp-clip 1.0 --dp-noise-multiplier 1.1 --dp-delta 1e-5 --secure-agg
 """
 from __future__ import annotations
 
@@ -69,15 +75,18 @@ from repro_torch.federated.engine import ENGINES
 from repro_torch.federated.transport import make_codec
 from repro_torch.models import lm as lm_mod
 from repro_torch.obs import ConsoleRenderer, make_obs, write_history_json
+from repro_torch.privacy import PrivacyConfig, make_privacy
 
-# flags of the reference launcher whose features the port does not have
-# yet: flag -> (the value that means "off", what is missing)
-NOT_PORTED = {
-    "dp_clip": (0.0, "differential privacy"),
-    "dp_noise_multiplier": (0.0, "differential privacy"),
-    "dp_epsilon_budget": (0.0, "differential privacy"),
-    "secure_agg": (False, "secure aggregation"),
-}
+
+def privacy_from_args(args):
+    """PrivacyConfig from --dp-*/--secure-agg; None with everything off."""
+    if (args.dp_clip == 0.0 and args.dp_noise_multiplier == 0.0
+            and not args.secure_agg):
+        return None
+    return PrivacyConfig(
+        clip=args.dp_clip, noise_multiplier=args.dp_noise_multiplier,
+        delta=args.dp_delta, epsilon_budget=args.dp_epsilon_budget,
+        secure_agg=args.secure_agg)
 
 
 def obs_from_args(args, mode):
@@ -141,12 +150,20 @@ def train_vit(args):
                                  log=log, device=device, engine=args.engine,
                                  codec=args.codec,
                                  transport_kernels=args.transport_kernels,
-                                 sim=sim, obs=obs)
+                                 sim=sim, obs=obs,
+                                 privacy=privacy_from_args(args))
     export_obs(obs, args, hist=hist)
     print(f"training done in {time.time() - t0:.1f}s; "
           f"total comm {hist.total_comm / 1e6:.2f} MB analytic, "
           f"{hist.total_wire / 1e6:.2f} MB on the wire "
           f"({args.codec}: {hist.compression_ratio:.2f}x)")
+    if hist.epsilon:
+        print(f"privacy: eps {hist.epsilon[-1]:.4g} at delta "
+              f"{args.dp_delta:g} after {len(hist.epsilon)} rounds; "
+              f"mean clip fraction "
+              f"{sum(hist.clip_fraction) / len(hist.clip_fraction):.2f}; "
+              f"secure-agg overhead "
+              f"{sum(hist.secure_agg_overhead_bytes) / 1e6:.2f} MB/client")
     if sim is not None:
         print(f"simulated fleet '{args.fleet}' / policy "
               f"'{args.round_policy}': {hist.total_wall_clock:.1f}s "
@@ -175,22 +192,28 @@ def train_lm(args):
     gen = torch.Generator(device).manual_seed(args.seed)
     cfg = reduced(load_arch(args.arch), **LM_ARCHS[args.arch])
     fl = FLConfig(num_clients=args.clients, rounds=args.rounds,
-                  local_epochs=args.local_epochs, schedule=args.schedule)
+                  local_epochs=args.local_epochs, schedule=args.schedule,
+                  seed=args.seed)
     tc = TrainConfig(batch_size=args.batch, base_lr=3e-4)
     toks, labs = synthetic_tokens(gen, args.samples, args.seq_len,
                                   cfg.vocab_size)
     shards = iid_partition(args.samples, fl.num_clients, seed=args.seed)
     params = lm_mod.init_lm(cfg, gen, device)
     obs = obs_from_args(args, "lm")
+    prv = make_privacy(privacy_from_args(args))
     with ConsoleRenderer(live=args.live) as log:
         params, hist = run_lm_fedssl(
             cfg, fl, tc, tokens=toks, labels=labs, shards=shards,
             params=params, device=device, codec=args.codec,
-            transport_kernels=args.transport_kernels, log=log, obs=obs)
+            transport_kernels=args.transport_kernels, log=log, obs=obs,
+            privacy=prv)
     export_obs(obs, args)
     print(f"final loss {hist.loss[-1]:.4f} (start {hist.loss[0]:.4f}); "
           f"{hist.total_wire / 1e6:.2f} MB/client on the wire "
           f"({args.codec}: {hist.compression_ratio:.2f}x)")
+    if prv is not None and prv.dp:
+        print(f"privacy: eps {hist.epsilon[-1]:.4g} at delta "
+              f"{prv.cfg.delta:g} after {len(hist.loss)} rounds")
     return params, hist
 
 
@@ -270,12 +293,23 @@ def main(argv=None):
     ap.add_argument("--staleness-alpha", type=float, default=0.5,
                     help="buffered-async: (1+staleness)^-alpha weight "
                          "discount")
-    # accepted so that the reference's command lines parse; any value
-    # other than "off" is refused below
-    ap.add_argument("--dp-clip", type=float, default=0.0)
-    ap.add_argument("--dp-noise-multiplier", type=float, default=0.0)
-    ap.add_argument("--dp-epsilon-budget", type=float, default=0.0)
-    ap.add_argument("--secure-agg", action="store_true")
+    ap.add_argument("--dp-clip", type=float, default=0.0,
+                    help="client-level DP: L2 clip on each client's "
+                         "stage-payload update (0 = off; 'inf' runs the "
+                         "clipping machinery as an exact pass-through)")
+    ap.add_argument("--dp-noise-multiplier", type=float, default=0.0,
+                    help="client-level DP: noise multiplier z; the server "
+                         "adds N(0, (z*clip*max_w)^2) to the aggregate; "
+                         "requires a finite --dp-clip > 0")
+    ap.add_argument("--dp-delta", type=float, default=1e-5,
+                    help="delta of the reported (eps, delta) guarantee")
+    ap.add_argument("--dp-epsilon-budget", type=float, default=0.0,
+                    help="halt training once cumulative eps exceeds this "
+                         "(0 = unlimited)")
+    ap.add_argument("--secure-agg", action="store_true",
+                    help="pairwise-mask secure aggregation: FedAvg runs "
+                         "as a masked fixed-point sum, the server never "
+                         "sees an individual update")
     ap.add_argument("--measure-resources", action="store_true",
                     help="count the FLOPs of each stage's first local step "
                          "(torch.utils.flop_counter) and attach them (res.*) "
@@ -307,14 +341,14 @@ def main(argv=None):
                     help="render round progress as a single live-updating "
                          "console line instead of one line per round")
     args = ap.parse_args(argv)
-    for name, (off, what) in NOT_PORTED.items():
-        if getattr(args, name) != off:
-            ap.error(f"--{name.replace('_', '-')} {getattr(args, name)}: "
-                     f"{what} is not ported to repro_torch yet")
     try:
         make_codec(args.codec)
     except ValueError as e:
         ap.error(f"--codec {args.codec}: {e}")
+    try:
+        make_privacy(privacy_from_args(args))
+    except ValueError as e:
+        ap.error(str(e))
     if args.mode == "vit":
         return train_vit(args)
     if args.fleet:

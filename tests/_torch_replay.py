@@ -7,13 +7,18 @@ numbers the reference draws: it walks the reference's key chain
 calibration split; ``client.local_train``: epoch and step splits; the step's
 augmentation / depth-dropout split; ``two_views`` and ``augment_one`` with
 each augmentation's own ``split``/``uniform``/``randint`` calls), so both
-packages consume the same draws.
+packages consume the same draws. The privacy draws are the reference's
+per-round keys off its dedicated stream (``PrivacyEngine.fork_stream`` of
+the run key, then ``round_keys``): the noise is its own ``normal`` draw,
+the mask seed its own tuple of ints.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from repro.core import ssl as jssl
+from repro.privacy import PrivacyEngine
 from repro_torch import convert
 
 H = W = 32
@@ -57,6 +62,7 @@ class JaxReplayDraws:
     def __init__(self, key, jax_encoder):
         self.key = key
         self.jax_encoder = jax_encoder
+        self.privacy_stream = PrivacyEngine.fork_stream(key)
 
     def _next(self):
         self.key, sub = jax.random.split(self.key)
@@ -98,3 +104,11 @@ class JaxReplayDraws:
         k_dd = jax.random.split(kb)[1]
         return torch.from_numpy(np.array(
             jax.random.uniform(k_dd, (num_stages,))))
+
+    def privacy_noise(self, round_idx, n):
+        k_noise, _ = PrivacyEngine.round_keys(self.privacy_stream, round_idx)
+        return torch.from_numpy(np.array(
+            jax.random.normal(k_noise, (n,), jnp.float32)))
+
+    def mask_seed(self, round_idx):
+        return PrivacyEngine.round_keys(self.privacy_stream, round_idx)[1]

@@ -741,3 +741,51 @@ def test_measure_step_peak_is_the_steps_own(dev):
     snap = res.device_memory_snapshot(dev)
     assert snap["source"] == "device" and snap["peak_bytes"] >= \
         snap["bytes_in_use"]
+
+
+# ---------------------------------------------------------------------------
+# secure aggregation's int64 arithmetic on the card
+# ---------------------------------------------------------------------------
+STAGE12_UPLOAD = 21_177_920   # floats in the ViT-Tiny stage-12 upload
+
+
+def test_int64_add_wraps_on_card(dev):
+    x = torch.tensor([2 ** 63 - 1, -2 ** 63, 2 ** 62, -5], dtype=torch.int64,
+                     device=dev)
+    y = torch.tensor([1, -1, 2 ** 62, 7], dtype=torch.int64, device=dev)
+    assert (x + y).tolist() == [-2 ** 63, 2 ** 63 - 1, -2 ** 63, 2]
+    assert ((x + y) - y).tolist() == x.tolist()
+    acc = x.clone()
+    acc += y
+    acc -= y
+    assert torch.equal(acc, x)
+
+
+def test_masks_cover_the_full_range_on_card(dev):
+    from repro_torch.privacy import SecureAggregator
+    m = SecureAggregator().pair_mask((1, 2), 0, 3, 1 << 24, device=dev)
+    assert m.device.type == "cuda" and m.dtype == torch.int64
+    assert 0.499 < float((m < 0).double().mean()) < 0.501   # top bit
+    assert int(m.max()) > 2 ** 62 and int(m.min()) < -2 ** 62
+    assert torch.equal(m, SecureAggregator().pair_mask((1, 2), 3, 0,
+                                                        1 << 24, device=dev))
+
+
+def test_secure_sum_bit_identical_on_card_at_stage12_payload(dev):
+    """Masked = unmasked on the card, and both equal the CPU's sum of the
+    same flats and weights, at the ViT's stage-12 upload."""
+    from repro_torch.federated.aggregate import client_weights
+    from repro_torch.privacy import SecureAggregator
+    agg = SecureAggregator()
+    flats = [_rand((STAGE12_UPLOAD,), torch.float32, dev, s)
+             for s in range(4)]
+    w = client_weights([1024, 1024, 1000, 1048]).tolist()
+    ids, seed = [0, 1, 2, 3], (11, 12)
+    masked = agg.aggregate(flats, w, ids, seed)
+    assert masked.device.type == "cuda"
+    assert torch.equal(masked, agg.aggregate(flats, w, ids, seed,
+                                             mask=False))
+    cpu = agg.aggregate([f.cpu() for f in flats], w, ids, seed, mask=False)
+    assert torch.equal(masked.cpu(), cpu)
+    exact = sum(f.double() * wi for f, wi in zip(flats, w))
+    assert float((masked.double() - exact).abs().max()) < 1e-6

@@ -120,12 +120,8 @@ def test_cli_rejects_unknown_codec(capsys):
     assert e.value.code == 2 and "unknown codec" in capsys.readouterr().err
 
 
-NOT_PORTED_CASES = [["--secure-agg"],
-                    ["--mode", "lm", "--engine", "vmap"],
-                    ["--mode", "lm", "--arch", "internlm2-1.8b"],
-                    ["--dp-clip", "1.0"],
-                    ["--dp-noise-multiplier", "1.1"],
-                    ["--dp-epsilon-budget", "8.0"]]
+NOT_PORTED_CASES = [["--mode", "lm", "--engine", "vmap"],
+                    ["--mode", "lm", "--arch", "internlm2-1.8b"]]
 
 
 @pytest.mark.parametrize("flag", NOT_PORTED_CASES)
@@ -136,10 +132,49 @@ def test_cli_rejects_features_not_ported(flag, capsys):
     assert "not ported to repro_torch yet" in capsys.readouterr().err
 
 
-def test_every_refused_flag_has_a_case():
-    flags = {f[0] for f in NOT_PORTED_CASES}
-    for name in train.NOT_PORTED:
-        assert "--" + name.replace("_", "-") in flags, name
+INVALID_PRIVACY = [
+    ["--dp-noise-multiplier", "1.1"],                 # noise without clip
+    ["--dp-clip", "-1"],
+    ["--dp-clip", "1.0", "--dp-noise-multiplier", "-0.5"],
+    ["--dp-clip", "1.0", "--dp-delta", "0"],
+    ["--dp-clip", "1.0", "--dp-delta", "1"],
+    ["--dp-clip", "inf", "--dp-noise-multiplier", "1.1"],
+    ["--secure-agg", "--dp-delta", "2"]]
+
+
+@pytest.mark.parametrize("flags", INVALID_PRIVACY)
+def test_cli_rejects_invalid_privacy(flags, capsys, monkeypatch):
+    """Exit 2 with the message the reference's launcher gives for the
+    same flags."""
+    from repro.launch import train as ref_train
+
+    monkeypatch.setattr(sys, "argv", ["train", *flags])
+    with pytest.raises(SystemExit) as e:
+        ref_train.main()
+    assert e.value.code == 2
+    want = capsys.readouterr().err.strip().splitlines()[-1]
+    assert "error: " in want
+    with pytest.raises(SystemExit) as e:
+        train.main(["--device", "cpu", *flags])
+    assert e.value.code == 2
+    got = capsys.readouterr().err.strip().splitlines()[-1]
+    assert got.split("error: ", 1)[1] == want.split("error: ", 1)[1]
+
+
+@pytest.mark.parametrize("mode", [
+    ["--mode", "vit", "--rounds", "2", "--clients", "2", "--batch", "8",
+     "--samples", "64", "--layers", "2", "--d-model", "32"],
+    ["--mode", "lm", "--arch", "zamba2-2.7b", "--rounds", "2",
+     "--clients", "2", "--batch", "2", "--samples", "8", "--seq-len",
+     "32"]])
+def test_cli_runs_dp_and_secure_agg_on_cpu(mode):
+    out = _run(["-m", "repro_torch.launch.train", "--device", "cpu", *mode,
+                "--dp-clip", "1.0", "--dp-noise-multiplier", "1.1",
+                "--dp-delta", "1e-5", "--secure-agg"])
+    assert out.returncode == 0, out.stderr
+    assert "round 2/2 stage 2" in out.stdout and " eps " in out.stdout
+    assert re.search(r"^privacy: eps [0-9.]+ at delta 1e-05 after 2 rounds",
+                     out.stdout, re.M), out.stdout
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
