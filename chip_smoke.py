@@ -43,7 +43,8 @@ Phases, each of which must pass (any failure exits non-zero):
    and the ``ssd_scan`` and ``flash_attention`` launches equal to the counts
    the plan implies (12 s scans and 2 s attentions a local step at stage
    s: the online forward, frozen groups included, and the global model's);
-   seconds per round and peak memory. Then ``gather_pack`` and
+   seconds per round and peak memory; the run again from the same seed,
+   with bit-identical losses. Then ``gather_pack`` and
    ``scatter_unpack`` are held bit-identical to their plain versions on
    every download and upload layout of the run's plan over the trained
    tree (up to 747,364,160 floats, 2.99 GB), and timed at the largest.
@@ -109,6 +110,33 @@ Phases, each of which must pass (any failure exits non-zero):
    aggregation's seconds and added bytes, the peak memory. (e) (a)'s final
    state through ``save_fl_state`` and back, bit-identical on the card and
    on the CPU. Prints each part's seconds and the phase's.
+2h. the other SSL methods and optimizers: phase 2's main path (fp32 wire,
+   12 rounds, no linear eval) with SimCLR + SGD with momentum on the
+   sequential engine, then BYOL + Adafactor on the vmap engine: finite
+   losses, wire bytes equal to the analytic bytes every round (SimCLR's
+   download and upload exactly the prediction head's bytes below phase
+   2's MoCo v3, BYOL's equal), every launch count equal to the plan's
+   (``vit_expected_launches``: SimCLR has no target forward and only the
+   alignment's InfoNCE terms), seconds per round and peak memory; then one
+   full-width step of each on 8 images at fp32, card against CPU: the
+   loss before and after each device's step (1e-4) and the optimizer's
+   update of one gradient (1e-5 of the largest update); the gradients'
+   difference is printed.
+2i. dense LM: LW-FedSSL on internlm2-1.8b at its published widths (d
+   2048, 16 q heads over 8 kv heads of 128, SwiGLU d_ff 8192, vocab 92544,
+   untied head, bf16 compute, fp32 params), depth cut from 24 blocks to 4
+   (630,736,896 parameters; one stage a block): ``run_lm_fedssl``, 4
+   clients, 4 rounds, batch 4 x 1024 tokens, 64 sequences, fp32 wire.
+   Finite losses, wire bytes equal to the analytic bytes, attention,
+   RMSNorm, InfoNCE and pack/unpack launches equal to the plan's
+   (``dense_expected_launches``), seconds per round and peak memory; the
+   run again from the same seed, with bit-identical losses
+   (``check_repeat``); ``lm_ssl_loss`` card against CPU at fp32 (stage 1,
+   2 x 512 tokens). Then both LM engines at depth 2 (504,899,584
+   parameters), 4 clients, 2 rounds, batch 2 x 1024 (the vmap engine:
+   ``launch.steps.make_fl_round_program``): launches equal to the plan's,
+   peak memory, and the vmap engine's losses within half a bf16 step
+   (2^-9, relative) of the sequential engine's.
 3. reference: one SSL loss at full width on 8 images, fp32 compute, on the
    card (kernels) against the CPU (plain PyTorch versions); then one
    ``lm_ssl_loss`` with alignment on the trained zamba2 model, one stage
@@ -135,9 +163,11 @@ Phases, each of which must pass (any failure exits non-zero):
    gets inside C = 4. The LM path's shapes: the SSD scan at (4, 1024, 80,
    64), N 64, chunk 256 (bit-identical over two calls, and its four
    kernels' times), five other shapes of one to five chunks, and its
-   backward; causal attention at (4, 1024, 32, 80) bf16; RMSNorm at
-   (4096, 2560) and (4096, 5120); InfoNCE at (1, 4, 2560), with the
-   two-call yardstick, and at widths above 4096.
+   backward; causal attention at (4, 1024, 32, 80) bf16 and at the dense
+   LM's (4, 1024, 16/8, 128) bf16 (GQA), against
+   ``F.scaled_dot_product_attention(enable_gqa=True)``; RMSNorm at (4096,
+   2560), (4096, 5120) and (4096, 2048); InfoNCE at (1, 4, 2560), with
+   the two-call yardstick, and at widths above 4096.
 
 With ``--profile``, a fifth phase traces one local step of the last stage
 with ``torch.profiler``, of one client and of four at once (the vmap
@@ -210,6 +240,10 @@ PATH_KERNELS = {
     "topk": ("compensate", "topk_ef_update"),
     "vmap": MAIN_KERNELS,
     "lm": MAIN_KERNELS + ("ssd_scan",),
+    "simclr_sgdm": MAIN_KERNELS,
+    "byol_adafactor": MAIN_KERNELS,
+    "lm_dense": MAIN_KERNELS,
+    "lm_vmap": MAIN_KERNELS,
 }
 TOPK_ROUNDS_PER_STAGE = (1,) * 11 + (3,)
 # phase 2d: zamba2-2.7b at full width, 2 stage groups of 6 Mamba2 blocks
@@ -254,10 +288,12 @@ def card_line() -> str:
 def main_path(device, *, model_cfg, ssl_cfg, clients=4, rounds=12,
               batch=256, samples=4096, eval_epochs=10, seed=0, codec="fp32",
               rounds_per_stage=(), engine="sequential", obs=None, sim=None,
-              clients_per_round=0, privacy=None, schedule="lw_fedssl"):
+              clients_per_round=0, privacy=None, schedule="lw_fedssl",
+              optimizer="adamw"):
     """LW-FedSSL (or ``schedule``) through ``run_fedssl`` (and
-    ``linear_eval`` unless ``eval_epochs`` is 0) on ``device``, recorded by
-    ``obs``, simulated by ``sim`` and private under ``privacy`` if given.
+    ``linear_eval`` unless ``eval_epochs`` is 0) on ``device`` with
+    ``optimizer``, recorded by ``obs``, simulated by ``sim`` and private
+    under ``privacy`` if given.
     Returns (state, history, accuracy or None, per-round seconds,
     images)."""
     import torch
@@ -273,7 +309,7 @@ def main_path(device, *, model_cfg, ssl_cfg, clients=4, rounds=12,
                   schedule=schedule, seed=seed,
                   rounds_per_stage=rounds_per_stage,
                   clients_per_round=clients_per_round)
-    tc = TrainConfig(batch_size=batch)
+    tc = TrainConfig(batch_size=batch, optimizer=optimizer)
     gen = torch.Generator(device).manual_seed(seed)
     images, labels = synthetic_images(gen, samples, 10, 32)
     idx = iid_partition(samples, clients, seed=seed)
@@ -435,6 +471,188 @@ def engine_comparison(model_cfg, ssl_cfg, layers=2, steps=3):
 
 
 # ---------------------------------------------------------------------------
+# phase 2h: the other SSL methods and optimizers on the main path
+# ---------------------------------------------------------------------------
+# (SSLConfig.method, TrainConfig.optimizer, engine) of each run
+METHOD_RUNS = (("simclr", "sgdm", "sequential"),
+               ("byol", "adafactor", "vmap"))
+
+
+def vit_expected_launches(ssl_cfg, fl, plans, counts, batch, aux, engine):
+    """The ViT path's launches its plan implies, per kernel: each local
+    step at stage s runs the encoder's s blocks (attention and two
+    RMSNorms each, the frozen prefix included) and its final RMSNorm, once
+    a view in the online branch, the target branch (moco_v3, byol) and,
+    where the plan aligns, the global encoder; its InfoNCE terms (forward
+    and dq) are MoCo's two and the alignment's two. A calibration step
+    (``server_epochs`` passes over ``aux`` images) is a local step without
+    the alignment. The vmap engine launches once a batched step, so its
+    step count is the largest client's. Every round packs and unpacks the
+    download once and each client's upload once."""
+    target = ssl_cfg.method in ("moco_v3", "byol")
+    moco = 2 if ssl_cfg.method == "moco_v3" else 0
+    steps = [n // batch * fl.local_epochs for n in counts]
+    calib = fl.server_epochs * max(1, aux // batch)
+    out = dict.fromkeys(("flash_attention", "rmsnorm_rows", "info_nce_rows",
+                         "info_nce_rows_dq", "gather_pack",
+                         "scatter_unpack"), 0)
+
+    def add(s, align, n):
+        encoders = 2 * (1 + target + align)
+        out["flash_attention"] += n * encoders * s
+        out["rmsnorm_rows"] += n * encoders * (2 * s + 1)
+        out["info_nce_rows"] += n * (moco + 2 * align)
+        out["info_nce_rows_dq"] += n * (moco + 2 * align)
+
+    for plan in plans:
+        add(plan.sub_layers, plan.align and ssl_cfg.align_weight > 0,
+            max(steps) if engine == "vmap" else sum(steps))
+        if plan.server_calibrate:
+            add(plan.sub_layers, False, calib)
+        out["gather_pack"] += 1 + len(counts)
+        out["scatter_unpack"] += 1 + len(counts)
+    return out
+
+
+def method_step_check(model_cfg, ssl_cfg, optimizer, state, images):
+    """One full-width local step of ``ssl_cfg.method`` with ``optimizer``
+    (stage 12 with the alignment) on 8 images at fp32 compute, from the
+    trained ``state``, with the kernels on the card against the plain
+    versions on the CPU: the loss; the loss again after each device's own
+    step; and the optimizer's update of one gradient (the CPU's) on both
+    devices. The gradients' relative L2 difference is returned and not
+    checked: a ReLU input of the heads within rounding of 0 (BatchNorm over
+    8 samples puts many there) takes the other subgradient on the other
+    device, which changes that unit's row of the gradient by far more than
+    rounding; and Adafactor's first step moves every coordinate by about
+    the rate whatever its gradient's size, so the update is compared on one
+    gradient. Returns (relative loss difference before the step, after
+    it, largest update difference over the largest update, relative L2
+    difference of the gradient, the leaf that holds most of it)."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.convert import subtree
+    from repro_torch.core import ssl as ssl_mod
+    from repro_torch.data.augment import draw_params, two_views
+    from repro_torch.federated.masks import stage_update_mask
+    from repro_torch.optim import make_optimizer
+
+    cfg = dataclasses.replace(model_cfg, compute_dtype="float32")
+    L = cfg.num_layers
+    enc = ssl_mod.make_vit_encoder(cfg)
+    opt = make_optimizer(TrainConfig(batch_size=8, optimizer=optimizer))
+    gen = torch.Generator("cpu").manual_seed(1)
+    x1, x2 = two_views(images[:8].cpu(), draw_params(gen, 8, 32, 32),
+                       draw_params(gen, 8, 32, 32))
+
+    def loss_of(st, online, dev):
+        return ssl_mod.ssl_loss(
+            {**st, "online": online}, x1.to(dev), x2.to(dev), enc, ssl_cfg,
+            sub_layers=L, active_from=L - 1,
+            global_enc=subtree(st["online"], "enc"),
+            align_weight=ssl_cfg.align_weight)[0]
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = {b: {k: v.to(dev) for k, v in t.items()}
+              for b, t in state.items()}
+        online = {k: v.clone().requires_grad_()
+                  for k, v in st["online"].items()}
+        loss = loss_of(st, online, dev)
+        grads = torch.autograd.grad(loss, list(online.values()),
+                                    allow_unused=True)
+        grads = {k: torch.zeros_like(v) if g is None else g
+                 for (k, v), g in zip(online.items(), grads)}
+        mask = stage_update_mask(st["online"], L, L - 1)
+        new, _ = opt.update(grads, opt.init(st["online"]), st["online"],
+                            1e-3, mask)
+        with torch.no_grad():
+            after = float(loss_of(st, new, dev))
+        out[dev] = (float(loss.detach()), after, st, mask,
+                    {k: g.cpu() for k, g in grads.items()})
+    rel, rel_after = (abs(out["cuda"][i] - out["cpu"][i]) / abs(out["cpu"][i])
+                      for i in (0, 1))
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        st, mask = out[dev][2], out[dev][3]
+        new, _ = opt.update({k: g.to(dev) for k, g in out["cpu"][4].items()},
+                            opt.init(st["online"]), st["online"], 1e-3, mask)
+        steps[dev] = {k: (v - st["online"][k]).cpu() for k, v in new.items()}
+    uerr = max(float((steps["cuda"][k] - d).abs().max())
+               for k, d in steps["cpu"].items()) / max(
+        float(d.abs().max()) for d in steps["cpu"].values())
+    gu, gc = out["cuda"][4], out["cpu"][4]
+    sq = {k: float(((gu[k] - gc[k]) ** 2).sum()) for k in gc}
+    grel = math.sqrt(sum(sq.values()) / max(
+        sum(float((g ** 2).sum()) for g in gc.values()), 1e-30))
+    return rel, rel_after, uerr, grel, max(sq, key=sq.get)
+
+
+def methods_phase(model_cfg, moco_state, moco_hist):
+    """Phase 2h; ``moco_state``, ``moco_hist`` are phase 2's. Returns
+    {path: launch counts}."""
+    import torch
+    from repro_torch.configs.base import FLConfig, SSLConfig
+    from repro_torch.core import schedule as sched
+    from repro_torch.federated import comm
+    from repro_torch.kernels import ops
+
+    pred_b = comm.tree_bytes({k: v for k, v in moco_state["online"].items()
+                              if k.startswith("pred/")})
+    launches = {}
+    for method, optimizer, engine in METHOD_RUNS:
+        ssl_cfg = SSLConfig(method=method)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        state, hist, _, secs, images = main_path(
+            "cuda", model_cfg=model_cfg, ssl_cfg=ssl_cfg, eval_epochs=0,
+            engine=engine, optimizer=optimizer)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        what = f"{method} + {optimizer} ({engine})"
+        launches[f"{method}_{optimizer}"] = got
+        check_history(hist, state["online"])
+        has_pred = any(k.startswith("pred/") for k in state["online"])
+        check(has_pred == (method != "simclr")
+              and ("target" in state) == (method != "simclr"),
+              f"{what}: state branches {sorted(state)}")
+        for way in ("download_bytes", "upload_bytes"):
+            less = [m - g for m, g in zip(getattr(moco_hist, way),
+                                          getattr(hist, way))]
+            check(less == [0 if has_pred else pred_b] * len(less),
+                  f"{what}: {way} {getattr(hist, way)} against moco_v3's "
+                  f"{getattr(moco_hist, way)}")
+        fl = FLConfig(num_clients=4, rounds=12, local_epochs=1,
+                      schedule="lw_fedssl")
+        want = vit_expected_launches(
+            ssl_cfg, fl, sched.build_schedule(fl, model_cfg.num_layers),
+            [1024] * 4, 256, int(4096 * fl.aux_fraction), engine)
+        print(f"  {what}: seconds per round {[round(x, 3) for x in secs]}; "
+              f"losses {hist.loss[0]:.4f} -> {hist.loss[-1]:.4f}; wire bytes "
+              f"equal analytic bytes in all {len(hist.loss)} rounds, "
+              f"{sum(hist.wire_upload_bytes)} up per client ({pred_b} a "
+              f"round {'fewer' if not has_pred else 'more'} than moco_v3's: "
+              f"{'no ' if not has_pred else ''}prediction head); "
+              f"{peak_line(base)}", flush=True)
+        check_launches(what, got, want)
+        rel, after, uerr, grel, worst = method_step_check(
+            model_cfg, ssl_cfg, optimizer, state, images)
+        print(f"  {what}: one full-width step on 8 images, fp32, card "
+              f"against CPU: loss relative difference {rel:.3e} before the "
+              f"step and {after:.3e} after it (tolerance 1e-4 each); "
+              f"{optimizer} update of one gradient, largest difference over "
+              f"the largest update {uerr:.3e} (tolerance 1e-5); gradient "
+              f"relative L2 difference {grel:.3e}, most of it in {worst} "
+              f"(not checked)", flush=True)
+        check(rel <= 1e-4 and after <= 1e-4 and uerr <= 1e-5,
+              f"{what}: card and CPU disagree ({rel}, {after}, {uerr})")
+        del state
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 2d: the LM path
 # ---------------------------------------------------------------------------
 def lm_config(groups=LM_GROUPS, **kw):
@@ -446,9 +664,11 @@ def lm_config(groups=LM_GROUPS, **kw):
 
 
 def lm_path(device, *, clients, rounds, batch, seq_len, samples, seed=0,
-            codec="fp32", privacy=None):
-    """LW-FedSSL through ``run_lm_fedssl`` on ``lm_config()``. Returns
-    (cfg, final params, history, per-round seconds, plans, tokens)."""
+            codec="fp32", privacy=None, cfg=None, engine="sequential"):
+    """LW-FedSSL through ``run_lm_fedssl`` on ``cfg`` (default
+    ``lm_config()``) on ``engine``. Returns (cfg, final params, history,
+    per-round seconds, plans, each client's local steps a round,
+    tokens)."""
     import torch
     from repro_torch.configs.base import FLConfig, TrainConfig
     from repro_torch.core import schedule as sched
@@ -457,7 +677,7 @@ def lm_path(device, *, clients, rounds, batch, seq_len, samples, seed=0,
     from repro_torch.federated.driver import run_lm_fedssl
     from repro_torch.models import lm
 
-    cfg = lm_config()
+    cfg = cfg or lm_config()
     fl = FLConfig(num_clients=clients, rounds=rounds, local_epochs=1,
                   schedule="lw_fedssl", seed=seed)
     tc = TrainConfig(batch_size=batch, base_lr=3e-4)
@@ -465,10 +685,10 @@ def lm_path(device, *, clients, rounds, batch, seq_len, samples, seed=0,
     toks, labs = synthetic_tokens(gen, samples, seq_len, cfg.vocab_size)
     shards = iid_partition(samples, clients, seed=seed)
     params = lm.init_lm(cfg, gen, device)
-    print(f"  {cfg.arch_id}: {cfg.num_layers} Mamba2 blocks in "
-          f"{lm.num_stages(cfg)} stage groups, d {cfg.d_model}, "
-          f"{sum(t.numel() for t in params.values())} parameters",
-          flush=True)
+    print(f"  {cfg.arch_id}: {cfg.num_layers} blocks in "
+          f"{lm.num_stages(cfg)} stages, d {cfg.d_model}, "
+          f"{sum(t.numel() for t in params.values())} parameters; {engine} "
+          f"engine", flush=True)
     stamps = []
 
     def log(line):
@@ -478,7 +698,8 @@ def lm_path(device, *, clients, rounds, batch, seq_len, samples, seed=0,
     t0 = time.perf_counter()
     params, hist = run_lm_fedssl(cfg, fl, tc, tokens=toks, labels=labs,
                                  shards=shards, params=params, device=device,
-                                 codec=codec, log=log, privacy=privacy)
+                                 codec=codec, log=log, privacy=privacy,
+                                 engine=engine)
     secs = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
     steps = [max(1, len(ix) // batch) * fl.local_epochs for ix in shards]
     return (cfg, params, hist, secs,
@@ -567,6 +788,150 @@ def lm_pack_checks(params, plans):
               f"plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
               f"bound {r['bound_ms']} ms ({r['bound_by']})", flush=True)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 2i: the dense LM
+# ---------------------------------------------------------------------------
+# internlm2-1.8b at its published widths, depth cut from 24 blocks to 4
+DENSE_ARCH, DENSE_LAYERS = "internlm2-1.8b", 4
+DENSE_RUN = dict(clients=4, rounds=4, batch=4, seq_len=1024, samples=64)
+# the LM vmap engine against the sequential one: depth 2, batch 2
+DENSE_VMAP_LAYERS = 2
+DENSE_VMAP_RUN = dict(clients=4, rounds=2, batch=2, seq_len=1024,
+                      samples=16)
+# bf16 compute: both engines compute each client's step from the same
+# parameters and batches, in batched (vmap) or single products summed in
+# another order; half a bf16 rounding step (2^-9) of the loss
+DENSE_VMAP_RTOL = 2.0 ** -9
+
+
+def dense_config(layers=DENSE_LAYERS, **kw):
+    """internlm2-1.8b at its published widths, depth cut to ``layers``
+    blocks (one stage each)."""
+    from repro_torch.configs.base import load_arch
+    return dataclasses.replace(load_arch(DENSE_ARCH), num_layers=layers, **kw)
+
+
+def dense_expected_launches(plans, steps, engine="sequential"):
+    """The dense LM path's launches its plan implies: per local step at
+    stage s, the online forward runs s blocks (attention and two RMSNorms
+    each, the frozen prefix included) and the final RMSNorm, and again the
+    global model's where the plan aligns, whose InfoNCE is one forward and
+    one dq; the vmap engine launches once a batched step (the largest
+    client's step count). Every round packs and unpacks the download once
+    and each client's upload once."""
+    out = dict.fromkeys(("flash_attention", "rmsnorm_rows", "info_nce_rows",
+                         "info_nce_rows_dq", "gather_pack",
+                         "scatter_unpack"), 0)
+    n = max(steps) if engine == "vmap" else sum(steps)
+    for plan in plans:
+        passes, s = 1 + plan.align, plan.sub_layers
+        out["flash_attention"] += n * passes * s
+        out["rmsnorm_rows"] += n * passes * (2 * s + 1)
+        out["info_nce_rows"] += n * plan.align
+        out["info_nce_rows_dq"] += n * plan.align
+        out["gather_pack"] += 1 + len(steps)
+        out["scatter_unpack"] += 1 + len(steps)
+    return out
+
+
+def peak_line(base: int) -> str:
+    """The device's peak since the last reset, and above ``base`` (what
+    the process held before the run: earlier phases' results)."""
+    import torch
+    peak = torch.cuda.max_memory_allocated()
+    return (f"peak device memory {peak / 2**30:.2f} GiB, "
+            f"{(peak - base) / 2**30:.2f} GiB above what was held before")
+
+
+def dense_phase():
+    """Phase 2i. Returns {path: launch counts}."""
+    import torch
+    from repro_torch.kernels import ops
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    cfg, params, hist, secs, plans, steps, toks = lm_path(
+        "cuda", cfg=dense_config(), **DENSE_RUN)
+    torch.cuda.synchronize()
+    launches = {"lm_dense": ops.launch_counts()}
+    check(len(hist.loss) == DENSE_RUN["rounds"]
+          and hist.round_stage == [p.stage for p in plans],
+          f"dense LM rounds {hist.round_stage}")
+    check(all(math.isfinite(x) for x in hist.loss),
+          f"non-finite dense LM loss: {hist.loss}")
+    check(hist.wire_download_bytes == hist.download_bytes
+          and hist.wire_upload_bytes == hist.upload_bytes,
+          f"dense LM wire bytes {hist.wire_download_bytes} / "
+          f"{hist.wire_upload_bytes} differ from the analytic "
+          f"{hist.download_bytes} / {hist.upload_bytes}")
+    print(f"  dense LM: seconds per round {[round(x, 3) for x in secs]}; "
+          f"losses {[round(x, 4) for x in hist.loss]}; wire bytes equal "
+          f"analytic bytes in all {len(hist.loss)} rounds: download "
+          f"{hist.wire_download_bytes}, upload {hist.wire_upload_bytes} per "
+          f"client; {peak_line(base)}", flush=True)
+    check_launches("dense LM", launches["lm_dense"],
+                   dense_expected_launches(plans, steps))
+    check_repeat("dense LM", hist, dense_config(), DENSE_RUN)
+    rels = lm_reference_check(params, toks, cfg=cfg)
+    print(f"  dense LM lm_ssl_loss at full width, stage 1, 2 x 512 tokens, "
+          f"fp32, card against CPU: relative differences {rels} (tolerance "
+          f"1e-4)", flush=True)
+    check(all(v <= 1e-4 for v in rels.values()),
+          "dense LM: card and CPU disagree")
+    del params
+    runs = {}
+    for engine in ("sequential", "vmap"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        vcfg, _, vhist, vsecs, vplans, vsteps, _ = lm_path(
+            "cuda", cfg=dense_config(DENSE_VMAP_LAYERS), engine=engine,
+            **DENSE_VMAP_RUN)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        runs[engine] = vhist.loss
+        print(f"  dense LM, {DENSE_VMAP_LAYERS} blocks, {engine} engine: "
+              f"seconds per round {[round(x, 3) for x in vsecs]}; losses "
+              f"{vhist.loss}; {peak_line(base)}", flush=True)
+        check(vhist.wire_upload_bytes == vhist.upload_bytes,
+              f"dense LM {engine}: wire bytes differ from the analytic")
+        check_launches(f"dense LM {engine}", got,
+                       dense_expected_launches(vplans, vsteps, engine))
+        if engine == "vmap":
+            launches["lm_vmap"] = got
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["vmap"],
+                                                  runs["sequential"]))
+    print(f"  dense LM engines: largest relative loss difference {rel:.3e} "
+          f"(tolerance {DENSE_VMAP_RTOL:.3e})", flush=True)
+    check(rel <= DENSE_VMAP_RTOL,
+          f"dense LM engines disagree: {runs['vmap']} / {runs['sequential']}")
+    return launches
+
+
+def check_repeat(what, hist, cfg, run):
+    """The LM path ``run`` on ``cfg`` once more from the same seed: its
+    losses must be ``hist``'s to the bit."""
+    import torch
+    torch.cuda.empty_cache()
+    again = lm_path("cuda", cfg=cfg, **run)[2]
+    print(f"  {what}: the run again from the same seed, losses "
+          f"{again.loss} (first run {hist.loss}); bit-identical "
+          f"{again.loss == hist.loss}", flush=True)
+    check(again.loss == hist.loss,
+          f"{what}: losses do not repeat: {again.loss} / {hist.loss}")
+
+
+def check_launches(what, got, want):
+    print(f"  {what}: kernel launches {got}; the plan implies {want}",
+          flush=True)
+    for name, n in want.items():
+        check(got[name] == n, f"{what}: {name} launched {got[name]} times, "
+                              f"the plan implies {n}")
 
 
 # ---------------------------------------------------------------------------
@@ -1344,18 +1709,18 @@ def reference_check(model_cfg, ssl_cfg, state, images):
     return rel, zerr
 
 
-def lm_reference_check(params, tokens, n=2, seq=512):
-    """``lm_ssl_loss`` with alignment at full width, stage group 1, on ``n``
-    x ``seq`` tokens at fp32 compute: kernels on the card against the plain
-    versions on the CPU. The global model is the trained one with every
-    leaf nudged by 1e-3 of its spread (noise from a fixed seed), so the
-    alignment compares two models; with one sequence its InfoNCE would have
-    a single row and be 0 exactly, hence two. Returns {metric: relative
-    difference}."""
+def lm_reference_check(params, tokens, n=2, seq=512, cfg=None):
+    """``lm_ssl_loss`` with alignment at full width, stage 1 (of ``cfg``,
+    default phase 2d's zamba2), on ``n`` x ``seq`` tokens at fp32 compute:
+    kernels on the card against the plain versions on the CPU. The global
+    model is the trained one with every leaf nudged by 1e-3 of its spread
+    (noise from a fixed seed), so the alignment compares two models; with
+    one sequence its InfoNCE would have a single row and be 0 exactly,
+    hence two. Returns {metric: relative difference}."""
     import torch
     from repro_torch.core.ssl import lm_ssl_loss
 
-    cfg = lm_config(compute_dtype="float32")
+    cfg = dataclasses.replace(cfg or lm_config(), compute_dtype="float32")
     gen = torch.Generator("cpu").manual_seed(2)
     local = {k: v.cpu() for k, v in params.items()}
     glob = {k: v + 1e-3 * v.std() * torch.randn(v.shape, generator=gen)
@@ -1894,10 +2259,12 @@ def ssd_flops(B, S, H, P, N, chunk):
 
 
 def lm_kernel_checks():
-    """The kernels at the LM path's shapes against their plain versions,
+    """The kernels at the LM paths' shapes against their plain versions,
     with times and bounds: the SSD scan (and a small case with another
-    chunk, and the Function's backward), causal attention at head dim 80,
-    RMSNorm at d_model and d_inner, InfoNCE at d_model and above 4096.
+    chunk, and the Function's backward), causal attention at head dim 80
+    and at the dense LM's GQA 16/8 of head dim 128, RMSNorm at zamba2's
+    d_model and d_inner and the dense LM's d_model, InfoNCE at d_model and
+    above 4096.
     Returns ({name: record of the LM path's shape}, printed lines)."""
     import torch
     import torch.nn.functional as F
@@ -1995,8 +2362,36 @@ def lm_kernel_checks():
         bound_ms=bms, bound_by=by,
         shape=f"q, k, v ({B}, {S}, {Hh}, {hd}) bf16, causal")
 
-    # RMSNorm: the residual stream (d_model) and the gated norm (d_inner)
-    for d in (2560, 5120):
+    # the dense LM's attention (phase 2i): 16 q heads over 8 kv heads of
+    # 128, causal
+    B, S, Hq, Hkv, hd = 4, 1024, 16, 8, 128
+    qkvs = [tuple(torch.randn((B, S, h, hd), generator=gen, device=dev)
+                  .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+            for _ in range(2)]
+    o = ops.flash_attention(*qkvs[0], causal=True)
+    err = max_err(o, plain(*qkvs[0]))
+    print(f"  flash_attention ({B}, {S}, {Hq}/{Hkv}, {hd}) bf16 causal: max "
+          f"|kernel - plain| = {err:.3e} (tolerance 2e-2)", flush=True)
+    check(err <= 2e-2, f"flash_attention hd 128 GQA: error {err}")
+    bhsd = [tuple(t.transpose(1, 2).contiguous() for t in qkv)
+            for qkv in qkvs]
+    bms, by = bound(2 * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd),
+                    4 * B * Hq * (S * (S + 1) // 2) * hd,
+                    mesh.PEAK_FLOPS_BF16)
+    rec["flash_attention_dense"] = dict(
+        max_abs_err=err,
+        ms=time_ms([lambda a=a: ops.flash_attention(*a, causal=True)
+                    for a in qkvs]),
+        plain_ms=time_ms([lambda a=a: plain(*a) for a in qkvs]),
+        library_ms=time_ms([lambda a=a: F.scaled_dot_product_attention(
+            *a, is_causal=True, enable_gqa=True) for a in bhsd]),
+        bound_ms=bms, bound_by=by,
+        shape=f"q ({B}, {S}, {Hq}, {hd}), k, v ({B}, {S}, {Hkv}, {hd}) "
+              f"bf16, causal (the dense LM's)")
+
+    # RMSNorm: the residual stream (d_model) and the gated norm (d_inner),
+    # and the dense LM's residual stream
+    for d in (2560, 5120, 2048):
         R = 4 * 1024
         xs = [torch.randn((R, d), generator=gen, device=dev)
               for _ in range(copies(8 * R * d))]
@@ -2577,10 +2972,7 @@ def run(profile: bool = False) -> int:
           f"times, the plan implies {want_attn}")
     check(launches["lm"]["info_nce_rows_dk"] == 0,
           "info_nce_rows_dk launched on the LM path (its k is detached)")
-    for path, names in PATH_KERNELS.items():
-        for name in names:
-            check(launches[path][name] > 0,
-                  f"{name} never launched on the {path} path")
+    check_repeat("LM", lhist, lcfg, LM_RUN)
     print("  LM payloads: gather_pack and scatter_unpack against their "
           "plain versions on every layout of the plan", flush=True)
     lm_pack_rec = lm_pack_checks(lparams, lplans)
@@ -2613,6 +3005,28 @@ def run(profile: bool = False) -> int:
     launches.update(privacy_phase(model_cfg, ssl_cfg, state, hist,
                                   launches["int8"]))
 
+    print("[2h] the other SSL methods and optimizers on phase 2's main "
+          "path (fp32 wire, 12 rounds): " + "; ".join(
+              f"{m} + {o} on the {e} engine" for m, o, e in METHOD_RUNS),
+          flush=True)
+    t2h = time.perf_counter()
+    launches.update(methods_phase(model_cfg, state, hist))
+    print(f"  phase 2h took {time.perf_counter() - t2h:.1f}s", flush=True)
+
+    print(f"[2i] dense LM: LW-FedSSL on {DENSE_ARCH} at its published "
+          f"widths, {DENSE_LAYERS} blocks, {DENSE_RUN['clients']} clients, "
+          f"{DENSE_RUN['rounds']} rounds, batch {DENSE_RUN['batch']} x "
+          f"{DENSE_RUN['seq_len']} tokens, fp32 wire; then both LM engines "
+          f"at {DENSE_VMAP_LAYERS} blocks, batch {DENSE_VMAP_RUN['batch']} x "
+          f"{DENSE_VMAP_RUN['seq_len']}", flush=True)
+    t2i = time.perf_counter()
+    launches.update(dense_phase())
+    print(f"  phase 2i took {time.perf_counter() - t2i:.1f}s", flush=True)
+    for path, names in PATH_KERNELS.items():
+        for name in names:
+            check(launches[path][name] > 0,
+                  f"{name} never launched on the {path} path")
+
     print("[3] full-width SSL loss on 8 images, fp32: card kernels against "
           "CPU plain versions", flush=True)
     rel, zerr = reference_check(model_cfg, ssl_cfg, state, images)
@@ -2638,8 +3052,10 @@ def run(profile: bool = False) -> int:
     rec["ssd_scan"] = lm_rec["ssd_scan"]
     at_lm = {"gather_pack": ["gather_pack_lm"],
              "scatter_unpack": ["scatter_unpack_lm"],
-             "flash_attention": ["flash_attention"],
-             "rmsnorm_rows": ["rmsnorm_rows_2560", "rmsnorm_rows_5120"],
+             "flash_attention": ["flash_attention",
+                                 "flash_attention_dense"],
+             "rmsnorm_rows": ["rmsnorm_rows_2560", "rmsnorm_rows_5120",
+                              "rmsnorm_rows_2048"],
              "info_nce_rows": ["info_nce_rows"],
              "info_nce_rows_dq": ["info_nce_rows_dq"],
              "info_nce_rows_dk": ["info_nce_rows_dk"]}

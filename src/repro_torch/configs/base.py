@@ -260,9 +260,14 @@ class FLConfig:
 # Registry: load src/repro/configs/<id>.py by literal arch id
 # ---------------------------------------------------------------------------
 ARCH_IDS = [
-    # the one LM architecture ported so far (the other LM families of the
+    # the LM architectures ported so far (the other LM families of the
     # JAX package come with later slices)
     "zamba2-2.7b",
+    "internlm2-1.8b",
+    "internvl2-1b",
+    "mistral-large-123b",
+    "internlm2-20b",
+    "starcoder2-15b",
     # the paper's own backbone
     "vit-tiny",
 ]

@@ -1,11 +1,14 @@
 """Contrastive losses: InfoNCE (paper Eq. 2) and representation alignment
-(paper Eq. 3) (``repro.core.losses``).
+(paper Eq. 3), and the SimCLR and BYOL objectives (``repro.core.losses``).
 
 Both take (B, d) vectors with in-batch negatives, in fp32. As in the JAX
 package's ``ops.fused_info_nce``, the rows are L2-normalised in plain
 PyTorch and the per-row loss is the InfoNCE kernel
 (``kernels.ops.info_nce_rows``: the CUDA forward and gradient kernels on
 the card, their plain versions on the CPU), under ``vmap`` too.
+``simclr_nt_xent`` and ``byol_regression`` are plain PyTorch, as they are
+jnp code in the reference: NT-Xent's (2B, 2B) logits carry a self-mask
+that the InfoNCE kernel does not compute.
 """
 from __future__ import annotations
 
@@ -40,3 +43,28 @@ def align_loss(z1_local, z2_global, z2_local, z1_global,
     l(z1_i, z2) + l(z2_i, z1) against the frozen global encoder."""
     return info_nce(z1_local, z2_global.detach(), tau) + \
         info_nce(z2_local, z1_global.detach(), tau)
+
+
+def byol_regression(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """BYOL: mean over rows of |q/|q| - k/|k||^2 (2 - 2 cos); no gradient
+    reaches k."""
+    q = l2_normalize(q)
+    k = l2_normalize(k)
+    return torch.mean(torch.sum((q - k.detach()) ** 2, dim=-1))
+
+
+def simclr_nt_xent(z1: torch.Tensor, z2: torch.Tensor,
+                   tau: float) -> torch.Tensor:
+    """NT-Xent over the 2B views: row i's positive is row i + B (mod 2B),
+    every other row a negative. The self-logits are masked by subtracting
+    1e9, as the reference does (not -inf), so the loss is its bits."""
+    B = z1.shape[0]
+    z = l2_normalize(torch.cat([z1, z2], dim=0))            # (2B, d)
+    logits = (z @ z.T) / tau
+    logits = logits - 1e9 * torch.eye(2 * B, dtype=logits.dtype,
+                                      device=logits.device)
+    labels = torch.cat([torch.arange(B, device=z.device) + B,
+                        torch.arange(B, device=z.device)])
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[:, None], dim=-1)[:, 0]
+    return torch.mean(logz - gold)

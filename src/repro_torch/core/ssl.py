@@ -1,12 +1,15 @@
-"""MoCo v3 self-supervised learning with representation alignment
-(``repro.core.ssl``; Algorithm 2 of the paper), and the LM family's SSL
-loss (``lm_ssl_loss``: next-token prediction plus the same alignment).
+"""Self-supervised learning engines: MoCo v3 (the paper's default), SimCLR
+and BYOL, with representation alignment (``repro.core.ssl``; Algorithm 2
+of the paper), and the LM family's SSL loss (``lm_ssl_loss``: next-token
+prediction plus the same alignment).
 
 State layout, flat dicts keyed by the reference's key paths:
 
     {"online": {"enc/...", "pred/...", "proj/..."},
      "target": {"enc/...", "proj/..."}}
 
+SimCLR has neither the prediction head nor the target branch
+(``{"online": {"enc/...", "proj/..."}}``); BYOL has both, as MoCo v3 does.
 The target branch and the alignment loss's global encoder run under
 ``torch.no_grad()``: the reference never differentiates them.
 """
@@ -50,31 +53,39 @@ def make_vit_encoder(cfg, image_size: int = 32,
     return Encoder(init, apply, cfg.d_model, cfg.num_layers)
 
 
+METHODS = ("moco_v3", "simclr", "byol")
+# the methods with a prediction head and a momentum target branch
+TARGET_METHODS = ("moco_v3", "byol")
+
+
 def ssl_init(encoder: Encoder, ssl_cfg, generator=None, device="cpu"):
-    """A fresh state; the target branch starts as a copy of the online
-    encoder and projection head."""
-    if ssl_cfg.method != "moco_v3":
-        raise NotImplementedError(
-            f"SSL method '{ssl_cfg.method}' is not ported yet (the port has "
-            f"moco_v3; simclr and byol come with a later slice)")
+    """A fresh state; the target branch (moco_v3, byol) starts as a copy of
+    the online encoder and projection head."""
+    if ssl_cfg.method not in METHODS:
+        raise ValueError(ssl_cfg.method)
     enc = encoder.init(generator, device)
     proj = heads.init_head(heads.proj_dims(encoder.d_repr,
                                            ssl_cfg.proj_hidden,
                                            ssl_cfg.proj_dim),
                            generator, device)
+    online = {**prefixed("enc", enc), **prefixed("proj", proj)}
+    if ssl_cfg.method not in TARGET_METHODS:
+        return {"online": tree_sorted(online)}
     pred = heads.init_head(heads.pred_dims(ssl_cfg.proj_dim,
                                            ssl_cfg.pred_hidden,
                                            ssl_cfg.proj_dim),
                            generator, device)
-    online = tree_sorted({**prefixed("enc", enc), **prefixed("proj", proj),
-                          **prefixed("pred", pred)})
+    online = tree_sorted({**online, **prefixed("pred", pred)})
     target = tree_sorted({k: v.clone() for k, v in online.items()
                           if not k.startswith("pred/")})
     return {"online": online, "target": target}
 
 
 def momentum_update(state, mu: float):
-    """target <- mu * target + (1 - mu) * online (Algorithm 2, line 15)."""
+    """target <- mu * target + (1 - mu) * online (Algorithm 2, line 15);
+    a state with no target branch (simclr) is returned as it is."""
+    if "target" not in state:
+        return state
     o = state["online"]
     target = {k: mu * t + (1.0 - mu) * o[k].to(t.dtype)
               for k, t in state["target"].items()}
@@ -97,23 +108,33 @@ def ssl_loss(state, x1, x2, encoder: Encoder, ssl_cfg, *,
     """Local SSL loss for a pair of views (Algorithm 2, lines 6-13).
     Returns (loss, metrics). ``global_enc`` (the broadcast global encoder)
     is needed only when ``align_weight > 0`` (alignment, Eq. 3)."""
-    if ssl_cfg.method != "moco_v3":
-        raise NotImplementedError(
-            f"SSL method '{ssl_cfg.method}' is not ported yet")
+    method = ssl_cfg.method
+    if method not in METHODS:
+        raise ValueError(method)
     tau = ssl_cfg.temperature
     o = state["online"]
-    enc, proj, pred = subtree(o, "enc"), subtree(o, "proj"), subtree(o, "pred")
+    enc, proj = subtree(o, "enc"), subtree(o, "proj")
+    pred = subtree(o, "pred") if method in TARGET_METHODS else None
     z1, q1 = _branch(enc, proj, pred, x1, encoder, sub_layers, active_from,
                      layer_gates)
     z2, q2 = _branch(enc, proj, pred, x2, encoder, sub_layers, active_from,
                      layer_gates)
-    t = state["target"]
-    t_enc, t_proj = subtree(t, "enc"), subtree(t, "proj")
-    frozen = sub_layers or encoder.num_stages
-    with torch.no_grad():
-        _, k1 = _branch(t_enc, t_proj, None, x1, encoder, sub_layers, frozen)
-        _, k2 = _branch(t_enc, t_proj, None, x2, encoder, sub_layers, frozen)
-    loss = losses.moco_contrastive(q1, k2, q2, k1, tau)
+    if method == "simclr":
+        loss = losses.simclr_nt_xent(q1, q2, tau)
+    else:
+        t = state["target"]
+        t_enc, t_proj = subtree(t, "enc"), subtree(t, "proj")
+        frozen = sub_layers or encoder.num_stages
+        with torch.no_grad():
+            _, k1 = _branch(t_enc, t_proj, None, x1, encoder, sub_layers,
+                            frozen)
+            _, k2 = _branch(t_enc, t_proj, None, x2, encoder, sub_layers,
+                            frozen)
+        if method == "moco_v3":
+            loss = losses.moco_contrastive(q1, k2, q2, k1, tau)
+        else:
+            loss = losses.byol_regression(q1, k2) + \
+                losses.byol_regression(q2, k1)
     metrics = {"con": loss}
     if align_weight > 0.0:
         if global_enc is None:
@@ -133,25 +154,31 @@ def ssl_loss(state, x1, x2, encoder: Encoder, ssl_cfg, *,
 # ---------------------------------------------------------------------------
 def lm_ssl_loss(params: Tree, batch, cfg, *, sub_layers=None,
                 active_from: int = 0, global_params: Optional[Tree] = None,
-                align_weight: float = 0.0, tau: float = 0.2):
+                align_weight: float = 0.0, tau: float = 0.2,
+                remat: bool = False):
     """Next-token cross-entropy over the stage-s sub-model, plus the
     paper's Eq. 3 alignment between the local and the global model's
-    mean-pooled hidden states when ``align_weight > 0``. The global model's
-    forward runs under ``torch.no_grad()`` (the reference stops its
-    gradient); the alignment is ``losses.info_nce``. Returns (loss,
-    metrics)."""
-    x = lm_mod.embed(params, batch["tokens"], cfg)
+    mean-pooled hidden states when ``align_weight > 0``. A batch may carry
+    ``frontend`` (B, P, d) embeddings (the VLM stub), put ahead of the
+    tokens; the first P hidden positions are dropped before the
+    cross-entropy and kept in the pooled states. The global model's forward
+    runs under ``torch.no_grad()`` (the reference stops its gradient); the
+    alignment is ``losses.info_nce``. ``remat`` recomputes each trained
+    block in the backward. Returns (loss, metrics)."""
+    frontend = batch.get("frontend")
+    x = lm_mod.embed(params, batch["tokens"], cfg, frontend)
     hidden, aux = lm_mod.forward_hidden(params, x, cfg,
                                         sub_layers=sub_layers,
-                                        active_from=active_from)
-    xent = lm_mod.xent_loss(params, hidden, batch["labels"], cfg,
-                            batch.get("mask"))
+                                        active_from=active_from, remat=remat)
+    P = 0 if frontend is None else frontend.shape[1]
+    xent = lm_mod.xent_loss(params, hidden[:, P:] if P else hidden,
+                            batch["labels"], cfg, batch.get("mask"))
     loss = xent + aux
     metrics = {"xent": xent, "aux": aux}
     if align_weight > 0.0 and global_params is not None:
         z_local = torch.mean(hidden.to(torch.float32), dim=1)
         with torch.no_grad():
-            xg = lm_mod.embed(global_params, batch["tokens"], cfg)
+            xg = lm_mod.embed(global_params, batch["tokens"], cfg, frontend)
             hg, _ = lm_mod.forward_hidden(global_params, xg, cfg,
                                           sub_layers=sub_layers,
                                           active_from=0)

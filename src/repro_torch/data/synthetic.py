@@ -50,9 +50,15 @@ def synthetic_tokens(generator: torch.Generator, n_seqs: int, seq_len: int,
     generator's device; labels are the next tokens, wrapping to the first
     at the end."""
     dev = generator.device
-    ranks = torch.arange(1, vocab_size + 1, dtype=torch.float32, device=dev)
+    ranks = torch.arange(1, vocab_size + 1, dtype=torch.float32)
     probs = torch.softmax(-1.1 * torch.log(ranks), dim=0)
-    draws = torch.multinomial(probs, n_seqs * seq_len, replacement=True,
-                              generator=generator).reshape(n_seqs, seq_len)
+    # inverse-CDF draws against a CDF summed on the host: torch.multinomial
+    # on the card builds its CDF with a parallel scan whose float sums
+    # associate differently from call to call, so its draws do not repeat
+    cdf = torch.cumsum(probs.double(), dim=0).to(dev)
+    u = torch.rand(n_seqs * seq_len, generator=generator, device=dev,
+                   dtype=torch.float64) * cdf[-1]
+    draws = torch.searchsorted(cdf, u).clamp_(max=vocab_size - 1) \
+        .reshape(n_seqs, seq_len)
     toks = torch.cumsum(draws, dim=1) % vocab_size
     return toks, torch.roll(toks, -1, dims=1)

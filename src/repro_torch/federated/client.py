@@ -62,18 +62,42 @@ def _apply_update(state, opt_state, grads, lr, *, ssl_cfg, opt,
     return state, opt_state
 
 
+def shared_opt_state(opt_state) -> tuple:
+    """(per-leaf state, the entries the clients share): an optimizer
+    state's step count (AdamW's and Adafactor's; SGDM has none) is one
+    Python int for every client of a stack."""
+    shared = {k: v for k, v in opt_state.items() if k == "count"}
+    return {k: v for k, v in opt_state.items() if k not in shared}, shared
+
+
+def stacked_opt_init(opt, params: Tree) -> dict:
+    """``opt.init`` for each client of the client-stacked ``params``, under
+    ``torch.func.vmap`` so that it sees per-client shapes (Adafactor
+    decides whether to factor a leaf from its last two dims)."""
+    shared = {}
+
+    def one(p):
+        per_leaf, s = shared_opt_state(opt.init(p))
+        shared.update(s)
+        return per_leaf
+
+    return {**vmap(one)(params), **shared}
+
+
 def stacked_train_step(state, opt_state, x1, x2, lr: float, *, encoder,
                        ssl_cfg, opt, sub_layers: int, active_from: int,
                        layer_gates=None, global_enc: Optional[Tree] = None,
                        align_weight: float = 0.0):
     """``train_step`` for C clients in one call: one ``torch.func.vmap``
     over ``torch.func.grad_and_value``. Every tensor of ``state`` and
-    ``opt_state``, the views (C, B, H, W, 3) and ``layer_gates`` (C, L)
-    carry a leading client axis; ``global_enc``, ``lr`` and the optimizer's
-    step count are shared. Returns (state, opt_state, losses (C,))."""
-    count = opt_state["count"]
+    ``opt_state`` (``stacked_opt_init``), the views (C, B, H, W, 3) and
+    ``layer_gates`` (C, L) carry a leading client axis; ``global_enc``,
+    ``lr`` and the optimizer's step count are shared. Returns (state,
+    opt_state, losses (C,))."""
+    per_leaf, shared = shared_opt_state(opt_state)
+    new_shared = {}
 
-    def one(state, moments, x1, x2, gates):
+    def one(state, per_leaf, x1, x2, gates):
         def loss_fn(online):
             return ssl_mod.ssl_loss(
                 {**state, "online": online}, x1, x2, encoder, ssl_cfg,
@@ -84,16 +108,16 @@ def stacked_train_step(state, opt_state, x1, x2, lr: float, *, encoder,
         grads, (loss, _) = grad_and_value(loss_fn, has_aux=True)(
             state["online"])
         state, new_opt = _apply_update(
-            state, {**moments, "count": count}, grads, lr, ssl_cfg=ssl_cfg,
+            state, {**per_leaf, **shared}, grads, lr, ssl_cfg=ssl_cfg,
             opt=opt, sub_layers=sub_layers, active_from=active_from)
-        return state, {k: v for k, v in new_opt.items() if k != "count"}, \
-            loss
+        new_leaf, s = shared_opt_state(new_opt)
+        new_shared.update(s)
+        return state, new_leaf, loss
 
-    moments = {k: v for k, v in opt_state.items() if k != "count"}
     gates_dim = None if layer_gates is None else 0
-    state, moments, losses = vmap(one, in_dims=(0, 0, 0, 0, gates_dim))(
-        state, moments, x1, x2, layer_gates)
-    return state, {**moments, "count": count + 1}, losses
+    state, per_leaf, losses = vmap(one, in_dims=(0, 0, 0, 0, gates_dim))(
+        state, per_leaf, x1, x2, layer_gates)
+    return state, {**per_leaf, **new_shared}, losses
 
 
 def lm_train_step(params: Tree, opt_state, batch, lr: float, *, cfg, opt,
@@ -124,10 +148,11 @@ def local_train(global_state, images: torch.Tensor, plan, draws, opt, *,
     shard ``images`` (n_i, H, W, 3). Returns (online params, last metrics
     with the step count). ``probe`` (resource measurement) is held around
     the first step and told its batch size."""
-    state = {"online": dict(global_state["online"]),
-             # target re-initialised from the global model each round
-             "target": {k: global_state["online"][k]
-                        for k in global_state["target"]}}
+    state = {"online": dict(global_state["online"])}
+    if "target" in global_state:
+        # target re-initialised from the global model each round
+        state["target"] = {k: global_state["online"][k]
+                           for k in global_state["target"]}
     opt_state = opt.init(state["online"])
     align_w = ssl_cfg.align_weight if align else 0.0
     _, H, W, _ = images.shape

@@ -6,7 +6,8 @@ MoCo v3 training under the stage schedule, FedAvg over the wire transport
 and its codec, server-side calibration and communication accounting.
 ``run_lm_fedssl`` is the LM family's loop (``train_lm`` of
 ``repro.launch.train``): layer-wise FedSSL on token shards with
-next-token SSL and alignment, every client in every round.
+next-token SSL and alignment, every client in every round, on either
+engine.
 ``FLHistory`` is the reference's, with the same versioned ``to_dict``, so
 two histories compare field by field.
 
@@ -65,11 +66,13 @@ import torch
 from repro_torch.convert import subtree, to_tensor
 from repro_torch.core import schedule as sched
 from repro_torch.core import ssl as ssl_mod
+from repro_torch.data.partition import stack_shards
 from repro_torch.federated import aggregate, comm, server
 from repro_torch.federated.client import lm_train_step
 from repro_torch.federated.draws import TorchDraws
-from repro_torch.federated.engine import make_engine
+from repro_torch.federated.engine import ENGINES, make_engine
 from repro_torch.federated.transport import Transport
+from repro_torch.launch.steps import ALIGN_WEIGHT, make_fl_round_program
 from repro_torch.models import lm as lm_mod
 from repro_torch.obs import NOOP_OBS, format_round_line
 from repro_torch.obs import resources as obs_resources
@@ -550,40 +553,69 @@ def _observe_health(obs, plan, rounds: int, loss: float, cb, down, up,
     return True
 
 
-# the alignment weight of the LM family's loss (the reference's train_lm)
-LM_ALIGN_WEIGHT = 0.01
+def _lm_batch_plan(shards, B: int, local_epochs: int):
+    """The sequential LM loop's batches as the vmap engine's gather
+    indices: (C, T, B) shard-local indices of each local step and the (C,
+    T) mask of the steps a client really takes (its first ``max(1, n_i //
+    B) * local_epochs``); the reference's ``train_lm`` replays them the
+    same way."""
+    nbs = [max(1, len(ix) // B) * local_epochs for ix in shards]
+    T = max(nbs)
+    batch_idx = torch.zeros((len(shards), T, B), dtype=torch.int64)
+    valid = torch.zeros((len(shards), T), dtype=torch.bool)
+    for ci, ix in enumerate(shards):
+        for b in range(nbs[ci]):
+            start = (b * B) % max(1, len(ix) - B)
+            batch_idx[ci, b] = torch.arange(start, start + B)
+            valid[ci, b] = True
+    return batch_idx, valid
 
 
 def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
                   device="cuda", codec: str = "fp32",
                   transport_kernels: str = "xla", log=None, obs=None,
-                  privacy=None, draws=None):
+                  privacy=None, draws=None, engine: str = "sequential"):
     """The LM family's layer-wise FedSSL loop; returns (final params,
     FLHistory).
 
     tokens, labels: (n, S) token pool; shards: one index array per client;
     params: the initial flat ``{path: tensor}`` dict (``lm.init_lm``).
     Every client trains in every round from the wire-decoded broadcast, one
-    masked AdamW step of ``lm_ssl_loss`` per batch of its shard (with the
-    alignment where the plan aligns), at the round's cosine rate; FedAvg
-    consumes the decoded uploads. Tensors are moved to
-    ``device``, which defaults to the card. A client's round loss is its
-    last step's. obs: as in ``run_fedssl``, with the spans of the
-    reference's LM loop (``run > round > local_train`` and the transport's).
+    masked step of ``train_cfg``'s optimizer on ``lm_ssl_loss`` per batch
+    of its shard (with the alignment where the plan aligns), at the
+    round's cosine rate; FedAvg consumes the decoded uploads. Tensors are
+    moved to ``device``, which defaults to the card. A client's round loss
+    is its last step's. engine: ``sequential`` (one client after another)
+    or ``vmap`` (``launch.steps.make_fl_round_program``: every client's
+    step batched through ``torch.func.vmap``, on the same batches; it
+    needs every shard to hold a batch). obs: as in ``run_fedssl``, with
+    the spans of the reference's LM loop (``run > round > local_train``
+    and the transport's).
     privacy: as in ``run_fedssl``, with every client in every round (q =
     1), as the reference's ``train_lm`` accounts it; draws: the source of
     the privacy draws (default ``TorchDraws(fl.seed, device)``; the loop
     draws nothing else).
     """
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine '{engine}'; one of {ENGINES}")
     device = resolve_device(device)
     tokens = to_tensor(tokens, device, torch.int64)
     labels = to_tensor(labels, device, torch.int64)
     shards = [to_tensor(ix, device, torch.int64) for ix in shards]
+    B = train_cfg.batch_size
+    if engine == "vmap":
+        if min(len(ix) for ix in shards) < B:
+            raise ValueError(
+                f"vmap engine needs every shard >= batch size: smallest "
+                f"shard {min(len(ix) for ix in shards)} < batch {B}")
+        pool = {k: stack_shards(v, [ix.cpu().numpy() for ix in shards])[0]
+                for k, v in (("tokens", tokens), ("labels", labels))}
+        batch_idx, valid = (t.to(device) for t in _lm_batch_plan(
+            shards, B, fl.local_epochs))
     params = {k: to_tensor(v, device) for k, v in params.items()}
     opt = make_optimizer(train_cfg)
     plans = sched.build_schedule(fl, lm_mod.num_stages(cfg))
     base_lr = scaled_base_lr(train_cfg.base_lr, train_cfg.batch_size)
-    B = train_cfg.batch_size
     w = aggregate.client_weights([len(ix) for ix in shards])
     clients = list(range(len(shards)))
     obs = obs if obs is not None else NOOP_OBS
@@ -593,10 +625,31 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
     draws = draws if draws is not None else TorchDraws(fl.seed, device)
     wire = Transport(codec, kernels=transport_kernels, obs=obs, privacy=prv)
     hist = FLHistory()
+
+    def sequential_clients(plan, dparams, lr):
+        """Every client's local steps, one client after another, from the
+        decoded broadcast; returns (their trees, their last losses)."""
+        outs, losses = [], []
+        for ix in shards:
+            p_i, o_i = dparams, opt.init(dparams)
+            nb = max(1, len(ix) // B)
+            for b in range(nb * fl.local_epochs):
+                # the reference's batch_start rule
+                sel = ix[(b * B) % max(1, len(ix) - B):][:B]
+                p_i, o_i, m = lm_train_step(
+                    p_i, o_i, {"tokens": tokens[sel], "labels": labels[sel]},
+                    lr, cfg=cfg, opt=opt, sub_layers=plan.sub_layers,
+                    active_from=plan.active_from,
+                    global_params=dparams if plan.align else None,
+                    align_weight=ALIGN_WEIGHT if plan.align else 0.0)
+            outs.append(p_i)
+            losses.append(float(m["loss"]))
+        return outs, losses
+
     obs.start_profiler()
     try:
         with tracer.span("run", cat="fl", mode="lm-fedssl",
-                         schedule=fl.schedule, engine="sequential",
+                         schedule=fl.schedule, engine=engine,
                          codec=wire.codec.name, kernels=transport_kernels,
                          rounds=fl.rounds, clients=len(clients)):
             for plan in plans:
@@ -612,43 +665,43 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
                     # clients, and the alignment's global model, see the
                     # decoded broadcast; no step writes into it
                     dparams, down = wire.broadcast(params, plan)
-                    outs, losses = [], []
-                    with tracer.span("local_train", cat="fl",
-                                     engine="sequential",
-                                     clients=len(clients)):
-                        for ix in shards:
-                            p_i, o_i = dparams, opt.init(dparams)
-                            nb = max(1, len(ix) // B)
-                            for b in range(nb * fl.local_epochs):
-                                # the reference's batch_start rule
-                                sel = ix[(b * B) % max(1, len(ix) - B):][:B]
-                                p_i, o_i, m = lm_train_step(
-                                    p_i, o_i, {"tokens": tokens[sel],
-                                               "labels": labels[sel]},
-                                    lr, cfg=cfg, opt=opt,
-                                    sub_layers=plan.sub_layers,
-                                    active_from=plan.active_from,
-                                    global_params=(dparams if plan.align
-                                                   else None),
-                                    align_weight=(LM_ALIGN_WEIGHT
-                                                  if plan.align else 0.0))
-                            outs.append(p_i)
-                            losses.append(float(m["loss"]))
                     spec = wire.plan_specs(params, plan)["upload"]
+                    with tracer.span("local_train", cat="fl", engine=engine,
+                                     clients=len(clients)):
+                        if engine == "vmap":
+                            round_fn, _ = make_fl_round_program(
+                                cfg, train_cfg, sub_layers=plan.sub_layers,
+                                active_from=plan.active_from,
+                                align=plan.align, transport=wire, plan=plan,
+                                fedavg=not secure)
+                            result, lvec, up = round_fn(
+                                {"params": dparams, "server": params,
+                                 "global_params": dparams if plan.align
+                                 else None},
+                                pool, batch_idx, valid, w, lr)
+                            losses = lvec.tolist()
+                        else:
+                            outs, losses = sequential_clients(plan, dparams,
+                                                              lr)
+                    if engine == "sequential":
+                        if secure:
+                            result, up = wire.decode_uploads(
+                                params, outs, clients, plan,
+                                ref_online=dparams)
+                        else:
+                            result, up = wire.aggregate_uploads(
+                                params, outs, clients, plan, w,
+                                ref_online=dparams)
+                        del outs  # not needed past the upload
                     if secure:
-                        trees, up = wire.decode_uploads(
-                            params, outs, clients, plan, ref_online=dparams)
-                        del outs  # the decoded trees replace them
+                        # the decoded trees, FedAvg'd as a masked sum
                         params = prv.secure_fedavg(
-                            trees, w.tolist(), clients, spec=spec,
+                            result, w.tolist(), clients, spec=spec,
                             base=params,
                             seed=draws.mask_seed(plan.round_idx))
-                        del trees
                     else:
-                        params, up = wire.aggregate_uploads(
-                            params, outs, clients, plan, w,
-                            ref_online=dparams)
-                        del outs  # not needed past FedAvg
+                        params = result
+                    del result
                     eps = None
                     if prv is not None:
                         if prv.noise_enabled:

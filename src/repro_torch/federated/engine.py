@@ -106,11 +106,11 @@ class SequentialEngine:
         return new_online, [float(x) for x in losses], stats
 
 
-def _keep(keep: torch.Tensor, new, old):
+def keep_rows(keep: torch.Tensor, new, old):
     """``new`` where ``keep[c]`` holds, else ``old``, leaf by leaf over
     (nested) dicts of client-stacked tensors."""
     if isinstance(new, dict):
-        return {k: _keep(keep, v, old[k]) for k, v in new.items()}
+        return {k: keep_rows(keep, v, old[k]) for k, v in new.items()}
     return torch.where(keep.reshape((-1,) + (1,) * (new.dim() - 1)), new,
                        old)
 
@@ -199,11 +199,12 @@ class VmapEngine:
         pool_idx, v1, v2, gates, T = self._round_inputs(plan, participants,
                                                         batch_plans)
         g = state["online"]
-        cstate = {"online": {k: v.expand(C, *v.shape) for k, v in g.items()},
-                  # the target restarts from the downloaded model each round
-                  "target": {k: g[k].expand(C, *g[k].shape)
-                             for k in state["target"]}}
-        opt_state = self.opt.init(cstate["online"])
+        cstate = {"online": {k: v.expand(C, *v.shape) for k, v in g.items()}}
+        if "target" in state:
+            # the target restarts from the downloaded model each round
+            cstate["target"] = {k: g[k].expand(C, *g[k].shape)
+                                for k in state["target"]}
+        opt_state = client_mod.stacked_opt_init(self.opt, cstate["online"])
         align_w = self.ssl_cfg.align_weight if plan.align else 0.0
         losses = None
         for t in range(T):
@@ -226,10 +227,9 @@ class VmapEngine:
                 cstate, opt_state, losses = new_state, new_opt, loss
                 continue
             keep = torch.tensor([t < s for s in steps], device=loss.device)
-            cstate = _keep(keep, new_state, cstate)
-            opt_state = {**_keep(keep, {k: v for k, v in new_opt.items()
-                                        if k != "count"}, opt_state),
-                         "count": new_opt["count"]}
+            cstate = keep_rows(keep, new_state, cstate)
+            new_leaf, shared = client_mod.shared_opt_state(new_opt)
+            opt_state = {**keep_rows(keep, new_leaf, opt_state), **shared}
             losses = torch.where(keep, loss, losses)
         outs = [{k: v[c] for k, v in cstate["online"].items()}
                 for c in range(C)]

@@ -38,11 +38,11 @@ def broadcast_download(state, plan, transport):
 
 def begin_stage(state, stage: int, *, weight_transfer: bool):
     """Stage-transition housekeeping: L_{s-1} -> L_s weight transfer in the
-    online and target encoders."""
+    online encoder and, where the method has one, the target encoder."""
     if not weight_transfer or stage < 2:
         return state
-    return {"online": sched.transfer_model(state["online"], stage, "enc/"),
-            "target": sched.transfer_model(state["target"], stage, "enc/")}
+    return {branch: sched.transfer_model(tree, stage, "enc/")
+            for branch, tree in state.items()}
 
 
 def sample_clients(draws, num_clients: int, clients_per_round: int, *,

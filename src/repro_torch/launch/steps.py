@@ -1,0 +1,219 @@
+"""Step functions of the LM family (``repro.launch.steps``), per (arch,
+mode).
+
+Modes
+  train      end-to-end local SSL train step (the paper's FedMoCo
+             baseline): next-token loss, gradients, optimizer update.
+  train_lw   the LW-FedSSL local step at the *final* stage: full-depth
+             forward, only the last stage trained, with the representation
+             alignment against the broadcast global model.
+
+``make_train_step`` is one client's step under autograd; gradient
+accumulation (``train_cfg.microbatch``) runs the microbatch slices one
+after another, so one microbatch's activations are live at a time, and
+``train_cfg.remat`` recomputes each trained block in the backward.
+``make_fl_round_program`` is a whole LM FL round: every client's local
+steps batched through ``torch.func.vmap`` (the LM counterpart of
+``federated.client.stacked_train_step``), then FedAvg, through the wire
+transport when one is given. The reference compiles that round into one
+XLA program; here a Python loop over local steps drives the batched step.
+The reference's prefill and decode steps, and its encoder-decoder
+branch, are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch.func import grad_and_value, vmap
+
+from repro_torch.core.ssl import lm_ssl_loss
+from repro_torch.federated import aggregate
+from repro_torch.federated.client import shared_opt_state, stacked_opt_init
+from repro_torch.federated.engine import keep_rows
+from repro_torch.federated.masks import stage_update_mask
+from repro_torch.models import lm as lm_mod
+from repro_torch.optim import make_optimizer
+
+ALIGN_WEIGHT = 0.01
+TAU = 0.2
+
+
+def cfg_for_shape(cfg, shape_name: str):
+    """long_500k: the quadratic-attention archs switch to a sliding window
+    of 8192. SSM/hybrid run natively; DeepSeek's MLA keeps the full-context
+    latent cache."""
+    if shape_name == "long_500k" and cfg.window == 0 and cfg.mla is None \
+            and cfg.family in ("dense", "vlm", "audio", "moe"):
+        return dataclasses.replace(cfg, window=8192)
+    return cfg
+
+
+def is_encdec(cfg) -> bool:
+    return bool(cfg.cross_attention and cfg.dec_layers)
+
+
+def _stages(cfg) -> int:
+    if is_encdec(cfg):
+        raise NotImplementedError(
+            f"the encoder-decoder LM ({cfg.arch_id}) is not ported to "
+            f"repro_torch yet")
+    return lm_mod.num_stages(cfg)
+
+
+def make_train_step(cfg, train_cfg, *, mode: str = "train",
+                    lr: float = 1e-4):
+    """Returns (step, opt); ``step(params, opt_state, batch[,
+    global_params]) -> (params, opt_state, metrics)``. With
+    ``train_cfg.microbatch`` = m > 1 the batch is cut into m slices along
+    its first axis; their fp32 gradients are summed and divided by m, and
+    the loss metric is the slices' mean."""
+    opt = make_optimizer(train_cfg)
+    S = _stages(cfg)
+    lw = mode == "train_lw"
+    sub_layers, active_from = S, (S - 1 if lw else 0)
+    align_weight = ALIGN_WEIGHT if lw else 0.0
+    micro = train_cfg.microbatch
+
+    def grads_of(params, batch, global_params):
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss, metrics = lm_ssl_loss(
+            p, batch, cfg, sub_layers=sub_layers, active_from=active_from,
+            global_params=global_params, align_weight=align_weight, tau=TAU,
+            remat=train_cfg.remat)
+        grads = torch.autograd.grad(loss, list(p.values()),
+                                    allow_unused=True)
+        # leaves the loss does not reach (a frozen embedding) get zeros
+        return loss.detach(), metrics, {
+            k: torch.zeros_like(v) if g is None else g
+            for (k, v), g in zip(params.items(), grads)}
+
+    def step(params, opt_state, batch, global_params=None):
+        if micro and micro > 1:
+            n = next(iter(batch.values())).shape[0] // micro
+            grads = {k: torch.zeros(v.shape, dtype=torch.float32,
+                                    device=v.device)
+                     for k, v in params.items()}
+            losses = []
+            for i in range(micro):
+                loss, _, g = grads_of(
+                    params, {k: v[i * n:(i + 1) * n]
+                             for k, v in batch.items()}, global_params)
+                grads = {k: a + g[k].to(a.dtype) for k, a in grads.items()}
+                losses.append(loss)
+            grads = {k: g / micro for k, g in grads.items()}
+            metrics = {"loss": sum(losses) / micro}
+        else:
+            loss, m, grads = grads_of(params, batch, global_params)
+            metrics = {**{k: v.detach() for k, v in m.items()},
+                       "loss": loss}
+        mask = (stage_update_mask(params, sub_layers, active_from)
+                if lw else None)
+        new_params, new_opt = opt.update(grads, opt_state, params, lr, mask)
+        return new_params, new_opt, metrics
+
+    return step, opt
+
+
+def make_fl_round_program(cfg, train_cfg, *, mode: str = "train",
+                          sub_layers: Optional[int] = None,
+                          active_from: Optional[int] = None,
+                          align: Optional[bool] = None, transport=None,
+                          plan=None, fedavg: bool = True):
+    """One LM FL round for C clients at once. Stage defaults follow
+    ``mode`` (end-to-end for ``train``, the final stage with alignment for
+    ``train_lw``); a stage schedule passes its plan's ``sub_layers``,
+    ``active_from`` and ``align``.
+
+    Returns ``(round_fn, opt)``; ``round_fn(broadcast, shards, batch_idx,
+    valid, weights, lr)``: ``broadcast`` holds ``params`` (and
+    ``global_params`` when aligning), every ``shards`` leaf is ``(C,
+    n_max, ...)``, ``batch_idx`` (C, T, B) holds shard-local indices of
+    each local step's batch and ``valid`` (C, T) marks the steps that
+    count: a step with ``valid`` False runs but its update is discarded
+    (a client's valid steps must come first, since the step count is
+    shared). Each local step is one ``torch.func.vmap`` over the clients
+    of ``grad_and_value`` of ``lm_ssl_loss`` and the optimizer's update,
+    from ``opt.init`` of the broadcast, per client. Returns (FedAvg of the
+    clients' trees with ``weights``, or with ``fedavg=False`` the list of
+    their trees; the (C,) losses of each client's last valid step).
+
+    With ``transport`` (a ``federated.transport.Transport``) and the
+    round's ``plan``, the clients' trees go through the wire first:
+    ``broadcast`` then also holds ``server``, the server's tree the
+    uploads scatter onto, and the clients' ids for the error-feedback
+    residuals are 0..C-1; FedAvg (or, with ``fedavg=False``, nothing)
+    consumes the decoded uploads, and ``round_fn`` returns the upload
+    stats as a third value."""
+    opt = make_optimizer(train_cfg)
+    S = _stages(cfg)
+    lw = mode == "train_lw"
+    sub_layers = S if sub_layers is None else sub_layers
+    active_from = (S - 1 if lw else 0) if active_from is None \
+        else active_from
+    align = lw if align is None else align
+    align_weight = ALIGN_WEIGHT if align else 0.0
+    masked = active_from > 0 or sub_layers < S
+
+    def client_step(params, per_leaf, shared, batch, global_params, lr):
+        def loss_fn(p):
+            return lm_ssl_loss(
+                p, batch, cfg, sub_layers=sub_layers,
+                active_from=active_from,
+                global_params=global_params if align else None,
+                align_weight=align_weight, tau=TAU, remat=train_cfg.remat)
+
+        grads, (loss, _) = grad_and_value(loss_fn, has_aux=True)(params)
+        mask = (stage_update_mask(params, sub_layers, active_from)
+                if masked else None)
+        return opt.update(grads, {**per_leaf, **shared}, params, lr,
+                          mask), loss
+
+    def run_clients(broadcast, shards, batch_idx, valid, lr):
+        g = broadcast["params"]
+        gp = broadcast.get("global_params")
+        C, T = valid.shape
+        rows = torch.arange(C, device=batch_idx.device)[:, None]
+        params = {k: v.expand(C, *v.shape) for k, v in g.items()}
+        per_leaf, shared = shared_opt_state(stacked_opt_init(opt, params))
+        last = torch.zeros(C, dtype=torch.float32, device=valid.device)
+        for t in range(T):
+            batch = {k: v[rows, batch_idx[:, t]] for k, v in shards.items()}
+            new_shared = {}
+
+            def one(p, o, b):
+                (p, new_opt), loss = client_step(p, o, shared, b, gp, lr)
+                o, s = shared_opt_state(new_opt)
+                new_shared.update(s)
+                return p, o, loss
+
+            new_p, new_o, loss = vmap(one)(params, per_leaf, batch)
+            keep = valid[:, t]
+            if bool(keep.all()):
+                params, per_leaf = new_p, new_o
+            else:
+                params = keep_rows(keep, new_p, params)
+                per_leaf = keep_rows(keep, new_o, per_leaf)
+            shared = new_shared
+            last = torch.where(keep, loss, last)
+        return [{k: v[c] for k, v in params.items()} for c in range(C)], \
+            last
+
+    def round_fn(broadcast, shards, batch_idx, valid, weights, lr):
+        outs, losses = run_clients(broadcast, shards, batch_idx, valid, lr)
+        if transport is None:
+            return (aggregate.fedavg(outs, weights) if fedavg else outs), \
+                losses
+        clients = list(range(len(outs)))
+        if fedavg:
+            tree, stats = transport.aggregate_uploads(
+                broadcast["server"], outs, clients, plan, weights,
+                ref_online=broadcast["params"])
+        else:
+            tree, stats = transport.decode_uploads(
+                broadcast["server"], outs, clients, plan,
+                ref_online=broadcast["params"])
+        return tree, losses, stats
+
+    return round_fn, opt

@@ -4,16 +4,24 @@ Two modes:
   vit   the paper's experiment: a reduced ViT with MoCo v3 federated SSL
         on synthetic images under any of the five schedules, then a linear
         probe.
-  lm    LM-family FedSSL (``--arch zamba2-2.7b``, the one LM ported): each
-        client runs next-token SSL plus representation alignment on
-        synthetic token shards, on the reduced arch of the reference's
-        arch smoke test (``num_layers=4, attn_every=2``: the reference's
-        ``reduced()`` alone leaves zamba2 no stage).
+  lm    LM-family FedSSL: each client runs next-token SSL plus
+        representation alignment on synthetic token shards, on the
+        reference's ``reduced()`` arch: the dense decoders
+        (``--arch internlm2-1.8b``, the default, internlm2-20b,
+        starcoder2-15b, mistral-large-123b, internvl2-1b) with 2 stages,
+        and zamba2-2.7b on the reduction of the reference's arch smoke
+        test (``num_layers=4, attn_every=2``: ``reduced()`` alone leaves
+        zamba2 no stage). The MoE, MLA, xLSTM and encoder-decoder archs
+        are refused as not ported.
 
 It runs on the card (``--device cuda``, the default) and raises without
 one; ``--device cpu`` runs the plain PyTorch versions of the kernels.
 ``--engine`` picks the round engine (``sequential``, or ``vmap``: the
-round's participants train together, one batched step at a time).
+round's participants train together, one batched step at a time; both
+modes). The SSL method and the optimizer are the reference launcher's
+(MoCo v3, AdamW), which has no flag for them; ``run_fedssl`` and
+``run_lm_fedssl`` take any of ``SSLConfig.method`` and
+``TrainConfig.optimizer``.
 ``--codec`` picks the wire compression (fp32, fp16, bf16, int8,
 topk[:fraction]); ``--transport-kernels xla|pallas`` is accepted so that
 the reference's command lines parse, and both select the port's one wire
@@ -41,6 +49,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit --codec int8
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit \\
       --codec topk:0.1 --transport-kernels pallas
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
+      --device cpu --rounds 4 --batch 8 --samples 64 --seq-len 32 \\
+      --engine vmap
   PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
       --arch zamba2-2.7b --device cpu --rounds 4 --batch 8 --samples 64 \\
       --seq-len 64
@@ -180,9 +191,12 @@ def train_vit(args):
     return acc
 
 
-# --mode lm: the archs ported, each with the override of the reference's
-# arch smoke test (tests/test_arch_smoke.py) applied on top of reduced()
-LM_ARCHS = {"zamba2-2.7b": dict(num_layers=4, attn_every=2)}
+# --mode lm: the archs ported, each with what it adds on top of reduced():
+# zamba2 the override of the reference's arch smoke test
+# (tests/test_arch_smoke.py), the dense decoders nothing (2 stages)
+LM_ARCHS = {"zamba2-2.7b": dict(num_layers=4, attn_every=2),
+            "internlm2-1.8b": {}, "internlm2-20b": {}, "starcoder2-15b": {},
+            "mistral-large-123b": {}, "internvl2-1b": {}}
 
 
 def train_lm(args):
@@ -206,7 +220,7 @@ def train_lm(args):
             cfg, fl, tc, tokens=toks, labels=labs, shards=shards,
             params=params, device=device, codec=args.codec,
             transport_kernels=args.transport_kernels, log=log, obs=obs,
-            privacy=prv)
+            privacy=prv, engine=args.engine)
     export_obs(obs, args)
     print(f"final loss {hist.loss[-1]:.4f} (start {hist.loss[0]:.4f}); "
           f"{hist.total_wire / 1e6:.2f} MB/client on the wire "
@@ -240,11 +254,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", default="vit", choices=("vit", "lm"))
     ap.add_argument("--arch", default="internlm2-1.8b",
-                    help="--mode lm: the LM architecture; zamba2-2.7b is "
-                         "the one ported, run with the reference's arch "
-                         "smoke-test override (num_layers=4, attn_every=2) "
-                         "on top of reduced(), since reduced() alone leaves "
-                         "it no stage")
+                    help="--mode lm: the LM architecture, at reduced(); "
+                         "ported: " + ", ".join(LM_ARCHS) + " (zamba2-2.7b "
+                         "with the reference's arch smoke-test override "
+                         "num_layers=4, attn_every=2, since reduced() alone "
+                         "leaves it no stage)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--schedule", default="lw_fedssl",
@@ -356,12 +370,11 @@ def main(argv=None):
     if args.measure_resources:
         ap.error("--measure-resources measures the vit driver's steps; use "
                  "--mode vit")
-    if args.engine != "sequential":
-        ap.error(f"--engine {args.engine} with --mode lm: the LM vmap engine "
-                 f"is not ported to repro_torch yet")
     if args.arch not in LM_ARCHS:
         ap.error(f"--arch {args.arch}: this LM architecture is not ported "
-                 f"to repro_torch yet (ported: {', '.join(LM_ARCHS)})")
+                 f"to repro_torch yet (ported: {', '.join(LM_ARCHS)}; the "
+                 f"MoE, MLA, xLSTM and encoder-decoder families come with a "
+                 f"later slice)")
     return train_lm(args)
 
 

@@ -3,13 +3,18 @@ kind, pre-RMSNorm.
 
 Kinds ported so far:
   enc        bidirectional attention + MLP (the ViT's block)
+  dense      GQA attention (causal, optionally sliding-window) + MLP, the
+             dense decoders' block (internlm2, starcoder2, mistral-large,
+             internvl2's decoder)
   mamba      Mamba2 on the residual stream (zamba2's blocks)
-  attn_only  causal attention + MLP, Zamba2's shared block
+  attn_only  the dense block under another name, Zamba2's shared block
+The reference's moe, mla_moe, mlstm, slstm and cross kinds are not ported.
 
 Block parameters are flat dicts keyed by their path inside the block
 (``"ln1/scale"``, ``"attn/wq"``, ``"mamba/w_in"``); a stacked block tree
 has the same keys with leading stack axes, ``(L, ...)`` for the ViT and
-``(groups, attn_every, ...)`` for zamba2. The port indexes a layer's row
+``(groups, attn_every, ...)`` for zamba2, ``(L, ...)`` for a dense
+decoder. The port indexes a layer's row
 directly where the reference slices the stack.
 """
 from __future__ import annotations
@@ -26,7 +31,8 @@ from repro_torch.models.layers.init import dense_init_
 from repro_torch.models.layers.mlp import mlp_apply, mlp_shapes
 from repro_torch.models.layers.norms import rmsnorm
 
-KINDS = ("enc", "mamba", "attn_only")
+KINDS = ("enc", "dense", "mamba", "attn_only")
+_ATTN_MLP = ("enc", "dense", "attn_only")
 
 
 def _unported(kind: str) -> NotImplementedError:
@@ -42,7 +48,7 @@ def block_shapes(cfg, kind: str = "enc") -> Dict[str, tuple]:
         return {"ln/scale": (d,),
                 **{f"mamba/{k}": s
                    for k, s in mamba2.mamba2_shapes(cfg).items()}}
-    if kind not in ("enc", "attn_only"):
+    if kind not in _ATTN_MLP:
         raise _unported(kind)
     hd = cfg.resolved_head_dim
     return {
@@ -77,12 +83,13 @@ def stacked_init_(stacked: Dict[str, torch.Tensor], generator=None,
 def block_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
                 kind: str = "enc") -> torch.Tensor:
     """One residual block of ``kind`` over the full sequence. x: (B, S, d).
-    ``enc`` attends bidirectionally; ``attn_only`` with ``cfg.causal``."""
+    ``enc`` attends bidirectionally; ``dense`` and ``attn_only`` with
+    ``cfg.causal`` and ``cfg.window``."""
     if kind == "mamba":
         return x + mamba2.mamba2_apply(
             subtree(p, "mamba"), rmsnorm(x, p["ln/scale"], cfg.norm_eps),
             cfg)
-    if kind not in ("enc", "attn_only"):
+    if kind not in _ATTN_MLP:
         raise _unported(kind)
     if kind == "enc":
         cfg = dataclasses.replace(cfg, causal=False)

@@ -1,19 +1,29 @@
-"""Decoder-only language model assembly (``repro.models.lm``), for the
-``zamba`` topology: groups of ``attn_every`` Mamba2 blocks, each group
-followed by one *shared* attention + MLP block (Zamba2, arXiv:2411.15242);
-the shared block's weights are reused after every group.
+"""Decoder-only language model assembly (``repro.models.lm``), for two
+topologies:
+
+- ``uniform`` with ``dense`` blocks: L identical GQA attention + MLP blocks
+  (internlm2, starcoder2, mistral-large, internvl2's decoder); a
+  layer-wise stage is one block.
+- ``zamba``: groups of ``attn_every`` Mamba2 blocks, each group followed by
+  one *shared* attention + MLP block (Zamba2, arXiv:2411.15242); the shared
+  block's weights are reused after every group; a stage is one group.
 
 Parameters are a flat ``{path: tensor}`` dict at the JAX key paths, in
 ``jax.tree_util`` order: ``embed`` (V, d), ``final_ln/scale``, ``lm_head``
-(d, V), the Mamba2 stack ``blocks/...`` with leaves (groups, attn_every,
-...), and ``shared_attn/...``. A layer-wise stage is one group.
+(d, V) unless the embeddings are tied, and the block stack ``blocks/...``
+with leaves (L, ...) (uniform) or (groups, attn_every, ...) (zamba), plus
+zamba's ``shared_attn/...``.
 
 The stage interface is the JAX package's: ``sub_layers`` limits the depth
-(in stages), and the groups below ``active_from`` run under
+(in stages), and the stages below ``active_from`` run under
 ``torch.no_grad()`` where the reference applies ``stop_gradient``, so
-neither they, nor the embedding, nor the shared block's uses there get
-gradients. The other topologies (uniform, xlstm, moe_il), the frontend
-stubs, caches, prefill and decode are not ported yet.
+neither they, nor the embedding, nor (zamba) the shared block's uses there
+get gradients. ``remat`` recomputes each trained block in the backward
+(the reference's per-block ``jax.checkpoint``). The VLM frontend is the
+reference's stub: precomputed (B, P, d) embeddings put ahead of the token
+embeddings (``embed(..., frontend)``). The other topologies (xlstm,
+moe_il) and block kinds (moe, mla_moe), caches, prefill and decode are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+from torch.func import vjp
 
 from repro_torch.convert import subtree
 from repro_torch.federated.leaves import tree_sorted
@@ -43,29 +54,47 @@ def topology(cfg) -> str:
     return "uniform"
 
 
-def _zamba(cfg) -> None:
+def uniform_kind(cfg) -> str:
+    if cfg.mla is not None:
+        return "mla_moe"
+    if cfg.moe is not None and cfg.moe.num_experts > 0:
+        return "moe"
+    if cfg.ssm is not None:
+        return "mamba"
+    return "dense"
+
+
+def _ported(cfg) -> str:
+    """The topology of ``cfg``; raises for those not ported."""
     topo = topology(cfg)
-    if topo != "zamba":
-        raise NotImplementedError(
-            f"LM topology '{topo}' ({cfg.arch_id}) is not ported to "
-            f"repro_torch yet (ported: zamba)")
+    if topo == "zamba" or (topo == "uniform" and uniform_kind(cfg) == "dense"):
+        return topo
+    what = f"{topo} with {uniform_kind(cfg)} blocks" if topo == "uniform" \
+        else topo
+    raise NotImplementedError(
+        f"LM topology '{what}' ({cfg.arch_id}) is not ported to repro_torch "
+        f"yet (ported: zamba, uniform with dense blocks)")
 
 
 def num_stages(cfg) -> int:
-    """Stage granularity of the layer-wise schedule: one group of
-    ``attn_every`` Mamba2 blocks."""
-    _zamba(cfg)
-    return cfg.num_layers // cfg.attn_every
+    """Stage granularity of the layer-wise schedule: one block (uniform)
+    or one group of ``attn_every`` Mamba2 blocks (zamba)."""
+    if _ported(cfg) == "zamba":
+        return cfg.num_layers // cfg.attn_every
+    return cfg.num_layers
 
 
 def lm_shapes(cfg) -> Dict[str, tuple]:
-    _zamba(cfg)
-    g = num_stages(cfg)
+    topo = _ported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     shapes = {"embed": (V, d), "final_ln/scale": (d,)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, V)
-    shapes.update({f"blocks/{k}": (g, cfg.attn_every) + s
+    if topo == "uniform":
+        shapes.update({f"blocks/{k}": (cfg.num_layers,) + s
+                       for k, s in B.block_shapes(cfg, "dense").items()})
+        return tree_sorted(shapes)
+    shapes.update({f"blocks/{k}": (num_stages(cfg), cfg.attn_every) + s
                    for k, s in B.block_shapes(cfg, "mamba").items()})
     shapes.update({f"shared_attn/{k}": s
                    for k, s in B.block_shapes(cfg, "attn_only").items()})
@@ -78,8 +107,11 @@ def init_lm(cfg, generator=None, device="cpu") -> Tree:
     dt = getattr(torch, cfg.param_dtype)
     params = {k: torch.empty(s, dtype=dt, device=device)
               for k, s in lm_shapes(cfg).items()}
-    B.stacked_init_(subtree(params, "blocks"), generator, lead=2)
-    B.stacked_init_(subtree(params, "shared_attn"), generator, lead=0)
+    if topology(cfg) == "uniform":
+        B.stacked_init_(subtree(params, "blocks"), generator, lead=1)
+    else:
+        B.stacked_init_(subtree(params, "blocks"), generator, lead=2)
+        B.stacked_init_(subtree(params, "shared_attn"), generator, lead=0)
     with torch.no_grad():
         params["final_ln/scale"].fill_(1.0)
         for k in ("embed", "lm_head"):
@@ -88,10 +120,15 @@ def init_lm(cfg, generator=None, device="cpu") -> Tree:
     return params
 
 
-def embed(params: Tree, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """tokens (B, S) -> (B, S, d) in the parameter dtype, times sqrt(d)."""
+def embed(params: Tree, tokens: torch.Tensor, cfg,
+          frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, S) -> (B, S, d) in the parameter dtype, times sqrt(d);
+    with ``frontend`` (B, P, d), (B, P + S, d), the frontend first."""
     x = params["embed"][tokens]
-    return x * math.sqrt(cfg.d_model)
+    x = x * math.sqrt(cfg.d_model)
+    if frontend is not None:
+        x = torch.cat([frontend.to(x.dtype), x], dim=1)
+    return x
 
 
 def _head_matrix(params: Tree, cfg) -> torch.Tensor:
@@ -100,28 +137,73 @@ def _head_matrix(params: Tree, cfg) -> torch.Tensor:
     return params["lm_head"]
 
 
+class _Remat(torch.autograd.Function):
+    """Rematerialisation of one block: the forward keeps only its inputs,
+    and the backward recomputes the block inside ``torch.func.vjp``. It
+    works under autograd and under ``torch.func.grad`` / ``vmap`` alike;
+    ``torch.utils.checkpoint`` does not, since the ``torch.func``
+    transforms refuse its saved-tensor hooks."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, x, *weights):
+        with torch.no_grad():
+            return fn(x, *weights)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        fn, *tensors = inputs
+        ctx.fn = fn
+        ctx.save_for_backward(*tensors)
+
+    @staticmethod
+    def backward(ctx, g):
+        _, pull = vjp(ctx.fn, *ctx.saved_tensors)
+        return (None, *pull(g))
+
+
+def _block(p: Tree, x: torch.Tensor, cfg, kind: str,
+           remat: bool) -> torch.Tensor:
+    if not remat or not torch.is_grad_enabled():
+        return B.block_apply(p, x, cfg, kind)
+    keys = list(p)
+
+    def fn(x, *weights):
+        return B.block_apply(dict(zip(keys, weights)), x, cfg, kind)
+
+    return _Remat.apply(fn, x, *p.values())
+
+
 def forward_hidden(params: Tree, x: torch.Tensor, cfg, *,
-                   sub_layers: Optional[int] = None, active_from: int = 0):
+                   sub_layers: Optional[int] = None, active_from: int = 0,
+                   remat: bool = False):
     """x: (B, S, d) embedded inputs. Returns (hidden, aux_loss); the aux
     loss of these block kinds is 0."""
+    topo = _ported(cfg)
     S = num_stages(cfg)
     sub = S if sub_layers is None else sub_layers
     act = max(0, min(active_from, sub))
     stack = subtree(params, "blocks")
-    shared = subtree(params, "shared_attn")
 
-    def group(x, gi):
-        for i in range(cfg.attn_every):
-            x = B.block_apply({k: t[gi, i] for k, t in stack.items()}, x,
-                              cfg, "mamba")
-        return B.block_apply(shared, x, cfg, "attn_only")
+    if topo == "uniform":
+        def stage(x, i):
+            return _block({k: t[i] for k, t in stack.items()}, x, cfg,
+                          "dense", remat)
+    else:
+        shared = subtree(params, "shared_attn")
+
+        def stage(x, gi):
+            for i in range(cfg.attn_every):
+                x = _block({k: t[gi, i] for k, t in stack.items()}, x, cfg,
+                           "mamba", remat)
+            return B.block_apply(shared, x, cfg, "attn_only")
 
     if act > 0:
         with torch.no_grad():
-            for gi in range(act):
-                x = group(x, gi)
-    for gi in range(act, sub):
-        x = group(x, gi)
+            for i in range(act):
+                x = stage(x, i)
+    for i in range(act, sub):
+        x = stage(x, i)
     x = rmsnorm(x, params["final_ln/scale"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

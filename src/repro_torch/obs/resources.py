@@ -169,13 +169,22 @@ def stage_cost_attrs(probe: StepProbe) -> dict:
 # ---------------------------------------------------------------------------
 # the eager engines' memory model
 # ---------------------------------------------------------------------------
+def _state_bytes(tree) -> int:
+    """Bytes of the tensors of a nested dict (other leaves count 0)."""
+    if isinstance(tree, dict):
+        return sum(_state_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
 def program_memory_analytic(cfg, ssl, train, plan, engine_name: str, *,
                             clients: int = 1) -> dict:
     """Analytic peak of the bytes one local step of the port's eager
     engines holds, the prediction the measured peak is checked against
     (``MEMORY_FACTOR``). What the step holds:
 
-      held        the SSL state (online + target) and the AdamW moments it
+      held        the SSL state (online + target) and the optimizer state it
                   starts from, the batch and its two views; on the vmap
                   engine one global state (the clients' trees are expanded
                   views of it) and per-client moments, batch and views.
@@ -209,13 +218,16 @@ def program_memory_analytic(cfg, ssl, train, plan, engine_name: str, *,
     full resident state (arguments + outputs) and a schedule-flat
     program."""
     from repro_torch.federated import comm
+    from repro_torch.optim import make_optimizer
     from repro_torch.roofline import client_costs as cc
 
     state = cc.build_ssl_param_tree(cfg, ssl)
     online_b = comm.tree_bytes(state["online"])
-    target_b = comm.tree_bytes(state["target"])
+    target_b = comm.tree_bytes(state.get("target", {}))    # none for simclr
     state_b = online_b + target_b
-    opt_b = 2 * online_b                              # AdamW mu + nu, fp32
+    # the optimizer's state as its init makes it on the meta device (AdamW
+    # 2x the online tree in fp32, Adafactor's factored moments, SGDM's v)
+    opt_b = _state_bytes(make_optimizer(train).init(state["online"]))
     c = cc.vit_costs(cfg, ssl)
     cbytes = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
                          ).element_size()
@@ -294,7 +306,7 @@ def measure_step(plan, engine_name: str, *, cfg, ssl, train,
         # vmap engine
         cstate = {br: {k: v.expand(C, *v.shape) for k, v in tree.items()}
                   for br, tree in state.items()}
-        opt_state = opt.init(cstate["online"])
+        opt_state = client_mod.stacked_opt_init(opt, cstate["online"])
         x1 = torch.stack([v[0] for v in views])
         x2 = torch.stack([v[1] for v in views])
 

@@ -1,4 +1,5 @@
-"""AdamW with a freeze mask (``repro.optim.optimizers.make_adamw``).
+"""AdamW, Adafactor and SGD with momentum, with a freeze mask
+(``repro.optim.optimizers``).
 
 Not ``torch.optim``: the reference adds weight decay inside the update and
 multiplies the whole update by a per-leaf mask, so frozen layers do not
@@ -7,6 +8,13 @@ move even under decoupled weight decay (``optimizers.py:35-38, 61-81``).
 (new_params, new_state)`` work on flat ``{path: tensor}`` dicts and are
 functional: they return new tensors and never write into ``params``,
 which other trees (the server's model, a broadcast view) may share.
+States keep the reference's layouts and key paths: AdamW ``{"mu", "nu",
+"count"}``, Adafactor ``{"m": {path: {"vr", "vc"} | {"v"}}, "count"}``
+(factored second moments for leaves whose last two dims are both at least
+``min_dim_size_to_factor``; no first moment), SGDM ``{"v"}`` with no step
+count. The step count is a Python int; the scalars the reference computes
+from it in fp32 (bias corrections, Adafactor's decay) are rounded to fp32
+here too, so each is then an exact Python scalar.
 """
 from __future__ import annotations
 
@@ -42,8 +50,6 @@ def make_adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
                                 max=1.0)
             grads = {k: g * scale for k, g in grads.items()}
         c = state["count"] + 1
-        # bias corrections and the rate rounded to fp32, as the reference
-        # computes them (each is then an exact Python scalar)
         f32 = np.float32
         bc1 = float(f32(1) - f32(b1) ** f32(c))
         bc2 = float(f32(1) - f32(b2) ** f32(c))
@@ -64,10 +70,90 @@ def make_adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
     return Optimizer(init, update)
 
 
+def make_adafactor(eps=1e-30, clip_threshold=1.0, decay_rate=0.8,
+                   weight_decay=0.0, min_dim_size_to_factor=128) -> Optimizer:
+    """Adafactor (Shazeer & Stern, 2018): row and column means of the
+    squared gradient for matrices, a full second moment otherwise; the
+    update is clipped by its RMS over the whole leaf."""
+    def _factored(shape) -> bool:
+        return len(shape) >= 2 and shape[-1] >= min_dim_size_to_factor \
+            and shape[-2] >= min_dim_size_to_factor
+
+    def init(params: Tree) -> dict:
+        def leaf(p):
+            if _factored(p.shape):
+                return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32,
+                                          device=p.device),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                          dtype=torch.float32,
+                                          device=p.device)}
+            return {"v": torch.zeros_like(p, dtype=torch.float32)}
+        return {"m": {k: leaf(p) for k, p in params.items()}, "count": 0}
+
+    def update(grads: Tree, state: dict, params: Tree, lr, mask=None):
+        c = state["count"] + 1
+        f32 = np.float32
+        beta = f32(1) - f32(c) ** f32(-decay_rate)
+        keep, beta = float(f32(1) - beta), float(beta)
+        lr = float(f32(lr))
+        new_m, new = {}, {}
+        for k, p in params.items():
+            g = grads[k].to(torch.float32)
+            g2 = torch.square(g) + eps
+            st = state["m"][k]
+            if "vr" in st:
+                vr = beta * st["vr"] + keep * torch.mean(g2, dim=-1)
+                vc = beta * st["vc"] + keep * torch.mean(g2, dim=-2)
+                denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
+                                    min=eps)
+                pre = (vr / denom)[..., None] * vc[..., None, :]
+                u = g * torch.rsqrt(pre + eps)
+                new_m[k] = {"vr": vr, "vc": vc}
+            else:
+                v = beta * st["v"] + keep * g2
+                u = g * torch.rsqrt(v + eps)
+                new_m[k] = {"v": v}
+            # update clipping by RMS
+            rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
+            u = u / torch.clamp(rms / clip_threshold, min=1.0)
+            upd = -lr * (u + weight_decay * p.to(torch.float32))
+            if mask is not None:
+                upd = upd * mask[k]
+            new[k] = (p + upd).to(p.dtype)
+        return new, {"m": new_m, "count": c}
+
+    return Optimizer(init, update)
+
+
+def make_sgdm(momentum=0.9, weight_decay=0.0) -> Optimizer:
+    """SGD with momentum (the supervised FL baseline): v <- momentum v + g
+    + wd p, p <- p - lr v."""
+    def init(params: Tree) -> dict:
+        return {"v": {k: torch.zeros_like(p, dtype=torch.float32)
+                      for k, p in params.items()}}
+
+    def update(grads: Tree, state: dict, params: Tree, lr, mask=None):
+        lr = float(np.float32(lr))
+        vs, new = {}, {}
+        for k, p in params.items():
+            v = momentum * state["v"][k] + grads[k].to(torch.float32) \
+                + weight_decay * p.to(torch.float32)
+            u = -lr * v
+            if mask is not None:
+                u = u * mask[k]
+            vs[k] = v
+            new[k] = (p + u).to(p.dtype)
+        return new, {"v": vs}
+
+    return Optimizer(init, update)
+
+
 def make_optimizer(train_cfg) -> Optimizer:
     if train_cfg.optimizer == "adamw":
         return make_adamw(train_cfg.b1, train_cfg.b2, train_cfg.eps,
                           train_cfg.weight_decay, train_cfg.grad_clip)
-    raise NotImplementedError(
-        f"optimizer '{train_cfg.optimizer}' is not ported yet (the port has "
-        f"adamw; adafactor and sgdm come with a later slice)")
+    if train_cfg.optimizer == "adafactor":
+        return make_adafactor(weight_decay=train_cfg.weight_decay)
+    if train_cfg.optimizer == "sgdm":
+        return make_sgdm(weight_decay=train_cfg.weight_decay)
+    raise ValueError(train_cfg.optimizer)

@@ -122,6 +122,9 @@ BF16_CASES = [
     (1, 1000, 1000, 2, 2, 128, False, 0, 777),
     (2, 17, 130, 2, 2, 64, False, 0, None),
     (1, 129, 1000, 2, 1, 128, False, 100, 900),
+    # the dense LM's attention (internlm2-1.8b: 16 q heads over 8 kv heads
+    # of 128, causal, 4 x 1024 tokens)
+    (4, 1024, 1024, 16, 8, 128, True, 0, None),
 ]
 
 
