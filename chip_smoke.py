@@ -137,6 +137,37 @@ Phases, each of which must pass (any failure exits non-zero):
    ``launch.steps.make_fl_round_program``): launches equal to the plan's,
    peak memory, and the vmap engine's losses within half a bf16 step
    (2^-9, relative) of the sequential engine's.
+2j. xLSTM LM: LW-FedSSL on xlstm-125m at its published widths and depth
+   (d 768, 4 heads, mLSTM inner width 1536 in heads of 384, 12 blocks in
+   2 stage groups of 5 mLSTM + 1 sLSTM, vocab 50304, untied head, bf16
+   compute; 190,670,672 parameters, no cut): ``run_lm_fedssl``, 4
+   clients, 4 rounds, batch 4 x 1024 tokens, 64 sequences, fp32 wire, on
+   the sequential and then the vmap engine from the same draws. Finite
+   losses, wire bytes equal to the analytic bytes, RMSNorm, InfoNCE and
+   pack/unpack launches equal to the plan's and no attention launch
+   (``xlstm_expected_launches``), seconds per round and peak memory; the
+   sequential run again from the same seed, bit-identical; ``lm_ssl_loss``
+   card against CPU at fp32 (stage 1, 2 x 512 tokens: the chunkwise
+   mLSTM, 2 chunks); the share of a stage-2 local step that its four
+   sLSTM layer calls take (CUDA events); the vmap engine's losses within
+   2^-9 (relative) of the sequential engine's.
+2k. encoder-decoder: seamless-m4t-medium at its published widths (d
+   1024, 16 heads of 64, SwiGLU d_ff 4096, vocab 256206, untied head,
+   512 frame embeddings from the frontend stub, drawn from the phase's
+   seed). (a) ``launch.steps.make_train_step`` (train_lw) at full depth,
+   12 encoder + 12 decoder blocks (977,758,208 parameters), one client,
+   3 steps of batch 2 x 1024 tokens, AdamW: finite losses and updated
+   parameters, ms per step, peak memory. (b) ``make_fl_round_program``
+   with depth cut to 4 + 4 blocks (675,727,360 parameters, 4 stages), 2
+   clients of 16 samples, 4 rounds of LW-FedSSL at batch 2 x 1024 tokens
+   + 512 frames, driven round by round with ``transfer_model`` at each
+   new stage and the fp32 transport: wire bytes equal to the analytic
+   bytes every round; attention launches counted apart (encoder,
+   decoder self-attention, cross attention), RMSNorm, InfoNCE and
+   pack/unpack launches equal to the plan's
+   (``encdec_expected_launches``); peak memory; then the
+   encoder-decoder's loss with alignment card against CPU at fp32 (the
+   last stage, 2 x 256 tokens).
 3. reference: one SSL loss at full width on 8 images, fp32 compute, on the
    card (kernels) against the CPU (plain PyTorch versions); then one
    ``lm_ssl_loss`` with alignment on the trained zamba2 model, one stage
@@ -167,7 +198,14 @@ Phases, each of which must pass (any failure exits non-zero):
    LM's (4, 1024, 16/8, 128) bf16 (GQA), against
    ``F.scaled_dot_product_attention(enable_gqa=True)``; RMSNorm at (4096,
    2560), (4096, 5120) and (4096, 2048); InfoNCE at (1, 4, 2560), with
-   the two-call yardstick, and at widths above 4096.
+   the two-call yardstick, and at widths above 4096. Phases 2j and 2k's
+   shapes: non-causal bf16 attention over seamless-m4t's 16 heads of 64,
+   cross attention (2, 1024 queries over 512 keys) and the encoder's (2,
+   512), against ``ref.sdpa_ref`` (2e-2) and beside
+   ``F.scaled_dot_product_attention``; RMSNorm at (4096, 1536) in bf16
+   (the mLSTM's inner norm) beside ``F.rms_norm``; InfoNCE at (1, 4, 768)
+   and (1, 2, 1024); pack and unpack bit-identical on every xLSTM and
+   encoder-decoder payload layout of their plans, timed at the largest.
 
 With ``--profile``, a fifth phase traces one local step of the last stage
 with ``torch.profiler``, of one client and of four at once (the vmap
@@ -244,6 +282,12 @@ PATH_KERNELS = {
     "byol_adafactor": MAIN_KERNELS,
     "lm_dense": MAIN_KERNELS,
     "lm_vmap": MAIN_KERNELS,
+    # the xLSTM launches no attention
+    "lm_xlstm": ("gather_pack", "scatter_unpack", "rmsnorm_rows",
+                 "info_nce_rows", "info_nce_rows_dq"),
+    "lm_xlstm_vmap": ("gather_pack", "scatter_unpack", "rmsnorm_rows",
+                      "info_nce_rows", "info_nce_rows_dq"),
+    "encdec": MAIN_KERNELS,
 }
 TOPK_ROUNDS_PER_STAGE = (1,) * 11 + (3,)
 # phase 2d: zamba2-2.7b at full width, 2 stage groups of 6 Mamba2 blocks
@@ -673,7 +717,6 @@ def lm_path(device, *, clients, rounds, batch, seq_len, samples, seed=0,
     from repro_torch.configs.base import FLConfig, TrainConfig
     from repro_torch.core import schedule as sched
     from repro_torch.data.partition import iid_partition
-    from repro_torch.data.synthetic import synthetic_tokens
     from repro_torch.federated.driver import run_lm_fedssl
     from repro_torch.models import lm
 
@@ -681,10 +724,8 @@ def lm_path(device, *, clients, rounds, batch, seq_len, samples, seed=0,
     fl = FLConfig(num_clients=clients, rounds=rounds, local_epochs=1,
                   schedule="lw_fedssl", seed=seed)
     tc = TrainConfig(batch_size=batch, base_lr=3e-4)
-    gen = torch.Generator(device).manual_seed(seed)
-    toks, labs = synthetic_tokens(gen, samples, seq_len, cfg.vocab_size)
+    toks, labs, params = lm_init(device, cfg, samples, seq_len, seed)
     shards = iid_partition(samples, clients, seed=seed)
-    params = lm.init_lm(cfg, gen, device)
     print(f"  {cfg.arch_id}: {cfg.num_layers} blocks in "
           f"{lm.num_stages(cfg)} stages, d {cfg.d_model}, "
           f"{sum(t.numel() for t in params.values())} parameters; {engine} "
@@ -706,6 +747,17 @@ def lm_path(device, *, clients, rounds, batch, seq_len, samples, seed=0,
             sched.build_schedule(fl, lm.num_stages(cfg)), steps, toks)
 
 
+def lm_init(device, cfg, samples, seq_len, seed=0):
+    """``lm_path``'s tokens, labels and initial parameters, from ``seed``."""
+    import torch
+    from repro_torch.data.synthetic import synthetic_tokens
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device).manual_seed(seed)
+    toks, labs = synthetic_tokens(gen, samples, seq_len, cfg.vocab_size)
+    return toks, labs, lm.init_lm(cfg, gen, device)
+
+
 def lm_expected_launches(cfg, plans, steps):
     """(ssd_scan, flash_attention) launches the LM path's plan implies:
     per local step at stage s, s groups of ``attn_every`` scans and one
@@ -720,13 +772,13 @@ def lm_expected_launches(cfg, plans, steps):
     return scans, attns
 
 
-def lm_pack_checks(params, plans):
-    """gather_pack and scatter_unpack against their plain versions on the
+def lm_pack_checks(params, plans, tag="lm", label="LM"):
+    """gather_pack and scatter_unpack against their plain versions on an
     LM path's own payloads: every distinct download and upload layout of
-    ``plans`` over the trained zamba tree (the (groups, attn_every, ...)
-    block stacks, shared_attn, embed, lm_head, final_ln), bit-identical;
-    unpack of a random payload into fresh leaves. Times at the largest
-    payload. Returns {name: record}."""
+    ``plans`` over the trained tree (for zamba the (groups, attn_every,
+    ...) block stacks, shared_attn, embed, lm_head, final_ln),
+    bit-identical; unpack of a random payload into fresh leaves. Times at
+    the largest payload. Returns {name_<tag>: record}."""
     import torch
     from repro_torch.federated.transport import Transport
     from repro_torch.kernels import ops, ref
@@ -742,49 +794,49 @@ def lm_pack_checks(params, plans):
             if f"stage {plan.stage} {direction}" not in names:
                 names.append(f"stage {plan.stage} {direction}")
     specs = [(" = ".join(names), spec) for names, spec in specs.values()]
-    for what, spec in specs:
+    for where, spec in specs:
         leaves = [params["/".join(s.path)] for s in spec.slots]
         flat = ops.wire_pack(leaves, spec.layout, spec.total)
         err = max_err(flat, ref.wire_pack_ref(leaves, spec.layout,
                                               spec.total))
-        print(f"  gather_pack LM {what} ({spec.total} floats in "
+        print(f"  gather_pack {label} {where} ({spec.total} floats in "
               f"{len(spec.slots)} slots): max |kernel - plain| = {err:.3e} "
               f"(tolerance 0)", flush=True)
-        check(err == 0.0, f"gather_pack LM {what}: error {err}")
+        check(err == 0.0, f"gather_pack {label} {where}: error {err}")
         del flat
         new = torch.randn(spec.total, generator=gen, device=dev)
         err = max_err(ops.wire_unpack(new, leaves, spec.layout),
                       ref.wire_unpack_ref(new, leaves, spec.layout))
-        print(f"  scatter_unpack LM {what}: max |kernel - plain| = "
+        print(f"  scatter_unpack {label} {where}: max |kernel - plain| = "
               f"{err:.3e} (tolerance 0)", flush=True)
-        check(err == 0.0, f"scatter_unpack LM {what}: error {err}")
+        check(err == 0.0, f"scatter_unpack {label} {where}: error {err}")
         del new
-    what, spec = max(specs, key=lambda ws: ws[1].total)
+    where, spec = max(specs, key=lambda ws: ws[1].total)
     leaves = [params["/".join(s.path)] for s in spec.slots]
     leaf_bytes = 4 * sum(t.numel() for t in leaves)
     slices = [t.reshape(-1)[a:a + n] for t, (a, _, n) in
               zip(leaves, spec.layout)]
     new = torch.randn(spec.total, generator=gen, device=dev)
-    rec = {"gather_pack_lm": dict(
-        max_abs_err=0.0,
+    rec = {f"gather_pack_{tag}": dict(
+        kernel="gather_pack", max_abs_err=0.0,
         ms=time_ms([lambda: ops.wire_pack(leaves, spec.layout, spec.total)]),
         plain_ms=time_ms([lambda: ref.wire_pack_ref(leaves, spec.layout,
                                                     spec.total)]),
         library_ms=time_ms([lambda: torch.cat(slices)]),
         bound_ms=2 * 4 * spec.total / mesh.HBM_BW * 1e3, bound_by="bytes",
-        shape=f"LM {what} payload {spec.total} fp32 in {len(leaves)} "
-              f"slots"),
-        "scatter_unpack_lm": dict(
-        max_abs_err=0.0,
+        shape=f"{label} {where} payload {spec.total} fp32 in "
+              f"{len(leaves)} slots"),
+        f"scatter_unpack_{tag}": dict(
+        kernel="scatter_unpack", max_abs_err=0.0,
         ms=time_ms([lambda: ops.wire_unpack(new, leaves, spec.layout)]),
         plain_ms=time_ms([lambda: ref.wire_unpack_ref(new, leaves,
                                                       spec.layout)]),
         library_ms=None,
         bound_ms=2 * leaf_bytes / mesh.HBM_BW * 1e3, bound_by="bytes",
-        shape=f"LM {what} payload {spec.total} fp32 into "
+        shape=f"{label} {where} payload {spec.total} fp32 into "
               f"{leaf_bytes // 4} leaf elements")}
     for name, r in rec.items():
-        print(f"  LM shapes, {name} [{r['shape']}]: kernel {r['ms']} ms, "
+        print(f"  {label} shapes, {name} [{r['shape']}]: kernel {r['ms']} ms, "
               f"plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
               f"bound {r['bound_ms']} ms ({r['bound_by']})", flush=True)
     return rec
@@ -821,14 +873,20 @@ def dense_expected_launches(plans, steps, engine="sequential"):
     one dq; the vmap engine launches once a batched step (the largest
     client's step count). Every round packs and unpacks the download once
     and each client's upload once."""
+    return stack_expected_launches(plans, steps, engine, norms=2, attns=1)
+
+
+def stack_expected_launches(plans, steps, engine, *, norms, attns):
+    """The launches of an LM path whose stage runs ``norms`` RMSNorms and
+    ``attns`` attentions (see ``dense_expected_launches``)."""
     out = dict.fromkeys(("flash_attention", "rmsnorm_rows", "info_nce_rows",
                          "info_nce_rows_dq", "gather_pack",
                          "scatter_unpack"), 0)
     n = max(steps) if engine == "vmap" else sum(steps)
     for plan in plans:
         passes, s = 1 + plan.align, plan.sub_layers
-        out["flash_attention"] += n * passes * s
-        out["rmsnorm_rows"] += n * passes * (2 * s + 1)
+        out["flash_attention"] += n * passes * s * attns
+        out["rmsnorm_rows"] += n * passes * (norms * s + 1)
         out["info_nce_rows"] += n * plan.align
         out["info_nce_rows_dq"] += n * plan.align
         out["gather_pack"] += 1 + len(steps)
@@ -932,6 +990,484 @@ def check_launches(what, got, want):
     for name, n in want.items():
         check(got[name] == n, f"{what}: {name} launched {got[name]} times, "
                               f"the plan implies {n}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2j: the xLSTM LM
+# ---------------------------------------------------------------------------
+# xlstm-125m at its published widths and depth: 12 blocks in 2 groups of 5
+# mLSTM + 1 sLSTM, no cut
+XLSTM_ARCH = "xlstm-125m"
+XLSTM_RUN = dict(clients=4, rounds=4, batch=4, seq_len=1024, samples=64)
+# its parameters by the reference's init_lm (its config's param_count()
+# says 133,926,912)
+XLSTM_PARAMS = 190670672
+# bf16 compute: both engines compute each client's step from the same
+# parameters and batches, in batched (vmap) or single products summed in
+# another order. The losses measured 5.2e-5 to 9.2e-5 apart (relative) on
+# an H100. The runs' parameter updates (``update_gap``) measured 0.101
+# apart there: AdamW moves each element by about its rate whatever the
+# gradient's size, so the elements whose gradient is near bf16 rounding
+# noise move apart. A vmap engine that drops each client's last step
+# measured 0.241 (the reduced xLSTM in bf16 on the CPU, where the sound
+# engines are 0.0065 apart), so the limit sits between
+XLSTM_VMAP_RTOL = 5e-4
+XLSTM_VMAP_UPDATE_GAP = 0.17
+
+
+def xlstm_config(**kw):
+    from repro_torch.configs.base import load_arch
+    return dataclasses.replace(load_arch(XLSTM_ARCH), **kw)
+
+
+def xlstm_expected_launches(cfg, plans, steps, engine="sequential"):
+    """The xLSTM path's launches its plan implies: a stage is one group of
+    ``slstm_every - 1`` mLSTM blocks (two RMSNorms each: the block's and
+    the inner norm at d_inner) and one sLSTM block (one RMSNorm; its
+    LayerNorm is plain PyTorch, as in the reference), no attention; the
+    rest as ``dense_expected_launches``."""
+    per = cfg.xlstm.slstm_every
+    return stack_expected_launches(plans, steps, engine,
+                                   norms=2 * (per - 1) + 1, attns=0)
+
+
+def stage2_step(cfg, params, tokens, batch):
+    """A closure running one stage-2 local step (``lm_train_step`` with the
+    alignment, group 1 frozen) from ``params`` on the first ``batch``
+    sequences; it returns (new params, metrics)."""
+    import torch
+    from repro_torch.federated.client import lm_train_step
+    from repro_torch.launch.steps import ALIGN_WEIGHT
+    from repro_torch.optim import make_optimizer
+    from repro_torch.configs.base import TrainConfig
+
+    opt = make_optimizer(TrainConfig(batch_size=batch))
+    tok = tokens[:batch]
+    b = {"tokens": tok, "labels": torch.roll(tok, -1, dims=1)}
+
+    def step():
+        new, _, metrics = lm_train_step(
+            params, opt.init(params), b, 1e-5, cfg=cfg, opt=opt,
+            sub_layers=2, active_from=1, global_params=params,
+            align_weight=ALIGN_WEIGHT)
+        return new, metrics
+    return step
+
+
+def check_step_repeat(what, step):
+    """``step`` twice from the same state: the loss and every updated
+    parameter must repeat to the bit."""
+    import torch
+    (p1, m1), (p2, m2) = step(), step()
+    same = (float(m1["loss"]) == float(m2["loss"])
+            and all(torch.equal(p1[k], p2[k]) for k in p1))
+    print(f"  {what}: one stage-2 local step twice from the same state, "
+          f"loss {float(m1['loss'])} / {float(m2['loss'])}; loss and all "
+          f"{len(p1)} updated leaves bit-identical {same}", flush=True)
+    check(same, f"{what}: the local step does not repeat")
+
+
+def slstm_share(cfg, params, step, batch, seq_len, dev="cuda"):
+    """The share of one stage-2 local step (``step``, from
+    ``stage2_step``) that the step's four sLSTM layer calls take, by CUDA
+    events: the frozen group's and the global model's two forwards without
+    gradient, and the trained group's forward and backward, each timed
+    alone at the step's shapes. Returns (step ms, sLSTM ms, share)."""
+    import torch
+    from repro_torch.convert import subtree
+    from repro_torch.models import blocks
+
+    sp = {k: v[1] for k, v in subtree(params, "slstm").items()}
+    gen = torch.Generator(dev).manual_seed(4)
+    x = torch.randn((batch, seq_len, cfg.d_model), generator=gen,
+                    device=dev)
+
+    def fwd():
+        with torch.no_grad():
+            blocks.block_apply(sp, x, cfg, "slstm")
+
+    def fwd_bwd():
+        p = {k: v.detach().requires_grad_() for k, v in sp.items()}
+        xr = x.detach().requires_grad_()
+        out = blocks.block_apply(p, xr, cfg, "slstm")
+        torch.autograd.grad(out.float().sum(), [xr, *p.values()])
+
+    def ms(fn, reps=2):
+        fn()
+        torch.cuda.synchronize()
+        a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        return a.elapsed_time(e) / reps
+
+    t_step, t_fwd, t_both = ms(step), ms(fwd), ms(fwd_bwd)
+    t_slstm = 3 * t_fwd + t_both
+    return t_step, t_slstm, t_slstm / t_step
+
+
+def update_gap(init, got, want) -> float:
+    """How far two runs from ``init`` moved apart: the L1 norm of ``got -
+    want`` over that of ``want - init``, on what no stage's weight transfer
+    overwrites (every leaf outside ``TRANSFER_STACKS`` and the stacks'
+    first row), so that ``want - init`` is training alone. L1, because
+    AdamW moves an element whose gradient is rounding noise by up to its
+    rate either way: the few such elements weigh on an L2 norm."""
+    from repro_torch.core.schedule import TRANSFER_STACKS
+    heads = tuple(f"{s}/" for s in TRANSFER_STACKS)
+    num = den = 0.0
+    for k in want:
+        g, w, i = (t[k][:1] if k.startswith(heads) else t[k]
+                   for t in (got, want, init))
+        num += float((g.double() - w.double()).abs().sum())
+        den += float((w.double() - i.double()).abs().sum())
+    return num / den
+
+
+def xlstm_phase(dev="cuda"):
+    """Phase 2j. Returns ({path: launch counts}, {name: kernel record at
+    the xLSTM's payloads})."""
+    import torch
+    from repro_torch.kernels import ops
+
+    launches, runs, finals, rec = {}, {}, {}, {}
+    for engine in ("sequential", "vmap"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        cfg, params, hist, secs, plans, steps, toks = lm_path(
+            dev, cfg=xlstm_config(), engine=engine, **XLSTM_RUN)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        n_params = sum(t.numel() for t in params.values())
+        check(n_params == XLSTM_PARAMS, f"{cfg.arch_id} holds {n_params} "
+                                        f"parameters, not {XLSTM_PARAMS}")
+        path = "lm_xlstm" if engine == "sequential" else "lm_xlstm_vmap"
+        launches[path] = got
+        runs[engine] = hist.loss
+        finals[engine] = params
+        check(len(hist.loss) == XLSTM_RUN["rounds"]
+              and hist.round_stage == [p.stage for p in plans],
+              f"xLSTM rounds {hist.round_stage}")
+        check(all(math.isfinite(x) for x in hist.loss),
+              f"non-finite xLSTM loss: {hist.loss}")
+        check(hist.wire_download_bytes == hist.download_bytes
+              and hist.wire_upload_bytes == hist.upload_bytes,
+              f"xLSTM {engine}: wire bytes differ from the analytic")
+        print(f"  xLSTM, {engine} engine: seconds per round "
+              f"{[round(x, 3) for x in secs]}; losses {hist.loss}; wire bytes "
+              f"equal analytic bytes in all {len(hist.loss)} rounds: "
+              f"download {hist.wire_download_bytes}, upload "
+              f"{hist.wire_upload_bytes} per client; {peak_line(base)}",
+              flush=True)
+        want = xlstm_expected_launches(cfg, plans, steps, engine)
+        check_launches(f"xLSTM {engine}", got, want)
+        check(got["flash_attention"] == 0,
+              "attention launched on the xLSTM path")
+        if engine == "sequential":
+            rels = lm_reference_check(params, toks, cfg=cfg)
+            print(f"  xLSTM lm_ssl_loss at full width, stage 1, 2 x 512 "
+                  f"tokens (the chunkwise mLSTM, 2 chunks), fp32, card "
+                  f"against CPU: relative differences {rels} (tolerance "
+                  f"1e-4)", flush=True)
+            check(all(v <= 1e-4 for v in rels.values()),
+                  "xLSTM: card and CPU disagree")
+            # the run's own repeat is 2d's and 2i's (the same driver);
+            # here the xLSTM's step, whose sLSTM loop dominates the phase
+            step = stage2_step(cfg, params, toks, XLSTM_RUN["batch"])
+            check_step_repeat("xLSTM", step)
+            t_step, t_slstm, share = slstm_share(
+                cfg, params, step, XLSTM_RUN["batch"], XLSTM_RUN["seq_len"],
+                dev)
+            del step
+            print(f"  xLSTM stage-2 local step (batch "
+                  f"{XLSTM_RUN['batch']} x {XLSTM_RUN['seq_len']}, with the "
+                  f"alignment): {t_step:.2f} ms; its four sLSTM layer calls "
+                  f"(3 forwards without gradient, 1 forward and backward), "
+                  f"timed alone: {t_slstm:.2f} ms, {100 * share:.1f}% of "
+                  f"the step", flush=True)
+            rec = lm_pack_checks(params, plans, "xlstm", "xLSTM")
+        del params
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["vmap"],
+                                                  runs["sequential"]))
+    print(f"  xLSTM engines: largest relative loss difference {rel:.3e} "
+          f"(tolerance {XLSTM_VMAP_RTOL:.3e})", flush=True)
+    check(rel <= XLSTM_VMAP_RTOL,
+          f"xLSTM engines disagree: {runs['vmap']} / {runs['sequential']}")
+    init = lm_init(dev, cfg, XLSTM_RUN["samples"], XLSTM_RUN["seq_len"])[2]
+    gap = update_gap(init, finals["vmap"], finals["sequential"])
+    print(f"  xLSTM engines: parameter updates over the run apart by "
+          f"{gap:.4e} of the sequential update's L1 norm (tolerance "
+          f"{XLSTM_VMAP_UPDATE_GAP})", flush=True)
+    check(gap <= XLSTM_VMAP_UPDATE_GAP,
+          f"xLSTM engines' updates {gap} apart")
+    return launches, rec
+
+
+# ---------------------------------------------------------------------------
+# phase 2k: the encoder-decoder
+# ---------------------------------------------------------------------------
+# seamless-m4t-medium at its published widths: (a) full depth (12 encoder +
+# 12 decoder blocks), one client's train_lw step; (b) the round program at
+# 4 + 4 blocks (depth cut to fit two clients' vmap step on one card)
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_STEP = dict(batch=2, seq_len=1024, steps=3)
+ENCDEC_ROUNDS = dict(layers=4, clients=2, rounds=4, batch=2, seq_len=1024,
+                     samples=16)
+# the parameters of (a) and (b), by the reference's init_encdec
+ENCDEC_PARAMS = (977758208, 675727360)
+
+
+def encdec_config(layers=None, **kw):
+    from repro_torch.configs.base import load_arch
+    cfg = load_arch(ENCDEC_ARCH)
+    if layers is not None:
+        kw = dict(num_layers=layers, dec_layers=layers, **kw)
+    return dataclasses.replace(cfg, **kw)
+
+
+def encdec_data(cfg, n, seq_len, gen):
+    """n token sequences and n x frontend_embed_len frame embeddings."""
+    import torch
+    from repro_torch.data.synthetic import synthetic_tokens
+    toks, labs = synthetic_tokens(gen, n, seq_len, cfg.vocab_size)
+    frames = torch.randn((n, cfg.frontend_embed_len, cfg.d_model),
+                         generator=gen, device=toks.device)
+    return {"tokens": toks, "labels": labs, "frontend": frames}
+
+
+class AttentionKinds:
+    """Counts the encoder-decoder's attention calls by kind while it is
+    entered, by wrapping ``ops.flash_attention``: causal (the decoder's
+    self-attention), non-causal over as many keys as queries (the
+    encoder's) and non-causal over another count (cross attention). Each
+    call launches the kernel once on the card, under vmap too."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(("encoder", "decoder_self", "cross"), 0)
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._ops, self._orig = ops, ops.flash_attention
+
+        def counted(q, k, v, **kw):
+            kind = ("decoder_self" if kw.get("causal", True) else
+                    "encoder" if q.shape[-3] == k.shape[-3] else "cross")
+            self.counts[kind] += 1
+            return self._orig(q, k, v, **kw)
+
+        ops.flash_attention = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.flash_attention = self._orig
+
+
+def encdec_expected_launches(cfg, plans, steps):
+    """The round program's launches its plan implies, per batched step at
+    stage s (every client's step at once, ``max(steps)`` a round): the
+    loss encodes s blocks (an attention and two RMSNorms each, then the
+    encoder's RMSNorm) and, where the plan aligns, encodes again from the
+    local and from the global parameters (as the reference does); the
+    decoder runs every block once (self-attention, cross attention, three
+    RMSNorms) and the final RMSNorm; the alignment is one InfoNCE forward
+    and one dq. Every round packs and unpacks the download once and each
+    client's upload once."""
+    L = cfg.dec_layers
+    out = dict.fromkeys(("encoder", "decoder_self", "cross", "rmsnorm_rows",
+                         "info_nce_rows", "info_nce_rows_dq", "gather_pack",
+                         "scatter_unpack"), 0)
+    n = max(steps)
+    for plan in plans:
+        passes, s = 1 + 2 * plan.align, plan.sub_layers
+        out["encoder"] += n * passes * s
+        out["decoder_self"] += n * L
+        out["cross"] += n * L
+        out["rmsnorm_rows"] += n * (passes * (2 * s + 1) + 3 * L + 1)
+        out["info_nce_rows"] += n * plan.align
+        out["info_nce_rows_dq"] += n * plan.align
+        out["gather_pack"] += 1 + len(steps)
+        out["scatter_unpack"] += 1 + len(steps)
+    return out
+
+
+def encdec_phase(dev="cuda"):
+    """Phase 2k. Returns ({path: launch counts}, {name: kernel record at
+    the 4 + 4 encoder-decoder's payloads})."""
+    import torch
+    from repro_torch.configs.base import FLConfig, TrainConfig
+    from repro_torch.core import schedule as sched
+    from repro_torch.data.partition import iid_partition, stack_shards
+    from repro_torch.federated import aggregate, comm
+    from repro_torch.federated.driver import _lm_batch_plan
+    from repro_torch.federated.transport import Transport
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.models import encdec
+    from repro_torch.optim.schedules import learning_rate, scaled_base_lr
+
+    # (a) make_train_step at full depth
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = encdec_config()
+    gen = torch.Generator(dev).manual_seed(0)
+    params = encdec.init_encdec(cfg, gen, dev)
+    n_params = sum(t.numel() for t in params.values())
+    print(f"  (a) {cfg.arch_id}: {cfg.num_layers} encoder + "
+          f"{cfg.dec_layers} decoder blocks, d {cfg.d_model}, {n_params} "
+          f"parameters; make_train_step (train_lw: the last encoder block "
+          f"trained, alignment on the encoder memory), AdamW, batch "
+          f"{ENCDEC_STEP['batch']} x {ENCDEC_STEP['seq_len']} tokens + "
+          f"{cfg.frontend_embed_len} frames", flush=True)
+    check(n_params == ENCDEC_PARAMS[0], f"seamless-m4t-medium holds "
+                                        f"{n_params} parameters, not "
+                                        f"{ENCDEC_PARAMS[0]}")
+    B = ENCDEC_STEP["batch"]
+    data = encdec_data(cfg, B * ENCDEC_STEP["steps"], ENCDEC_STEP["seq_len"],
+                       gen)
+    step, opt = lsteps.make_train_step(cfg, TrainConfig(batch_size=B),
+                                       mode="train_lw", lr=1e-4)
+    p, o = params, opt.init(params)
+    losses, times = [], []
+    for i in range(ENCDEC_STEP["steps"]):
+        batch = {k: v[i * B:(i + 1) * B] for k, v in data.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, batch, params)
+        losses.append(float(m["loss"]))
+        times.append(1e3 * (time.perf_counter() - t0))
+    trained = [k for k, v in p.items() if not torch.equal(v, params[k])]
+    finite = all(bool(torch.isfinite(v).all()) for v in p.values())
+    print(f"  (a) losses {losses}; ms per step {[round(t, 1) for t in times]}"
+          f"; {len(trained)} leaves updated, all finite {finite}; "
+          f"{peak_line(base)}", flush=True)
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(finite and trained, "the full-depth step left non-finite or no "
+                              "updated parameters")
+    del p, o, params, data, step, opt
+    torch.cuda.empty_cache()
+
+    # (b) make_fl_round_program at 4 + 4 blocks, LW-FedSSL over the wire
+    R = ENCDEC_ROUNDS
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = encdec_config(R["layers"])
+    gen = torch.Generator(dev).manual_seed(1)
+    params = encdec.init_encdec(cfg, gen, dev)
+    n_params = sum(t.numel() for t in params.values())
+    S = lsteps._stages(cfg)
+    print(f"  (b) {cfg.arch_id} cut to {cfg.num_layers} + {cfg.dec_layers} "
+          f"blocks (from 12 + 12; widths unchanged): {n_params} parameters, "
+          f"{S} stages; make_fl_round_program, {R['clients']} clients, "
+          f"{R['rounds']} rounds of LW-FedSSL, batch {R['batch']} x "
+          f"{R['seq_len']} tokens + {cfg.frontend_embed_len} frames, "
+          f"{R['samples']} samples a client, fp32 wire", flush=True)
+    check(n_params == ENCDEC_PARAMS[1], f"the 4 + 4 cut holds {n_params} "
+                                        f"parameters, not {ENCDEC_PARAMS[1]}")
+    n = R["clients"] * R["samples"]
+    data = encdec_data(cfg, n, R["seq_len"], gen)
+    shards = iid_partition(n, R["clients"], seed=0)
+    pool = {k: stack_shards(v, shards)[0] for k, v in data.items()}
+    batch_idx, valid = (t.to(dev) for t in _lm_batch_plan(
+        [torch.as_tensor(ix) for ix in shards], R["batch"], 1))
+    nsteps = [max(1, len(ix) // R["batch"]) for ix in shards]
+    fl = FLConfig(num_clients=R["clients"], rounds=R["rounds"],
+                  local_epochs=1, schedule="lw_fedssl")
+    tc = TrainConfig(batch_size=R["batch"], base_lr=3e-4)
+    plans = sched.build_schedule(fl, S)
+    base_lr = scaled_base_lr(tc.base_lr, tc.batch_size)
+    w = aggregate.client_weights([len(ix) for ix in shards])
+    wire = Transport("fp32")
+    secs, losses = [], []
+    ops.reset_launch_counts()
+    with AttentionKinds() as kinds:
+        for plan in plans:
+            t0 = time.perf_counter()
+            if plan.new_stage:
+                params = sched.transfer_model(params, plan.stage)
+            lr = learning_rate(plan.round_idx, fl.rounds, base_lr,
+                               tc.lr_schedule)
+            dparams, down = wire.broadcast(params, plan)
+            round_fn, _ = lsteps.make_fl_round_program(
+                cfg, tc, sub_layers=plan.sub_layers,
+                active_from=plan.active_from, align=plan.align,
+                transport=wire, plan=plan)
+            params, lvec, up = round_fn(
+                {"params": dparams, "server": params,
+                 "global_params": dparams if plan.align else None},
+                pool, batch_idx, valid, w, lr)
+            cb = comm.round_comm_bytes(params, plan)
+            losses.append(lvec.tolist())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            check(down["wire_bytes"] == cb["download"]
+                  and up["wire_bytes"] == cb["upload"],
+                  f"encoder-decoder round {plan.round_idx + 1}: wire bytes "
+                  f"{down['wire_bytes']} / {up['wire_bytes']}, analytic "
+                  f"{cb['download']} / {cb['upload']}")
+            print(f"  (b) round {plan.round_idx + 1} stage {plan.stage}: "
+                  f"client losses {lvec.tolist()}; wire bytes equal analytic:"
+                  f" download {cb['download']}, upload {cb['upload']}; "
+                  f"{secs[-1]:.3f} s", flush=True)
+    torch.cuda.synchronize()
+    got = {**ops.launch_counts(), **kinds.counts}
+    print(f"  (b) {peak_line(base)}", flush=True)
+    check(all(math.isfinite(x) for r in losses for x in r),
+          f"non-finite encoder-decoder losses {losses}")
+    want = encdec_expected_launches(cfg, plans, nsteps)
+    check_launches("encoder-decoder", got, want)
+    check(got["flash_attention"] == sum(kinds.counts.values()),
+          "attention launches and calls differ")
+
+    # encdec_loss with alignment, card against CPU at fp32
+    rels = encdec_reference_check(params, data, cfg)
+    print(f"  encdec_loss with alignment, {cfg.num_layers} + "
+          f"{cfg.dec_layers} blocks at full width, the last encoder stage, "
+          f"2 x 256 tokens + {cfg.frontend_embed_len} frames, fp32, card "
+          f"against CPU: relative differences {rels} (tolerance 1e-4)",
+          flush=True)
+    check(all(v <= 1e-4 for v in rels.values()),
+          "encoder-decoder: card and CPU disagree")
+    return {"encdec": got}, lm_pack_checks(params, plans, "encdec",
+                                           "encoder-decoder")
+
+
+def encdec_reference_check(params, data, cfg, n=2, seq=256):
+    """``launch.steps``' encoder-decoder loss (``encdec_loss`` plus the
+    alignment on the mean-pooled encoder memory) at the last stage of
+    ``cfg``, fp32 compute, on ``n`` x ``seq`` tokens and the frames: kernels
+    on the card against the plain versions on the CPU; the global model is
+    the trained one nudged as in ``lm_reference_check``. Returns {metric:
+    relative difference}."""
+    import torch
+    from repro_torch.launch import steps as lsteps
+
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    S = lsteps._stages(cfg)
+    gen = torch.Generator("cpu").manual_seed(3)
+    local = {k: v.cpu() for k, v in params.items()}
+    glob = {k: v + 1e-3 * v.std() * torch.randn(v.shape, generator=gen)
+            if v.numel() > 1 else v for k, v in local.items()}
+    batch = {"tokens": data["tokens"][:n, :seq].cpu(),
+             "labels": data["labels"][:n, :seq].cpu(),
+             "frontend": data["frontend"][:n].cpu()}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        with torch.no_grad():
+            _, m = lsteps._loss_for(
+                cfg, {k: v.to(dev) for k, v in local.items()},
+                {k: v.to(dev) for k, v in batch.items()}, sub_layers=S,
+                active_from=S - 1,
+                global_params={k: v.to(dev) for k, v in glob.items()},
+                align_weight=lsteps.ALIGN_WEIGHT, remat=False)
+        out[dev] = {k: float(v) for k, v in m.items() if k != "aux"}
+    print(f"  card {out['cuda']}, CPU {out['cpu']}", flush=True)
+    return {k: abs(out["cuda"][k] - v) / max(abs(v), 1e-12)
+            for k, v in out["cpu"].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -2258,14 +2794,48 @@ def ssd_flops(B, S, H, P, N, chunk):
             + B * H * (S // Q) * (Q * (Q + 1) * P + 4 * Q * N * P))
 
 
+# the LM paths' bf16 attention: (record, (B, S, T, Hq, Hkv, hd, causal), use)
+LM_ATTENTION = (
+    ("flash_attention", (4, 1024, 1024, 32, 32, 80, True),
+     "zamba2's shared block"),
+    ("flash_attention_dense", (4, 1024, 1024, 16, 8, 128, True),
+     "the dense LM's"),
+    ("flash_attention_cross", (2, 1024, 512, 16, 16, 64, False),
+     "seamless-m4t's cross attention"),
+    ("flash_attention_encoder", (2, 512, 512, 16, 16, 64, False),
+     "seamless-m4t's encoder"),
+    ("flash_attention_decoder", (2, 1024, 1024, 16, 16, 64, True),
+     "seamless-m4t's decoder self-attention"))
+# their RMSNorms: (record, (rows, d, dtype), use)
+LM_RMSNORM = (
+    ("rmsnorm_rows_2560", (4096, 2560, "float32"), "zamba2's residual stream"),
+    ("rmsnorm_rows_5120", (4096, 5120, "float32"), "zamba2's gated norm"),
+    ("rmsnorm_rows_2048", (4096, 2048, "float32"),
+     "the dense LM's residual stream"),
+    ("rmsnorm_rows_768", (4096, 768, "float32"),
+     "the xLSTM's residual stream"),
+    ("rmsnorm_rows_1536_bf16", (4096, 1536, "bfloat16"),
+     "the mLSTM's inner norm"),
+    ("rmsnorm_rows_1024", (2048, 1024, "float32"),
+     "seamless-m4t's decoder blocks"),
+    ("rmsnorm_rows_1024_enc", (1024, 1024, "float32"),
+     "seamless-m4t's encoder blocks"))
+# InfoNCE: (record suffix, (C, B, d)); a suffix of None is checked only
+LM_INFONCE = (("", (1, 4, 2560)), (None, (1, 4, 5000)), (None, (2, 40, 4100)),
+              ("xlstm", (1, 4, 768)), ("encdec", (1, 2, 1024)))
+LM_INFONCE_USE = {"": "zamba2's alignment", "xlstm": "the xLSTM's alignment",
+                  "encdec": "the encoder-decoder's alignment"}
+
+
 def lm_kernel_checks():
     """The kernels at the LM paths' shapes against their plain versions,
     with times and bounds: the SSD scan (and a small case with another
-    chunk, and the Function's backward), causal attention at head dim 80
-    and at the dense LM's GQA 16/8 of head dim 128, RMSNorm at zamba2's
-    d_model and d_inner and the dense LM's d_model, InfoNCE at d_model and
-    above 4096.
-    Returns ({name: record of the LM path's shape}, printed lines)."""
+    chunk, and the Function's backward), bf16 attention at each path's
+    shapes (``LM_ATTENTION``; head dim 80 in fp32 too), RMSNorm at each
+    path's rows and widths (``LM_RMSNORM``), InfoNCE on each alignment's
+    pooled states and above 4096 (``LM_INFONCE``).
+    Returns {record name: record of the LM path's shape}; each record names
+    its kernel."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import infonce as nce
@@ -2324,6 +2894,7 @@ def lm_kernel_checks():
     rec["ssd_scan"] = dict(
         max_abs_err=max_err(ops.ssd_scan(*sets[0], chunk=Q),
                             ref.ssd_scan_ref(*sets[0], chunk=Q)),
+        kernel="ssd_scan",
         ms=time_ms([lambda a=a: ops.ssd_scan(*a, chunk=Q) for a in sets]),
         plain_ms=time_ms([lambda a=a: ref.ssd_scan_ref(*a, chunk=Q)
                           for a in sets]),
@@ -2331,122 +2902,113 @@ def lm_kernel_checks():
         shape=f"xh ({B}, {S}, {H}, {P}), N {N}, chunk {Q}, fp32 "
               f"(one Mamba2 block of the LM path)")
 
-    # causal attention at head dim 80: the shared block's
-    B, S, Hh, hd = 4, 1024, 32, 80
-    qkvs = [tuple(torch.randn((B, S, Hh, hd), generator=gen, device=dev)
-                  .to(torch.bfloat16) for _ in range(3)) for _ in range(2)]
+    # bf16 attention at each path's shapes, against ref.sdpa_ref at 2e-2
+    # and beside F.scaled_dot_product_attention
+    for name, (B, S, T, Hq, Hkv, hd, causal), what in LM_ATTENTION:
+        sets = [tuple(torch.randn((B, n, h, hd), generator=gen, device=dev)
+                      .to(torch.bfloat16)
+                      for n, h in ((S, Hq), (T, Hkv), (T, Hkv)))
+                for _ in range(copies(2 * B * (S * Hq + 2 * T * Hkv) * hd))]
 
-    def plain(q, k, v):
-        return ref.sdpa_ref(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=True).transpose(1, 2)
+        def plain(q, k, v, causal=causal):
+            return ref.sdpa_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2),
+                                causal=causal).transpose(1, 2)
 
-    o = ops.flash_attention(*qkvs[0], causal=True)
-    err = max_err(o, plain(*qkvs[0]))
-    print(f"  flash_attention ({B}, {S}, {Hh}, {hd}) bf16 causal: max "
-          f"|kernel - plain| = {err:.3e} (tolerance 2e-2)", flush=True)
-    check(err <= 2e-2, f"flash_attention hd 80: error {err}")
-    q32 = [t.float() for t in qkvs[0]]
-    line(f"flash_attention ({B}, {S}, {Hh}, {hd}) fp32 causal",
-         rel(ops.flash_attention(*q32, causal=True), plain(*q32)), 1e-5)
-    bhsd = [tuple(t.transpose(1, 2).contiguous() for t in qkv)
-            for qkv in qkvs]
-    bms, by = bound(2 * 4 * B * S * Hh * hd,
-                    4 * B * Hh * (S * (S + 1) // 2) * hd, mesh.PEAK_FLOPS_BF16)
-    rec["flash_attention"] = dict(
-        max_abs_err=err,
-        ms=time_ms([lambda a=a: ops.flash_attention(*a, causal=True)
-                    for a in qkvs]),
-        plain_ms=time_ms([lambda a=a: plain(*a) for a in qkvs]),
-        library_ms=time_ms([lambda a=a: F.scaled_dot_product_attention(
-            *a, is_causal=True) for a in bhsd]),
-        bound_ms=bms, bound_by=by,
-        shape=f"q, k, v ({B}, {S}, {Hh}, {hd}) bf16, causal")
+        err = max_err(ops.flash_attention(*sets[0], causal=causal),
+                      plain(*sets[0]))
+        shape = (f"q ({B}, {S}, {Hq}, {hd}), k, v ({B}, {T}, {Hkv}, {hd}) "
+                 f"bf16, {'causal' if causal else 'non-causal'} ({what})")
+        print(f"  {name} {shape}: max |kernel - plain| = {err:.3e} "
+              f"(tolerance 2e-2)", flush=True)
+        check(err <= 2e-2, f"{name}: error {err}")
+        if name == "flash_attention":
+            q32 = [t.float() for t in sets[0]]
+            line(f"flash_attention ({B}, {S}, {Hq}, {hd}) fp32 causal",
+                 rel(ops.flash_attention(*q32, causal=True), plain(*q32)),
+                 1e-5)
+        bhsd = [tuple(t.transpose(1, 2).contiguous() for t in qkv)
+                for qkv in sets]
+        pairs = S * (S + 1) // 2 if causal else S * T
+        bms, by = bound(2 * B * (2 * S * Hq + 2 * T * Hkv) * hd,
+                        4 * B * Hq * pairs * hd, mesh.PEAK_FLOPS_BF16)
+        rec[name] = dict(
+            kernel="flash_attention", max_abs_err=err,
+            ms=time_ms([lambda a=a: ops.flash_attention(*a, causal=causal)
+                        for a in sets]),
+            plain_ms=time_ms([lambda a=a: plain(*a) for a in sets]),
+            library_ms=time_ms([lambda a=a: F.scaled_dot_product_attention(
+                *a, is_causal=causal, enable_gqa=Hq != Hkv) for a in bhsd]),
+            bound_ms=bms, bound_by=by, shape=shape)
 
-    # the dense LM's attention (phase 2i): 16 q heads over 8 kv heads of
-    # 128, causal
-    B, S, Hq, Hkv, hd = 4, 1024, 16, 8, 128
-    qkvs = [tuple(torch.randn((B, S, h, hd), generator=gen, device=dev)
-                  .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
-            for _ in range(2)]
-    o = ops.flash_attention(*qkvs[0], causal=True)
-    err = max_err(o, plain(*qkvs[0]))
-    print(f"  flash_attention ({B}, {S}, {Hq}/{Hkv}, {hd}) bf16 causal: max "
-          f"|kernel - plain| = {err:.3e} (tolerance 2e-2)", flush=True)
-    check(err <= 2e-2, f"flash_attention hd 128 GQA: error {err}")
-    bhsd = [tuple(t.transpose(1, 2).contiguous() for t in qkv)
-            for qkv in qkvs]
-    bms, by = bound(2 * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd),
-                    4 * B * Hq * (S * (S + 1) // 2) * hd,
-                    mesh.PEAK_FLOPS_BF16)
-    rec["flash_attention_dense"] = dict(
-        max_abs_err=err,
-        ms=time_ms([lambda a=a: ops.flash_attention(*a, causal=True)
-                    for a in qkvs]),
-        plain_ms=time_ms([lambda a=a: plain(*a) for a in qkvs]),
-        library_ms=time_ms([lambda a=a: F.scaled_dot_product_attention(
-            *a, is_causal=True, enable_gqa=True) for a in bhsd]),
-        bound_ms=bms, bound_by=by,
-        shape=f"q ({B}, {S}, {Hq}, {hd}), k, v ({B}, {S}, {Hkv}, {hd}) "
-              f"bf16, causal (the dense LM's)")
-
-    # RMSNorm: the residual stream (d_model) and the gated norm (d_inner),
-    # and the dense LM's residual stream
-    for d in (2560, 5120, 2048):
-        R = 4 * 1024
-        xs = [torch.randn((R, d), generator=gen, device=dev)
-              for _ in range(copies(8 * R * d))]
+    # RMSNorm at each path's rows and width: fp32 within 1e-5 of the
+    # largest value, bf16 (rounded once, like the plain version) within 2e-2
+    for name, (R, d, dtype), what in LM_RMSNORM:
+        dt = getattr(torch, dtype)
+        size = dt.itemsize
+        xs = [torch.randn((R, d), generator=gen, device=dev).to(dt)
+              for _ in range(copies(2 * size * R * d))]
         sc = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
-        line(f"rmsnorm_rows ({R}, {d}) fp32",
-             rel(ops.rmsnorm(xs[0], sc), ref.rmsnorm_ref(xs[0], sc)), 1e-5)
-        bms, by = bound(4 * (2 * R * d + d), 4 * R * d)
-        rec[f"rmsnorm_rows_{d}"] = dict(
-            max_abs_err=max_err(ops.rmsnorm(xs[0], sc),
-                                ref.rmsnorm_ref(xs[0], sc)),
+        err = max_err(ops.rmsnorm(xs[0], sc), ref.rmsnorm_ref(xs[0], sc))
+        if dt == torch.float32:
+            line(f"rmsnorm_rows ({R}, {d}) fp32",
+                 rel(ops.rmsnorm(xs[0], sc), ref.rmsnorm_ref(xs[0], sc)),
+                 1e-5)
+        else:
+            print(f"  rmsnorm_rows ({R}, {d}) {dtype}: max |kernel - plain| "
+                  f"= {err:.3e} (tolerance 2e-2)", flush=True)
+            check(err <= 2e-2, f"rmsnorm_rows ({R}, {d}) {dtype}: error {err}")
+        bms, by = bound(2 * size * R * d + 4 * d, 4 * R * d)
+        rec[name] = dict(
+            kernel="rmsnorm_rows", max_abs_err=err,
             ms=time_ms([lambda a=a: ops.rmsnorm(a, sc) for a in xs]),
             plain_ms=time_ms([lambda a=a: ref.rmsnorm_ref(a, sc)
                               for a in xs]),
-            library_ms=time_ms([lambda a=a: F.rms_norm(a, (d,), sc, 1e-5)
-                                for a in xs]),
-            bound_ms=bms, bound_by=by, shape=f"x ({R}, {d}) fp32")
+            library_ms=time_ms([lambda a=a: F.rms_norm(
+                a, (d,), sc.to(a.dtype), 1e-5) for a in xs]),
+            bound_ms=bms, bound_by=by, shape=f"x ({R}, {d}) {dtype} ({what})")
 
-    # InfoNCE: the alignment term's mean-pooled hidden states, and wider
+    # InfoNCE forward, dq and dk on the alignment's mean-pooled states, and
+    # wider; each within 1e-5 of the largest plain value
     tau = 0.2
-    for C, Bn, d in ((1, 4, 2560), (1, 4, 5000), (2, 40, 4100)):
-        q = F.normalize(torch.randn((C, Bn, d), generator=gen, device=dev),
-                        dim=-1)
-        k = F.normalize(torch.randn((C, Bn, d), generator=gen, device=dev),
-                        dim=-1)
+    for tag, (C, Bn, d) in LM_INFONCE:
+        q, k = (F.normalize(torch.randn((C, Bn, d), generator=gen,
+                                        device=dev), dim=-1)
+                for _ in range(2))
         gg = torch.randn((C, Bn), generator=gen, device=dev) / Bn
         loss, lse = nce.info_nce_fwd(q, k, tau)
         wl, wlse = ref.info_nce_rows_ref(q, k, tau)
         errs = {"info_nce_rows": rel([loss, lse], [wl, wlse])}
-        for name, wrt_k in (("info_nce_rows_dq", False),
-                            ("info_nce_rows_dk", True)):
-            errs[name] = rel(nce.info_nce_bwd(q, k, wlse, gg, tau, wrt_k),
-                             ref.info_nce_rows_bwd_ref(q, k, wlse, gg, tau,
-                                                       wrt_k))
-        for name, e in errs.items():
-            line(f"{name} ({C}, {Bn}, {d})", e, 1e-5)
-        if d != 2560:
+        for kname, wrt_k in (("info_nce_rows_dq", False),
+                             ("info_nce_rows_dk", True)):
+            errs[kname] = rel(nce.info_nce_bwd(q, k, wlse, gg, tau, wrt_k),
+                              ref.info_nce_rows_bwd_ref(q, k, wlse, gg, tau,
+                                                        wrt_k))
+        for kname, e in errs.items():
+            line(f"{kname} ({C}, {Bn}, {d})", e, 1e-5)
+        if tag is None:
             continue
-        nb = 4 * (2 * C * Bn * d + 2 * C * Bn)
-        bms, by = bound(nb, 2 * C * Bn * Bn * d)
+        suffix = f"_{tag}" if tag else ""
+        shape = f"q, k ({C}, {Bn}, {d}) fp32 ({LM_INFONCE_USE[tag]})"
         labels = torch.arange(Bn, device=dev)
         two = time_ms([lambda: F.cross_entropy(
             torch.matmul(q[0], k[0].transpose(0, 1)) / tau, labels,
             reduction="none")])
-        rec["info_nce_rows"] = dict(
+        bms, by = bound(4 * (2 * C * Bn * d + 2 * C * Bn),
+                        2 * C * Bn * Bn * d)
+        rec["info_nce_rows" + suffix] = dict(
+            kernel="info_nce_rows",
             max_abs_err=max_err([loss, lse], [wl, wlse]),
             ms=time_ms([lambda: nce.info_nce_fwd(q, k, tau)]),
             plain_ms=time_ms([lambda: ref.info_nce_rows_ref(q, k, tau)]),
             library_ms=None, bound_ms=bms, bound_by=by, context_ms=two,
-            shape=f"q, k ({C}, {Bn}, {d}) fp32 (the alignment term); "
-                  f"matmul + cross_entropy {two} ms (two calls)")
-        for name, wrt_k in (("info_nce_rows_dq", False),
-                            ("info_nce_rows_dk", True)):
+            shape=f"{shape}; matmul + cross_entropy {two} ms (two calls)")
+        for kname, wrt_k in (("info_nce_rows_dq", False),
+                             ("info_nce_rows_dk", True)):
             bms, by = bound(4 * (3 * C * Bn * d + 2 * C * Bn),
                             4 * C * Bn * Bn * d)
-            rec[name] = dict(
+            rec[kname + suffix] = dict(
+                kernel=kname,
                 max_abs_err=max_err(
                     nce.info_nce_bwd(q, k, wlse, gg, tau, wrt_k),
                     ref.info_nce_rows_bwd_ref(q, k, wlse, gg, tau, wrt_k)),
@@ -2454,8 +3016,7 @@ def lm_kernel_checks():
                     q, k, wlse, gg, tau, w)]),
                 plain_ms=time_ms([lambda w=wrt_k: ref.info_nce_rows_bwd_ref(
                     q, k, wlse, gg, tau, w)]),
-                library_ms=None, bound_ms=bms, bound_by=by,
-                shape=f"q, k ({C}, {Bn}, {d}) fp32")
+                library_ms=None, bound_ms=bms, bound_by=by, shape=shape)
     for name, r in rec.items():
         print(f"  LM shapes, {name} [{r['shape']}]: kernel {r['ms']} ms, "
               f"plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
@@ -3022,6 +3583,25 @@ def run(profile: bool = False) -> int:
     t2i = time.perf_counter()
     launches.update(dense_phase())
     print(f"  phase 2i took {time.perf_counter() - t2i:.1f}s", flush=True)
+
+    print(f"[2j] xLSTM LM: LW-FedSSL on {XLSTM_ARCH} at its published "
+          f"widths and depth, {XLSTM_RUN['clients']} clients, "
+          f"{XLSTM_RUN['rounds']} rounds, batch {XLSTM_RUN['batch']} x "
+          f"{XLSTM_RUN['seq_len']} tokens, fp32 wire, on both LM engines",
+          flush=True)
+    t2j = time.perf_counter()
+    got, xlstm_pack_rec = xlstm_phase()
+    launches.update(got)
+    print(f"  phase 2j took {time.perf_counter() - t2j:.1f}s", flush=True)
+
+    print(f"[2k] encoder-decoder: {ENCDEC_ARCH} at its published widths, "
+          f"make_train_step at full depth, then make_fl_round_program at "
+          f"{ENCDEC_ROUNDS['layers']} + {ENCDEC_ROUNDS['layers']} blocks",
+          flush=True)
+    t2k = time.perf_counter()
+    got, encdec_pack_rec = encdec_phase()
+    launches.update(got)
+    print(f"  phase 2k took {time.perf_counter() - t2k:.1f}s", flush=True)
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(launches[path][name] > 0,
@@ -3049,16 +3629,13 @@ def run(profile: bool = False) -> int:
     rec.update(infonce_kernel_checks())
     lm_rec = lm_kernel_checks()
     lm_rec.update(lm_pack_rec)
+    lm_rec.update(xlstm_pack_rec)
+    lm_rec.update(encdec_pack_rec)
     rec["ssd_scan"] = lm_rec["ssd_scan"]
-    at_lm = {"gather_pack": ["gather_pack_lm"],
-             "scatter_unpack": ["scatter_unpack_lm"],
-             "flash_attention": ["flash_attention",
-                                 "flash_attention_dense"],
-             "rmsnorm_rows": ["rmsnorm_rows_2560", "rmsnorm_rows_5120",
-                              "rmsnorm_rows_2048"],
-             "info_nce_rows": ["info_nce_rows"],
-             "info_nce_rows_dq": ["info_nce_rows_dq"],
-             "info_nce_rows_dk": ["info_nce_rows_dk"]}
+    at_lm = {}                      # the LM paths' shapes, by kernel
+    for n, r in lm_rec.items():
+        if n != "ssd_scan":
+            at_lm.setdefault(r["kernel"], []).append(n)
     kernels = []
     path_of = {}
     for p, names in PATH_KERNELS.items():

@@ -268,6 +268,8 @@ ARCH_IDS = [
     "mistral-large-123b",
     "internlm2-20b",
     "starcoder2-15b",
+    "xlstm-125m",
+    "seamless-m4t-medium",
     # the paper's own backbone
     "vit-tiny",
 ]

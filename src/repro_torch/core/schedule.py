@@ -115,12 +115,18 @@ def weight_transfer(stacked: torch.Tensor, stage: int) -> torch.Tensor:
     return out
 
 
+# the block stacks the reference's ``transfer_model`` transfers; it leaves
+# ``moe_blocks`` and the encoder-decoder's ``dec_blocks`` alone
+TRANSFER_STACKS = ("blocks", "mlstm", "slstm", "enc_blocks")
+
+
 def transfer_model(params: Dict[str, torch.Tensor], stage: int,
                    prefix: str = "") -> Dict[str, torch.Tensor]:
-    """Weight transfer on every block-stack leaf (``<prefix>blocks/...``)
-    of a flat params dict; other leaves are shared with the input."""
-    return {k: (weight_transfer(v, stage)
-                if k.startswith(prefix + "blocks/") else v)
+    """Weight transfer on every leaf of the block stacks
+    ``<prefix><stack>/...`` for each of ``TRANSFER_STACKS`` in a flat
+    params dict; other leaves are shared with the input."""
+    heads = tuple(f"{prefix}{s}/" for s in TRANSFER_STACKS)
+    return {k: (weight_transfer(v, stage) if k.startswith(heads) else v)
             for k, v in params.items()}
 
 

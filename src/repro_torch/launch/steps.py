@@ -17,8 +17,15 @@ steps batched through ``torch.func.vmap`` (the LM counterpart of
 ``federated.client.stacked_train_step``), then FedAvg, through the wire
 transport when one is given. The reference compiles that round into one
 XLA program; here a Python loop over local steps drives the batched step.
-The reference's prefill and decode steps, and its encoder-decoder
-branch, are not ported yet.
+
+Both take the decoder-only LMs and the encoder-decoder (``is_encdec``: a
+config with cross attention and decoder layers). The encoder-decoder's
+loss is ``encdec_loss``, plus the Eq. 3 alignment between the local and
+the global model's mean-pooled encoder memory when aligning; its batches
+and shards carry the ``frontend`` frames. Its stages are its encoder
+blocks, as in the reference, and the stage plan's row range selects rows
+of ``dec_blocks`` too (a stacked leaf), although every decoder block runs.
+The reference's prefill and decode steps (serving) are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,11 +35,13 @@ from typing import Optional
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro_torch.core import losses
 from repro_torch.core.ssl import lm_ssl_loss
 from repro_torch.federated import aggregate
 from repro_torch.federated.client import shared_opt_state, stacked_opt_init
 from repro_torch.federated.engine import keep_rows
 from repro_torch.federated.masks import stage_update_mask
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.optim import make_optimizer
 
@@ -55,11 +64,41 @@ def is_encdec(cfg) -> bool:
 
 
 def _stages(cfg) -> int:
+    """Stages of the layer-wise schedule: the encoder-decoder's are its
+    encoder blocks (``cfg.num_layers``), as the reference counts them."""
     if is_encdec(cfg):
-        raise NotImplementedError(
-            f"the encoder-decoder LM ({cfg.arch_id}) is not ported to "
-            f"repro_torch yet")
+        return cfg.num_layers
     return lm_mod.num_stages(cfg)
+
+
+def _loss_for(cfg, params, batch, *, sub_layers, active_from, global_params,
+              align_weight, remat):
+    """The local loss and its metrics: ``lm_ssl_loss`` for a decoder-only
+    LM; for the encoder-decoder ``encdec_loss``, plus the alignment on the
+    mean-pooled encoder memory, encoded again from the local parameters
+    (as the reference does) and from the global ones without gradient."""
+    if not is_encdec(cfg):
+        return lm_ssl_loss(params, batch, cfg, sub_layers=sub_layers,
+                           active_from=active_from,
+                           global_params=global_params,
+                           align_weight=align_weight, tau=TAU, remat=remat)
+    loss, metrics = encdec_mod.encdec_loss(
+        params, batch, cfg, sub_layers=sub_layers, active_from=active_from,
+        remat=remat)
+    if align_weight and global_params is not None:
+        mem = encdec_mod.encode(params, batch["frontend"], cfg,
+                                sub_layers=sub_layers,
+                                active_from=active_from, remat=remat)
+        with torch.no_grad():
+            gmem = encdec_mod.encode(global_params, batch["frontend"], cfg,
+                                     sub_layers=sub_layers, active_from=0,
+                                     remat=remat)
+            zg = torch.mean(gmem.to(torch.float32), dim=1)
+        la = losses.info_nce(torch.mean(mem.to(torch.float32), dim=1), zg,
+                             TAU)
+        loss = loss + align_weight * la
+        metrics = {**metrics, "align": la}
+    return loss, metrics
 
 
 def make_train_step(cfg, train_cfg, *, mode: str = "train",
@@ -78,9 +117,9 @@ def make_train_step(cfg, train_cfg, *, mode: str = "train",
 
     def grads_of(params, batch, global_params):
         p = {k: v.detach().requires_grad_() for k, v in params.items()}
-        loss, metrics = lm_ssl_loss(
-            p, batch, cfg, sub_layers=sub_layers, active_from=active_from,
-            global_params=global_params, align_weight=align_weight, tau=TAU,
+        loss, metrics = _loss_for(
+            cfg, p, batch, sub_layers=sub_layers, active_from=active_from,
+            global_params=global_params, align_weight=align_weight,
             remat=train_cfg.remat)
         grads = torch.autograd.grad(loss, list(p.values()),
                                     allow_unused=True)
@@ -134,7 +173,8 @@ def make_fl_round_program(cfg, train_cfg, *, mode: str = "train",
     count: a step with ``valid`` False runs but its update is discarded
     (a client's valid steps must come first, since the step count is
     shared). Each local step is one ``torch.func.vmap`` over the clients
-    of ``grad_and_value`` of ``lm_ssl_loss`` and the optimizer's update,
+    of ``grad_and_value`` of the local loss (``lm_ssl_loss``, or the
+    encoder-decoder's) and the optimizer's update,
     from ``opt.init`` of the broadcast, per client. Returns (FedAvg of the
     clients' trees with ``weights``, or with ``fedavg=False`` the list of
     their trees; the (C,) losses of each client's last valid step).
@@ -158,11 +198,11 @@ def make_fl_round_program(cfg, train_cfg, *, mode: str = "train",
 
     def client_step(params, per_leaf, shared, batch, global_params, lr):
         def loss_fn(p):
-            return lm_ssl_loss(
-                p, batch, cfg, sub_layers=sub_layers,
+            return _loss_for(
+                cfg, p, batch, sub_layers=sub_layers,
                 active_from=active_from,
                 global_params=global_params if align else None,
-                align_weight=align_weight, tau=TAU, remat=train_cfg.remat)
+                align_weight=align_weight, remat=train_cfg.remat)
 
         grads, (loss, _) = grad_and_value(loss_fn, has_aux=True)(params)
         mask = (stage_update_mask(params, sub_layers, active_from)

@@ -9,10 +9,14 @@ Two modes:
         reference's ``reduced()`` arch: the dense decoders
         (``--arch internlm2-1.8b``, the default, internlm2-20b,
         starcoder2-15b, mistral-large-123b, internvl2-1b) with 2 stages,
-        and zamba2-2.7b on the reduction of the reference's arch smoke
-        test (``num_layers=4, attn_every=2``: ``reduced()`` alone leaves
-        zamba2 no stage). The MoE, MLA, xLSTM and encoder-decoder archs
-        are refused as not ported.
+        and zamba2-2.7b and xlstm-125m on the reductions of the
+        reference's arch smoke test (``num_layers=4, attn_every=2`` and
+        ``num_layers=4, slstm_every=2``: ``reduced()`` alone leaves them
+        no stage). The MoE and MLA archs (llama4, deepseek-v2) are
+        refused as not ported yet. seamless-m4t-medium is refused too: the
+        reference's launcher trains it as a decoder-only dense LM on the
+        sequential engine and fails on the vmap engine; the
+        encoder-decoder trains through ``launch.steps``.
 
 It runs on the card (``--device cuda``, the default) and raises without
 one; ``--device cpu`` runs the plain PyTorch versions of the kernels.
@@ -55,6 +59,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
       --arch zamba2-2.7b --device cpu --rounds 4 --batch 8 --samples 64 \\
       --seq-len 64
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
+      --arch xlstm-125m --device cpu --rounds 4 --batch 4 --samples 16 \\
+      --seq-len 32 --engine vmap
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit --trace \\
       --metrics --health --obs-dir results/obs
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit \\
@@ -71,7 +78,7 @@ import time
 import torch
 
 from repro_torch.configs.base import (FLConfig, SSLConfig, TrainConfig,
-                                      load_arch, reduced)
+                                      XLSTMConfig, load_arch, reduced)
 from repro_torch.convert import subtree
 from repro_torch.core import schedule as sched
 from repro_torch.core import ssl as ssl_mod
@@ -192,11 +199,20 @@ def train_vit(args):
 
 
 # --mode lm: the archs ported, each with what it adds on top of reduced():
-# zamba2 the override of the reference's arch smoke test
+# zamba2 and xlstm the overrides of the reference's arch smoke test
 # (tests/test_arch_smoke.py), the dense decoders nothing (2 stages)
 LM_ARCHS = {"zamba2-2.7b": dict(num_layers=4, attn_every=2),
+            "xlstm-125m": dict(num_layers=4, xlstm=XLSTMConfig(
+                slstm_every=2, proj_factor=2.0)),
             "internlm2-1.8b": {}, "internlm2-20b": {}, "starcoder2-15b": {},
             "mistral-large-123b": {}, "internvl2-1b": {}}
+# the encoder-decoder, which this launcher does not run
+ENCDEC_REFUSAL = (
+    "the reference's launcher trains this arch as a decoder-only dense LM "
+    "on the sequential engine (its family is audio, so lm.topology sees a "
+    "uniform dense stack) and fails on the vmap engine (KeyError: "
+    "'frontend'); the encoder-decoder trains through "
+    "repro_torch.launch.steps (make_train_step, make_fl_round_program)")
 
 
 def train_lm(args):
@@ -256,9 +272,10 @@ def main(argv=None):
     ap.add_argument("--arch", default="internlm2-1.8b",
                     help="--mode lm: the LM architecture, at reduced(); "
                          "ported: " + ", ".join(LM_ARCHS) + " (zamba2-2.7b "
-                         "with the reference's arch smoke-test override "
-                         "num_layers=4, attn_every=2, since reduced() alone "
-                         "leaves it no stage)")
+                         "and xlstm-125m with the reference's arch "
+                         "smoke-test overrides num_layers=4, attn_every=2 "
+                         "and num_layers=4, slstm_every=2, since reduced() "
+                         "alone leaves them no stage)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--schedule", default="lw_fedssl",
@@ -370,11 +387,12 @@ def main(argv=None):
     if args.measure_resources:
         ap.error("--measure-resources measures the vit driver's steps; use "
                  "--mode vit")
+    if args.arch == "seamless-m4t-medium":
+        ap.error(f"--arch {args.arch}: {ENCDEC_REFUSAL}")
     if args.arch not in LM_ARCHS:
         ap.error(f"--arch {args.arch}: this LM architecture is not ported "
                  f"to repro_torch yet (ported: {', '.join(LM_ARCHS)}; the "
-                 f"MoE, MLA, xLSTM and encoder-decoder families come with a "
-                 f"later slice)")
+                 f"MoE and MLA families come in the next slice)")
     return train_lm(args)
 
 

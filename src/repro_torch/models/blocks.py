@@ -2,99 +2,128 @@
 kind, pre-RMSNorm.
 
 Kinds ported so far:
-  enc        bidirectional attention + MLP (the ViT's block)
+  enc        bidirectional attention + MLP (the ViT's block, and the
+             encoder-decoder's encoder)
   dense      GQA attention (causal, optionally sliding-window) + MLP, the
              dense decoders' block (internlm2, starcoder2, mistral-large,
              internvl2's decoder)
   mamba      Mamba2 on the residual stream (zamba2's blocks)
   attn_only  the dense block under another name, Zamba2's shared block
-The reference's moe, mla_moe, mlstm, slstm and cross kinds are not ported.
+  mlstm      an mLSTM on the residual stream (xlstm-125m)
+  slstm      an sLSTM on the residual stream (xlstm-125m)
+  cross      the encoder-decoder's decoder block: causal self-attention
+             with RoPE, cross-attention to the encoder memory (no RoPE),
+             MLP, each after an RMSNorm (seamless-m4t)
+The reference's moe and mla_moe kinds are not ported yet (the next slice).
 
 Block parameters are flat dicts keyed by their path inside the block
 (``"ln1/scale"``, ``"attn/wq"``, ``"mamba/w_in"``); a stacked block tree
-has the same keys with leading stack axes, ``(L, ...)`` for the ViT and
-``(groups, attn_every, ...)`` for zamba2, ``(L, ...)`` for a dense
-decoder. The port indexes a layer's row
-directly where the reference slices the stack.
+has the same keys with leading stack axes, ``(L, ...)`` for the ViT, a
+dense decoder and the encoder-decoder's two stacks, ``(groups,
+attn_every, ...)`` for zamba2, ``(groups, slstm_every - 1, ...)`` for the
+xLSTM's mLSTM blocks and ``(groups, ...)`` for its sLSTM blocks. The port
+indexes a layer's row directly where the reference slices the stack.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.convert import subtree
-from repro_torch.models.layers import mamba2
-from repro_torch.models.layers.attention import attn_apply
+from repro_torch.federated.leaves import tree_sorted
+from repro_torch.models.layers import mamba2, xlstm
+from repro_torch.models.layers.attention import attn_apply, cross_attn_apply
 from repro_torch.models.layers.init import dense_init_
 from repro_torch.models.layers.mlp import mlp_apply, mlp_shapes
 from repro_torch.models.layers.norms import rmsnorm
 
-KINDS = ("enc", "dense", "mamba", "attn_only")
-_ATTN_MLP = ("enc", "dense", "attn_only")
+KINDS = ("enc", "dense", "mamba", "attn_only", "mlstm", "slstm", "cross")
+# the kinds whose block is one layer on the residual stream after an
+# RMSNorm ("ln/scale"): (its subtree's shapes, its apply)
+_RESIDUAL = {"mamba": (mamba2.mamba2_shapes, mamba2.mamba2_apply),
+             "mlstm": (xlstm.mlstm_shapes, xlstm.mlstm_apply),
+             "slstm": (xlstm.slstm_shapes, xlstm.slstm_apply)}
+# constant initial values, by kind and leaf path inside the kind's subtree
+_CONSTANT_INIT = {"mamba": mamba2.CONSTANT_INIT,
+                  "mlstm": xlstm.MLSTM_CONSTANT_INIT,
+                  "slstm": xlstm.SLSTM_CONSTANT_INIT}
 
 
 def _unported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"block kind '{kind}' is not ported to repro_torch yet (ported: "
-        f"{', '.join(KINDS)})")
+        f"{', '.join(KINDS)}; the MoE and MLA kinds come next)")
+
+
+def _attn_shapes(cfg, prefix: str) -> Dict[str, tuple]:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return {f"{prefix}/wk": (d, cfg.num_kv_heads * hd),
+            f"{prefix}/wo": (cfg.num_heads * hd, d),
+            f"{prefix}/wq": (d, cfg.num_heads * hd),
+            f"{prefix}/wv": (d, cfg.num_kv_heads * hd)}
 
 
 def block_shapes(cfg, kind: str = "enc") -> Dict[str, tuple]:
     """Per-layer parameter shapes of one block of ``kind``."""
     d = cfg.d_model
-    if kind == "mamba":
+    if kind in _RESIDUAL:
         return {"ln/scale": (d,),
-                **{f"mamba/{k}": s
-                   for k, s in mamba2.mamba2_shapes(cfg).items()}}
-    if kind not in _ATTN_MLP:
+                **{f"{kind}/{k}": s
+                   for k, s in _RESIDUAL[kind][0](cfg).items()}}
+    if kind not in KINDS:
         raise _unported(kind)
-    hd = cfg.resolved_head_dim
-    return {
-        "attn/wk": (d, cfg.num_kv_heads * hd),
-        "attn/wo": (cfg.num_heads * hd, d),
-        "attn/wq": (d, cfg.num_heads * hd),
-        "attn/wv": (d, cfg.num_kv_heads * hd),
-        "ln1/scale": (d,),
-        "ln2/scale": (d,),
-        **{f"mlp/{k}": s for k, s in mlp_shapes(d, cfg.d_ff,
-                                                cfg.act).items()},
-    }
+    shapes = {**_attn_shapes(cfg, "attn"), "ln1/scale": (d,),
+              "ln2/scale": (d,),
+              **{f"mlp/{k}": s for k, s in mlp_shapes(d, cfg.d_ff,
+                                                      cfg.act).items()}}
+    if kind == "cross":
+        shapes.update({**_attn_shapes(cfg, "xattn"), "ln_x/scale": (d,)})
+    return tree_sorted(shapes)
 
 
 def stacked_init_(stacked: Dict[str, torch.Tensor], generator=None,
                   lead: int = 1) -> None:
     """In place, for block leaves with ``lead`` leading stack axes: norm
-    scales to one, the Mamba2 leaves with constant initial values to those
-    values, weights to fan-in truncated normal (fan-in = the per-layer
-    leaf's first dim, as ``repro.models.layers.init.dense_init`` takes)."""
+    scales to one, the Mamba2 and xLSTM leaves with constant initial values
+    to those values, weights to fan-in truncated normal (fan-in = the
+    per-layer leaf's first dim, as ``repro.models.layers.init.dense_init``
+    takes; the sLSTM's (H, P, 4P) recurrent weights its dim 1, at half
+    scale)."""
     with torch.no_grad():
         for path, t in stacked.items():
-            name = path[len("mamba/"):] if path.startswith("mamba/") else None
+            kind, _, name = path.partition("/")
+            const = _CONSTANT_INIT.get(kind, {})
             if path.endswith("scale"):
                 t.fill_(1.0)
-            elif name in mamba2.CONSTANT_INIT:
-                t.fill_(mamba2.CONSTANT_INIT[name])
+            elif name in const:
+                t.fill_(const[name])
+            elif kind == "slstm" and name == xlstm.SLSTM_RECURRENT:
+                dense_init_(t, t.shape[lead + 1], generator, scale=0.5)
             else:
                 dense_init_(t, t.shape[lead], generator)
 
 
 def block_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
-                kind: str = "enc") -> torch.Tensor:
+                kind: str = "enc",
+                memory: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One residual block of ``kind`` over the full sequence. x: (B, S, d).
-    ``enc`` attends bidirectionally; ``dense`` and ``attn_only`` with
-    ``cfg.causal`` and ``cfg.window``."""
-    if kind == "mamba":
-        return x + mamba2.mamba2_apply(
-            subtree(p, "mamba"), rmsnorm(x, p["ln/scale"], cfg.norm_eps),
-            cfg)
-    if kind not in _ATTN_MLP:
+    ``enc`` attends bidirectionally; ``dense``, ``attn_only`` and
+    ``cross``'s self-attention with ``cfg.causal`` and ``cfg.window``;
+    ``cross`` also attends to ``memory`` (B, T, d), the encoder's output."""
+    if kind in _RESIDUAL:
+        return x + _RESIDUAL[kind][1](
+            subtree(p, kind), rmsnorm(x, p["ln/scale"], cfg.norm_eps), cfg)
+    if kind not in KINDS:
         raise _unported(kind)
     if kind == "enc":
         cfg = dataclasses.replace(cfg, causal=False)
     h = rmsnorm(x, p["ln1/scale"], cfg.norm_eps)
     x = x + attn_apply(subtree(p, "attn"), h, cfg)
+    if kind == "cross":
+        h = rmsnorm(x, p["ln_x/scale"], cfg.norm_eps)
+        x = x + cross_attn_apply(subtree(p, "xattn"), h, memory, cfg)
     h = rmsnorm(x, p["ln2/scale"], cfg.norm_eps)
     return x + mlp_apply(subtree(p, "mlp"), h, cfg.act,
                          getattr(torch, cfg.compute_dtype))

@@ -1,4 +1,4 @@
-"""Decoder-only language model assembly (``repro.models.lm``), for two
+"""Decoder-only language model assembly (``repro.models.lm``), for three
 topologies:
 
 - ``uniform`` with ``dense`` blocks: L identical GQA attention + MLP blocks
@@ -7,23 +7,27 @@ topologies:
 - ``zamba``: groups of ``attn_every`` Mamba2 blocks, each group followed by
   one *shared* attention + MLP block (Zamba2, arXiv:2411.15242); the shared
   block's weights are reused after every group; a stage is one group.
+- ``xlstm``: groups of ``slstm_every - 1`` mLSTM blocks followed by one
+  sLSTM block (xLSTM, arXiv:2405.04517); a stage is one group.
 
 Parameters are a flat ``{path: tensor}`` dict at the JAX key paths, in
 ``jax.tree_util`` order: ``embed`` (V, d), ``final_ln/scale``, ``lm_head``
-(d, V) unless the embeddings are tied, and the block stack ``blocks/...``
-with leaves (L, ...) (uniform) or (groups, attn_every, ...) (zamba), plus
-zamba's ``shared_attn/...``.
+(d, V) unless the embeddings are tied, and the block stacks:
+``blocks/...`` with leaves (L, ...) (uniform) or (groups, attn_every, ...)
+(zamba, plus ``shared_attn/...``), or ``mlstm/...`` (groups, slstm_every -
+1, ...) and ``slstm/...`` (groups, ...) (xlstm).
 
 The stage interface is the JAX package's: ``sub_layers`` limits the depth
 (in stages), and the stages below ``active_from`` run under
 ``torch.no_grad()`` where the reference applies ``stop_gradient``, so
 neither they, nor the embedding, nor (zamba) the shared block's uses there
 get gradients. ``remat`` recomputes each trained block in the backward
-(the reference's per-block ``jax.checkpoint``). The VLM frontend is the
-reference's stub: precomputed (B, P, d) embeddings put ahead of the token
-embeddings (``embed(..., frontend)``). The other topologies (xlstm,
-moe_il) and block kinds (moe, mla_moe), caches, prefill and decode are not
-ported yet.
+(the reference's per-block ``jax.checkpoint``; as there, not zamba's shared
+block nor the xLSTM's sLSTM blocks). The VLM frontend is the reference's
+stub: precomputed (B, P, d) embeddings put ahead of the token embeddings
+(``embed(..., frontend)``). The ``moe_il`` topology and the ``moe`` and
+``mla_moe`` block kinds (llama4, deepseek-v2) come next; caches, prefill
+and decode (serving) are not ported yet.
 """
 from __future__ import annotations
 
@@ -67,20 +71,33 @@ def uniform_kind(cfg) -> str:
 def _ported(cfg) -> str:
     """The topology of ``cfg``; raises for those not ported."""
     topo = topology(cfg)
-    if topo == "zamba" or (topo == "uniform" and uniform_kind(cfg) == "dense"):
+    if topo in ("zamba", "xlstm") or (topo == "uniform"
+                                      and uniform_kind(cfg) == "dense"):
         return topo
     what = f"{topo} with {uniform_kind(cfg)} blocks" if topo == "uniform" \
         else topo
     raise NotImplementedError(
         f"LM topology '{what}' ({cfg.arch_id}) is not ported to repro_torch "
-        f"yet (ported: zamba, uniform with dense blocks)")
+        f"yet (ported: zamba, xlstm, uniform with dense blocks; MoE and MLA "
+        f"come next)")
+
+
+def _xlstm_groups(cfg):
+    """(groups, blocks a group) of the xlstm topology."""
+    per = cfg.xlstm.slstm_every or cfg.num_layers
+    return cfg.num_layers // per, per
 
 
 def num_stages(cfg) -> int:
-    """Stage granularity of the layer-wise schedule: one block (uniform)
-    or one group of ``attn_every`` Mamba2 blocks (zamba)."""
-    if _ported(cfg) == "zamba":
+    """Stage granularity of the layer-wise schedule: one block (uniform),
+    one group of ``attn_every`` Mamba2 blocks (zamba) or one group of
+    ``slstm_every`` xLSTM blocks (xlstm; one block a stage when
+    ``slstm_every`` is 0, as the reference counts it)."""
+    topo = _ported(cfg)
+    if topo == "zamba":
         return cfg.num_layers // cfg.attn_every
+    if topo == "xlstm" and cfg.xlstm.slstm_every:
+        return cfg.num_layers // cfg.xlstm.slstm_every
     return cfg.num_layers
 
 
@@ -93,6 +110,13 @@ def lm_shapes(cfg) -> Dict[str, tuple]:
     if topo == "uniform":
         shapes.update({f"blocks/{k}": (cfg.num_layers,) + s
                        for k, s in B.block_shapes(cfg, "dense").items()})
+        return tree_sorted(shapes)
+    if topo == "xlstm":
+        g, per = _xlstm_groups(cfg)
+        shapes.update({f"mlstm/{k}": (g, per - 1) + s
+                       for k, s in B.block_shapes(cfg, "mlstm").items()})
+        shapes.update({f"slstm/{k}": (g,) + s
+                       for k, s in B.block_shapes(cfg, "slstm").items()})
         return tree_sorted(shapes)
     shapes.update({f"blocks/{k}": (num_stages(cfg), cfg.attn_every) + s
                    for k, s in B.block_shapes(cfg, "mamba").items()})
@@ -107,8 +131,12 @@ def init_lm(cfg, generator=None, device="cpu") -> Tree:
     dt = getattr(torch, cfg.param_dtype)
     params = {k: torch.empty(s, dtype=dt, device=device)
               for k, s in lm_shapes(cfg).items()}
-    if topology(cfg) == "uniform":
+    topo = topology(cfg)
+    if topo == "uniform":
         B.stacked_init_(subtree(params, "blocks"), generator, lead=1)
+    elif topo == "xlstm":
+        B.stacked_init_(subtree(params, "mlstm"), generator, lead=2)
+        B.stacked_init_(subtree(params, "slstm"), generator, lead=1)
     else:
         B.stacked_init_(subtree(params, "blocks"), generator, lead=2)
         B.stacked_init_(subtree(params, "shared_attn"), generator, lead=0)
@@ -162,16 +190,25 @@ class _Remat(torch.autograd.Function):
         return (None, *pull(g))
 
 
-def _block(p: Tree, x: torch.Tensor, cfg, kind: str,
-           remat: bool) -> torch.Tensor:
+def remat_block(p: Tree, x: torch.Tensor, cfg, kind: str, remat: bool,
+                memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One block of ``kind``, recomputed in the backward when ``remat``;
+    ``memory`` (the encoder's output, for ``cross``) is an input of the
+    recomputed block, so that its gradient flows."""
     if not remat or not torch.is_grad_enabled():
-        return B.block_apply(p, x, cfg, kind)
+        return B.block_apply(p, x, cfg, kind, memory=memory)
     keys = list(p)
+    if memory is None:
+        def fn(x, *weights):
+            return B.block_apply(dict(zip(keys, weights)), x, cfg, kind)
 
-    def fn(x, *weights):
-        return B.block_apply(dict(zip(keys, weights)), x, cfg, kind)
+        return _Remat.apply(fn, x, *p.values())
 
-    return _Remat.apply(fn, x, *p.values())
+    def fn_mem(x, mem, *weights):
+        return B.block_apply(dict(zip(keys, weights)), x, cfg, kind,
+                             memory=mem)
+
+    return _Remat.apply(fn_mem, x, memory, *p.values())
 
 
 def forward_hidden(params: Tree, x: torch.Tensor, cfg, *,
@@ -187,15 +224,25 @@ def forward_hidden(params: Tree, x: torch.Tensor, cfg, *,
 
     if topo == "uniform":
         def stage(x, i):
-            return _block({k: t[i] for k, t in stack.items()}, x, cfg,
-                          "dense", remat)
+            return remat_block({k: t[i] for k, t in stack.items()}, x, cfg,
+                               "dense", remat)
+    elif topo == "xlstm":
+        mstack, sstack = subtree(params, "mlstm"), subtree(params, "slstm")
+        per = _xlstm_groups(cfg)[1]
+
+        def stage(x, gi):
+            for i in range(per - 1):
+                x = remat_block({k: t[gi, i] for k, t in mstack.items()},
+                                x, cfg, "mlstm", remat)
+            return B.block_apply({k: t[gi] for k, t in sstack.items()}, x,
+                                 cfg, "slstm")
     else:
         shared = subtree(params, "shared_attn")
 
         def stage(x, gi):
             for i in range(cfg.attn_every):
-                x = _block({k: t[gi, i] for k, t in stack.items()}, x, cfg,
-                           "mamba", remat)
+                x = remat_block({k: t[gi, i] for k, t in stack.items()},
+                                x, cfg, "mamba", remat)
             return B.block_apply(shared, x, cfg, "attn_only")
 
     if act > 0:

@@ -17,10 +17,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from repro_torch.launch.mesh import HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16
-
-# the xLSTM's mLSTM chunk length (``repro.models.layers.xlstm.MLSTM_CHUNK``;
-# the port has no xLSTM, the roofline still prices it)
-MLSTM_CHUNK = 256
+from repro_torch.models.layers.xlstm import MLSTM_CHUNK
 
 
 def model_flops(cfg, shape, mode: str) -> float:

@@ -57,7 +57,12 @@ def test_pack_unpack_bit_exact(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d", [(16640, 192), (37, 96), (5, 1024)])
+# (4096, 1536): the xLSTM's mLSTM inner norm (4 x 1024 tokens, bf16);
+# (4096, 768): its residual stream; (2048, 1024) and (1024, 1024):
+# seamless-m4t's decoder and encoder blocks
+@pytest.mark.parametrize("rows,d", [(16640, 192), (37, 96), (5, 1024),
+                                    (4096, 1536), (4096, 768), (2048, 1024),
+                                    (1024, 1024)])
 def test_rmsnorm_kernel(dev, dtype, rows, d):
     x = _rand((rows, d), dtype, dev)
     s = 1.0 + 0.1 * _rand((d,), torch.float32, dev, 1)
@@ -93,6 +98,12 @@ def test_rmsnorm_kernel_widths(dev, dtype, d, offset):
     (4, 1024, 1024, 32, 32, 80, True, 0, None, torch.bfloat16),  # zamba2
     (4, 1024, 1024, 32, 32, 80, True, 0, None, torch.float32),
     (2, 130, 130, 4, 2, 80, True, 48, 100, torch.float32),
+    # seamless-m4t-medium: cross attention (1024 decoder queries over 512
+    # encoder frames), the encoder's self-attention and the decoder's
+    # causal self-attention, 16 heads of 64
+    (2, 1024, 512, 16, 16, 64, False, 0, None, torch.bfloat16),
+    (2, 512, 512, 16, 16, 64, False, 0, None, torch.bfloat16),
+    (2, 1024, 1024, 16, 16, 64, True, 0, None, torch.bfloat16),
 ])
 def test_flash_attention_kernel(dev, B, S, T, Hq, Hkv, hd, causal, window,
                                 kv_len, dtype):

@@ -291,14 +291,14 @@ def test_masks_bytes_slots_and_transfer_match_reference(jparams, tparams,
 
 def test_other_topologies_are_refused():
     """The topologies and block kinds of the LM families still to port:
-    llama4's interleaved MoE, deepseek-v2's MLA + MoE, xlstm, a uniform
-    Mamba2 stack. (A uniform stack of dense blocks is ported.)"""
+    llama4's interleaved MoE, deepseek-v2's MLA + MoE, a uniform Mamba2
+    stack. (A uniform stack of dense blocks and the xlstm topology are
+    ported.)"""
     import dataclasses
     base = tbase.reduced(tbase.load_arch("internlm2-1.8b"))
     for over in (dict(moe=tbase.MoEConfig(num_experts=4, moe_every=2)),
                  dict(moe=tbase.MoEConfig(num_experts=4),
                       mla=tbase.MLAConfig()),
-                 dict(xlstm=tbase.XLSTMConfig(slstm_every=2)),
                  dict(ssm=tbase.SSMConfig())):
         cfg = dataclasses.replace(base, **over)
         with pytest.raises(NotImplementedError, match="not ported"):

@@ -120,11 +120,9 @@ def test_cli_rejects_unknown_codec(capsys):
     assert e.value.code == 2 and "unknown codec" in capsys.readouterr().err
 
 
-# the LM families still to port: MoE (llama4), MLA + MoE (deepseek-v2),
-# xLSTM and the encoder-decoder (seamless-m4t)
+# the LM families still to port: MoE (llama4), MLA + MoE (deepseek-v2)
 NOT_PORTED_CASES = [["--mode", "lm", "--arch", a] for a in (
-    "llama4-maverick-400b-a17b", "deepseek-v2-236b", "xlstm-125m",
-    "seamless-m4t-medium")]
+    "llama4-maverick-400b-a17b", "deepseek-v2-236b")]
 
 
 @pytest.mark.parametrize("flag", NOT_PORTED_CASES)
@@ -132,7 +130,32 @@ def test_cli_rejects_features_not_ported(flag, capsys):
     with pytest.raises(SystemExit) as e:
         train.main(["--device", "cpu", *flag])
     assert e.value.code == 2
-    assert "not ported to repro_torch yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not ported to repro_torch yet" in err
+    assert "MoE and MLA families come in the next slice" in err
+
+
+def test_cli_refuses_the_encoder_decoder_and_says_why(capsys):
+    """seamless-m4t-medium: the reference's launcher runs it as a
+    decoder-only dense LM (sequential) or fails (vmap); the port's sends
+    the encoder-decoder to ``launch.steps``."""
+    with pytest.raises(SystemExit) as e:
+        train.main(["--device", "cpu", "--mode", "lm", "--arch",
+                    "seamless-m4t-medium"])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "decoder-only dense LM" in err and "KeyError: 'frontend'" in err
+    assert "repro_torch.launch.steps" in err
+
+
+@pytest.mark.parametrize("engine", ["sequential", "vmap"])
+def test_cli_runs_xlstm_lm_mode_on_cpu(engine):
+    out = _run(["-m", "repro_torch.launch.train", "--mode", "lm",
+                "--arch", "xlstm-125m", "--device", "cpu", "--rounds", "2",
+                "--clients", "2", "--batch", "2", "--samples", "8",
+                "--seq-len", "32", "--engine", engine])
+    assert out.returncode == 0, out.stderr
+    assert "round 2/2 stage 2" in out.stdout and "final loss" in out.stdout
 
 
 INVALID_PRIVACY = [
