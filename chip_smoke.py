@@ -137,20 +137,21 @@ Phases, each of which must pass (any failure exits non-zero):
    ``launch.steps.make_fl_round_program``): launches equal to the plan's,
    peak memory, and the vmap engine's losses within half a bf16 step
    (2^-9, relative) of the sequential engine's.
-2j. xLSTM LM: LW-FedSSL on xlstm-125m at its published widths and depth
-   (d 768, 4 heads, mLSTM inner width 1536 in heads of 384, 12 blocks in
-   2 stage groups of 5 mLSTM + 1 sLSTM, vocab 50304, untied head, bf16
-   compute; 190,670,672 parameters, no cut): ``run_lm_fedssl``, 4
-   clients, 4 rounds, batch 4 x 1024 tokens, 64 sequences, fp32 wire, on
-   the sequential and then the vmap engine from the same draws. Finite
+2j. xLSTM LM: LW-FedSSL on xlstm-125m at its published widths and depth (d
+   768, 4 heads, mLSTM inner width 1536 in heads of 384, 12 blocks in 2
+   stage groups of 5 mLSTM + 1 sLSTM, vocab 50304, untied head, bf16
+   compute; 190,670,672 parameters, no cut): ``run_lm_fedssl``, 4 clients,
+   2 rounds (one a stage), batch 4 x 1024 tokens, 64 sequences, fp32 wire,
+   on the sequential and then the vmap engine from the same draws. Finite
    losses, wire bytes equal to the analytic bytes, RMSNorm, InfoNCE and
    pack/unpack launches equal to the plan's and no attention launch
-   (``xlstm_expected_launches``), seconds per round and peak memory; the
-   sequential run again from the same seed, bit-identical; ``lm_ssl_loss``
-   card against CPU at fp32 (stage 1, 2 x 512 tokens: the chunkwise
-   mLSTM, 2 chunks); the share of a stage-2 local step that its four
-   sLSTM layer calls take (CUDA events); the vmap engine's losses within
-   2^-9 (relative) of the sequential engine's.
+   (``xlstm_expected_launches``), seconds per round and peak memory; one
+   stage-2 local step run twice from the same state, bit-identical;
+   ``lm_ssl_loss`` card against CPU at fp32 (stage 1, 2 x 512 tokens: the
+   chunkwise mLSTM, 2 chunks); the share of a stage-2 local step that its
+   four sLSTM layer calls take (CUDA events); the vmap engine's losses
+   within 5e-4 (relative) of the sequential engine's and its parameter
+   updates within 0.17 of theirs (``update_gap``, L1).
 2k. encoder-decoder: seamless-m4t-medium at its published widths (d
    1024, 16 heads of 64, SwiGLU d_ff 4096, vocab 256206, untied head,
    512 frame embeddings from the frontend stub, drawn from the phase's
@@ -168,6 +169,22 @@ Phases, each of which must pass (any failure exits non-zero):
    (``encdec_expected_launches``); peak memory; then the
    encoder-decoder's loss with alignment card against CPU at fp32 (the
    last stage, 2 x 256 tokens).
+2l. MoE and MLA: (a) LW-FedSSL on deepseek-v2-236b at its published widths
+   (d 5120, 128 heads, MLA with kv rank 512, q rank 1536, q/k heads 128 +
+   64 and v heads 128, routed experts of width 1536 top-6 and 2 shared,
+   vocab 102400, bf16 compute), depth cut from 60 blocks to 2 (2 stages)
+   and the routed experts from 160 to 8 (1,818,993,664 parameters):
+   ``run_lm_fedssl`` with Adafactor (its ``TRAIN``), 2 clients, 2 rounds,
+   batch 2 x 1024 tokens, 8 sequences, fp32 wire. Finite losses, wire
+   bytes equal to the analytic bytes, attention (MLA's 192 / 128 head
+   dims), RMSNorm, InfoNCE and pack/unpack launches equal to the plan's,
+   peak memory; the run again from the same seed, bit-identical; then
+   ``lm_ssl_loss`` card against CPU at fp32 (stage 1, 2 x 256 tokens).
+   (b) ``python -m repro_torch.launch.train --mode lm`` for
+   deepseek-v2-236b and llama4-maverick-400b-a17b at the launcher's
+   ``reduced()`` configs on both engines (four processes at once, 2
+   rounds, batch 4 x 64): each exits 0 with finite losses, and each arch's
+   engines agree.
 3. reference: one SSL loss at full width on 8 images, fp32 compute, on the
    card (kernels) against the CPU (plain PyTorch versions); then one
    ``lm_ssl_loss`` with alignment on the trained zamba2 model, one stage
@@ -206,6 +223,11 @@ Phases, each of which must pass (any failure exits non-zero):
    (the mLSTM's inner norm) beside ``F.rms_norm``; InfoNCE at (1, 4, 768)
    and (1, 2, 1024); pack and unpack bit-identical on every xLSTM and
    encoder-decoder payload layout of their plans, timed at the largest.
+   Phase 2l's: causal attention with MLA's head dims, (2, 1024, 128/128,
+   192 / 128) in bf16 and fp32 and the reduced (4, 64, 4/4, 48 / 32) in
+   fp32, and llama4-maverick's (2, 1024, 40/8, 128) bf16, against
+   ``ref.sdpa_ref`` and beside ``F.scaled_dot_product_attention``; the
+   attention backward at the MLA head dims.
 
 With ``--profile``, a fifth phase traces one local step of the last stage
 with ``torch.profiler``, of one client and of four at once (the vmap
@@ -288,6 +310,7 @@ PATH_KERNELS = {
     "lm_xlstm_vmap": ("gather_pack", "scatter_unpack", "rmsnorm_rows",
                       "info_nce_rows", "info_nce_rows_dq"),
     "encdec": MAIN_KERNELS,
+    "lm_moe": MAIN_KERNELS,
 }
 TOPK_ROUNDS_PER_STAGE = (1,) * 11 + (3,)
 # phase 2d: zamba2-2.7b at full width, 2 stage groups of 6 Mamba2 blocks
@@ -708,11 +731,12 @@ def lm_config(groups=LM_GROUPS, **kw):
 
 
 def lm_path(device, *, clients, rounds, batch, seq_len, samples, seed=0,
-            codec="fp32", privacy=None, cfg=None, engine="sequential"):
+            codec="fp32", privacy=None, cfg=None, engine="sequential",
+            optimizer="adamw"):
     """LW-FedSSL through ``run_lm_fedssl`` on ``cfg`` (default
-    ``lm_config()``) on ``engine``. Returns (cfg, final params, history,
-    per-round seconds, plans, each client's local steps a round,
-    tokens)."""
+    ``lm_config()``) on ``engine`` with ``optimizer``. Returns (cfg, final
+    params, history, per-round seconds, plans, each client's local steps a
+    round, tokens)."""
     import torch
     from repro_torch.configs.base import FLConfig, TrainConfig
     from repro_torch.core import schedule as sched
@@ -723,7 +747,7 @@ def lm_path(device, *, clients, rounds, batch, seq_len, samples, seed=0,
     cfg = cfg or lm_config()
     fl = FLConfig(num_clients=clients, rounds=rounds, local_epochs=1,
                   schedule="lw_fedssl", seed=seed)
-    tc = TrainConfig(batch_size=batch, base_lr=3e-4)
+    tc = TrainConfig(batch_size=batch, base_lr=3e-4, optimizer=optimizer)
     toks, labs, params = lm_init(device, cfg, samples, seq_len, seed)
     shards = iid_partition(samples, clients, seed=seed)
     print(f"  {cfg.arch_id}: {cfg.num_layers} blocks in "
@@ -996,9 +1020,10 @@ def check_launches(what, got, want):
 # phase 2j: the xLSTM LM
 # ---------------------------------------------------------------------------
 # xlstm-125m at its published widths and depth: 12 blocks in 2 groups of 5
-# mLSTM + 1 sLSTM, no cut
+# mLSTM + 1 sLSTM, no cut; 2 rounds, one a stage: the phase is host-bound
+# by the sLSTM's eager loop, and 4 rounds took the script past 700 s
 XLSTM_ARCH = "xlstm-125m"
-XLSTM_RUN = dict(clients=4, rounds=4, batch=4, seq_len=1024, samples=64)
+XLSTM_RUN = dict(clients=4, rounds=2, batch=4, seq_len=1024, samples=64)
 # its parameters by the reference's init_lm (its config's param_count()
 # says 133,926,912)
 XLSTM_PARAMS = 190670672
@@ -1089,7 +1114,7 @@ def slstm_share(cfg, params, step, batch, seq_len, dev="cuda"):
     def fwd_bwd():
         p = {k: v.detach().requires_grad_() for k, v in sp.items()}
         xr = x.detach().requires_grad_()
-        out = blocks.block_apply(p, xr, cfg, "slstm")
+        out, _ = blocks.block_apply(p, xr, cfg, "slstm")
         torch.autograd.grad(out.float().sum(), [xr, *p.values()])
 
     def ms(fn, reps=2):
@@ -1468,6 +1493,121 @@ def encdec_reference_check(params, data, cfg, n=2, seq=256):
     print(f"  card {out['cuda']}, CPU {out['cpu']}", flush=True)
     return {k: abs(out["cuda"][k] - v) / max(abs(v), 1e-12)
             for k, v in out["cpu"].items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 2l: the MoE and MLA families
+# ---------------------------------------------------------------------------
+# deepseek-v2-236b at its published widths (MLA, 2 shared + routed experts
+# of width 1536, top-6), depth cut from 60 blocks to 2 (2 stages) and the
+# routed experts from 160 to 8; Adafactor, its TRAIN's optimizer
+MOE_ARCH, MOE_LAYERS, MOE_EXPERTS = "deepseek-v2-236b", 2, 8
+MOE_RUN = dict(clients=2, rounds=2, batch=2, seq_len=1024, samples=8,
+               optimizer="adafactor")
+# per block 149,225,472 MLA + 235,970,560 MoE + 10,240 norms; embedding and
+# head 2 x 524,288,000; final norm 5,120
+MOE_PARAMS = 1818993664
+# the launcher's reduced() MoE archs, each on both engines
+LAUNCHER_MOE_ARCHS = ("deepseek-v2-236b", "llama4-maverick-400b-a17b")
+LAUNCHER_MOE_ARGS = ("--mode", "lm", "--rounds", "2", "--clients", "2",
+                     "--batch", "4", "--samples", "16", "--seq-len", "64")
+# the engines' fp32 losses at reduced(): the same steps, batched (vmap) or
+# one client at a time, summed in another order on the card
+LAUNCHER_ENGINE_RTOL = 1e-4
+
+
+def moe_config():
+    """deepseek-v2-236b at its published widths, ``MOE_LAYERS`` blocks (one
+    stage each) of ``MOE_EXPERTS`` routed experts."""
+    from repro_torch.configs.base import load_arch
+    cfg = load_arch(MOE_ARCH)
+    return dataclasses.replace(
+        cfg, num_layers=MOE_LAYERS,
+        moe=dataclasses.replace(cfg.moe, num_experts=MOE_EXPERTS))
+
+
+def moe_phase():
+    """Phase 2l (a): deepseek-v2 through ``run_lm_fedssl``. Returns {path:
+    launch counts}."""
+    import torch
+    from repro_torch.kernels import ops
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    cfg, params, hist, secs, plans, steps, toks = lm_path(
+        "cuda", cfg=moe_config(), **MOE_RUN)
+    torch.cuda.synchronize()
+    launches = {"lm_moe": ops.launch_counts()}
+    n_params = sum(t.numel() for t in params.values())
+    check(n_params == MOE_PARAMS,
+          f"{cfg.arch_id} holds {n_params} parameters, not {MOE_PARAMS}")
+    check(len(hist.loss) == MOE_RUN["rounds"]
+          and hist.round_stage == [p.stage for p in plans],
+          f"MoE LM rounds {hist.round_stage}")
+    check(all(math.isfinite(x) for x in hist.loss),
+          f"non-finite MoE LM loss: {hist.loss}")
+    check(hist.wire_download_bytes == hist.download_bytes
+          and hist.wire_upload_bytes == hist.upload_bytes,
+          f"MoE LM wire bytes {hist.wire_download_bytes} / "
+          f"{hist.wire_upload_bytes} differ from the analytic "
+          f"{hist.download_bytes} / {hist.upload_bytes}")
+    print(f"  MoE LM: seconds per round {[round(x, 3) for x in secs]}; "
+          f"losses {hist.loss}; wire bytes equal analytic bytes in all "
+          f"{len(hist.loss)} rounds: download {hist.wire_download_bytes}, "
+          f"upload {hist.wire_upload_bytes} per client; {peak_line(base)}",
+          flush=True)
+    # a block is an MLA attention and two RMSNorms, as a dense block
+    check_launches("MoE LM", launches["lm_moe"],
+                   dense_expected_launches(plans, steps))
+    check_repeat("MoE LM", hist, moe_config(), MOE_RUN)
+    rels = lm_reference_check(params, toks, seq=256, cfg=cfg)
+    print(f"  MoE LM lm_ssl_loss at full width, stage 1, 2 x 256 tokens, "
+          f"fp32, card against CPU: relative differences {rels} (tolerance "
+          f"1e-4)", flush=True)
+    check(all(v <= 1e-4 for v in rels.values()),
+          "MoE LM: card and CPU disagree")
+    return launches
+
+
+def launcher_moe_runs():
+    """Phase 2l (b): ``python -m repro_torch.launch.train --mode lm`` for
+    each of ``LAUNCHER_MOE_ARCHS`` on both engines, on the card at the
+    launcher's ``reduced()`` configs, the four processes at once: each
+    exits 0 with a finite final loss, and the engines' losses agree."""
+    import torch
+    torch.cuda.empty_cache()        # the card's memory for the four
+    procs = {}
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for arch in LAUNCHER_MOE_ARCHS:
+        for engine in ("sequential", "vmap"):
+            cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                   *LAUNCHER_MOE_ARGS, "--arch", arch, "--engine", engine]
+            procs[arch, engine] = subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+    losses = {}
+    for (arch, engine), proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"the launcher on {arch} ({engine}) "
+                                    f"exited {proc.returncode}: {err[-3000:]}")
+        rounds = [float(ln.split(" loss ")[1].split()[0])
+                  for ln in out.splitlines() if ln.startswith("round ")]
+        final = [ln for ln in out.splitlines() if ln.startswith("final loss")]
+        check(len(rounds) == 2 and all(math.isfinite(x) for x in rounds)
+              and final, f"the launcher on {arch} ({engine}): {out[-2000:]}")
+        losses[arch, engine] = rounds
+        print(f"  --arch {arch} --engine {engine}: round losses {rounds}; "
+              f"{final[0]}", flush=True)
+    for arch in LAUNCHER_MOE_ARCHS:
+        a, b = losses[arch, "vmap"], losses[arch, "sequential"]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        print(f"  {arch}: the engines' losses {rel:.3e} apart (relative; "
+              f"tolerance {LAUNCHER_ENGINE_RTOL:g}, as printed to 4 "
+              f"decimals)", flush=True)
+        check(rel <= LAUNCHER_ENGINE_RTOL,
+              f"{arch}: the launcher's engines disagree: {a} / {b}")
 
 
 # ---------------------------------------------------------------------------
@@ -2490,16 +2630,21 @@ def kernel_checks(state):
     got = torch.autograd.grad(ops.rmsnorm(xg, sg), (xg, sg), g)
     want = torch.autograd.grad(ref.rmsnorm_ref(xg, sg), (xg, sg), g)
     line("rmsnorm backward", max_err(got, want), 1e-4)
-    qg, kg, vg = (torch.randn((2, 65, h, 64), generator=gen, device=dev)
-                  .requires_grad_() for h in (4, 2, 2))
-    go = torch.randn((2, 65, 4, 64), generator=gen, device=dev)
-    got = torch.autograd.grad(
-        ops.flash_attention(qg, kg, vg, causal=True), (qg, kg, vg), go)
-    want = torch.autograd.grad(
-        ref.sdpa_ref(qg.transpose(1, 2), kg.transpose(1, 2),
-                     vg.transpose(1, 2), causal=True).transpose(1, 2),
-        (qg, kg, vg), go)
-    line("flash_attention backward (GQA, causal)", max_err(got, want), 1e-4)
+    # GQA, and MLA's narrower v (reduced and published head dims)
+    for Sg, Hq, Hkv, hdq, hdv in ((65, 4, 2, 64, 64), (65, 4, 4, 48, 32),
+                                  (130, 2, 2, 192, 128)):
+        qg, kg, vg = (torch.randn((2, Sg, h, w), generator=gen, device=dev)
+                      .requires_grad_()
+                      for h, w in ((Hq, hdq), (Hkv, hdq), (Hkv, hdv)))
+        go = torch.randn((2, Sg, Hq, hdv), generator=gen, device=dev)
+        got = torch.autograd.grad(
+            ops.flash_attention(qg, kg, vg, causal=True), (qg, kg, vg), go)
+        want = torch.autograd.grad(
+            ref.sdpa_ref(qg.transpose(1, 2), kg.transpose(1, 2),
+                         vg.transpose(1, 2), causal=True).transpose(1, 2),
+            (qg, kg, vg), go)
+        line(f"flash_attention backward (causal, S {Sg}, Hq {Hq}, Hkv "
+             f"{Hkv}, head dims {hdq} / {hdv})", max_err(got, want), 1e-4)
     return rec
 
 
@@ -2794,18 +2939,34 @@ def ssd_flops(B, S, H, P, N, chunk):
             + B * H * (S // Q) * (Q * (Q + 1) * P + 4 * Q * N * P))
 
 
-# the LM paths' bf16 attention: (record, (B, S, T, Hq, Hkv, hd, causal), use)
+# the LM paths' attention: (record, (B, S, T, Hq, Hkv, q/k head dim, v head
+# dim, causal, dtype), use)
 LM_ATTENTION = (
-    ("flash_attention", (4, 1024, 1024, 32, 32, 80, True),
+    ("flash_attention", (4, 1024, 1024, 32, 32, 80, 80, True, "bfloat16"),
      "zamba2's shared block"),
-    ("flash_attention_dense", (4, 1024, 1024, 16, 8, 128, True),
-     "the dense LM's"),
-    ("flash_attention_cross", (2, 1024, 512, 16, 16, 64, False),
+    ("flash_attention_dense",
+     (4, 1024, 1024, 16, 8, 128, 128, True, "bfloat16"), "the dense LM's"),
+    ("flash_attention_cross",
+     (2, 1024, 512, 16, 16, 64, 64, False, "bfloat16"),
      "seamless-m4t's cross attention"),
-    ("flash_attention_encoder", (2, 512, 512, 16, 16, 64, False),
+    ("flash_attention_encoder",
+     (2, 512, 512, 16, 16, 64, 64, False, "bfloat16"),
      "seamless-m4t's encoder"),
-    ("flash_attention_decoder", (2, 1024, 1024, 16, 16, 64, True),
-     "seamless-m4t's decoder self-attention"))
+    ("flash_attention_decoder",
+     (2, 1024, 1024, 16, 16, 64, 64, True, "bfloat16"),
+     "seamless-m4t's decoder self-attention"),
+    ("flash_attention_mla",
+     (2, 1024, 1024, 128, 128, 192, 128, True, "bfloat16"),
+     "deepseek-v2's MLA, phase 2l"),
+    ("flash_attention_mla_fp32",
+     (2, 1024, 1024, 128, 128, 192, 128, True, "float32"),
+     "deepseek-v2's MLA at fp32"),
+    ("flash_attention_llama4",
+     (2, 1024, 1024, 40, 8, 128, 128, True, "bfloat16"),
+     "llama4-maverick's GQA 40/8"),
+    ("flash_attention_mla_reduced",
+     (4, 64, 64, 4, 4, 48, 32, True, "float32"),
+     "deepseek-v2's reduced() MLA, the launcher's in phase 2l(b)"))
 # their RMSNorms: (record, (rows, d, dtype), use)
 LM_RMSNORM = (
     ("rmsnorm_rows_2560", (4096, 2560, "float32"), "zamba2's residual stream"),
@@ -2830,8 +2991,8 @@ LM_INFONCE_USE = {"": "zamba2's alignment", "xlstm": "the xLSTM's alignment",
 def lm_kernel_checks():
     """The kernels at the LM paths' shapes against their plain versions,
     with times and bounds: the SSD scan (and a small case with another
-    chunk, and the Function's backward), bf16 attention at each path's
-    shapes (``LM_ATTENTION``; head dim 80 in fp32 too), RMSNorm at each
+    chunk, and the Function's backward), attention at each path's shapes
+    and dtype (``LM_ATTENTION``; head dim 80 in fp32 too), RMSNorm at each
     path's rows and widths (``LM_RMSNORM``), InfoNCE on each alignment's
     pooled states and above 4096 (``LM_INFONCE``).
     Returns {record name: record of the LM path's shape}; each record names
@@ -2902,13 +3063,17 @@ def lm_kernel_checks():
         shape=f"xh ({B}, {S}, {H}, {P}), N {N}, chunk {Q}, fp32 "
               f"(one Mamba2 block of the LM path)")
 
-    # bf16 attention at each path's shapes, against ref.sdpa_ref at 2e-2
-    # and beside F.scaled_dot_product_attention
-    for name, (B, S, T, Hq, Hkv, hd, causal), what in LM_ATTENTION:
-        sets = [tuple(torch.randn((B, n, h, hd), generator=gen, device=dev)
-                      .to(torch.bfloat16)
-                      for n, h in ((S, Hq), (T, Hkv), (T, Hkv)))
-                for _ in range(copies(2 * B * (S * Hq + 2 * T * Hkv) * hd))]
+    # attention at each path's shapes, against ref.sdpa_ref: bf16 within
+    # 2e-2, fp32 within 1e-5 of the largest value; beside
+    # F.scaled_dot_product_attention
+    for name, (B, S, T, Hq, Hkv, hd, dv, causal, dtype), what in \
+            LM_ATTENTION:
+        dt = getattr(torch, dtype)
+        nbytes = dt.itemsize * B * (S * Hq * (hd + dv) + T * Hkv * (hd + dv))
+        sets = [tuple(torch.randn((B, n, h, w), generator=gen, device=dev)
+                      .to(dt) for n, h, w in ((S, Hq, hd), (T, Hkv, hd),
+                                              (T, Hkv, dv)))
+                for _ in range(copies(nbytes))]
 
         def plain(q, k, v, causal=causal):
             return ref.sdpa_ref(q.transpose(1, 2), k.transpose(1, 2),
@@ -2917,11 +3082,18 @@ def lm_kernel_checks():
 
         err = max_err(ops.flash_attention(*sets[0], causal=causal),
                       plain(*sets[0]))
-        shape = (f"q ({B}, {S}, {Hq}, {hd}), k, v ({B}, {T}, {Hkv}, {hd}) "
-                 f"bf16, {'causal' if causal else 'non-causal'} ({what})")
-        print(f"  {name} {shape}: max |kernel - plain| = {err:.3e} "
-              f"(tolerance 2e-2)", flush=True)
-        check(err <= 2e-2, f"{name}: error {err}")
+        dims = f"{hd}" if dv == hd else f"{hd} / {dv}"
+        shape = (f"q ({B}, {S}, {Hq}), k, v ({B}, {T}, {Hkv}), head dims "
+                 f"{dims}, {dtype}, {'causal' if causal else 'non-causal'} "
+                 f"({what})")
+        if dt == torch.bfloat16:
+            print(f"  {name} {shape}: max |kernel - plain| = {err:.3e} "
+                  f"(tolerance 2e-2)", flush=True)
+            check(err <= 2e-2, f"{name}: error {err}")
+        else:
+            line(f"{name} {shape}",
+                 rel(ops.flash_attention(*sets[0], causal=causal),
+                     plain(*sets[0])), 1e-5)
         if name == "flash_attention":
             q32 = [t.float() for t in sets[0]]
             line(f"flash_attention ({B}, {S}, {Hq}, {hd}) fp32 causal",
@@ -2930,8 +3102,9 @@ def lm_kernel_checks():
         bhsd = [tuple(t.transpose(1, 2).contiguous() for t in qkv)
                 for qkv in sets]
         pairs = S * (S + 1) // 2 if causal else S * T
-        bms, by = bound(2 * B * (2 * S * Hq + 2 * T * Hkv) * hd,
-                        4 * B * Hq * pairs * hd, mesh.PEAK_FLOPS_BF16)
+        bms, by = bound(nbytes, 2 * B * Hq * pairs * (hd + dv),
+                        mesh.PEAK_FLOPS_BF16 if dt == torch.bfloat16
+                        else mesh.PEAK_FLOPS_FP32)
         rec[name] = dict(
             kernel="flash_attention", max_abs_err=err,
             ms=time_ms([lambda a=a: ops.flash_attention(*a, causal=causal)
@@ -3602,6 +3775,18 @@ def run(profile: bool = False) -> int:
     got, encdec_pack_rec = encdec_phase()
     launches.update(got)
     print(f"  phase 2k took {time.perf_counter() - t2k:.1f}s", flush=True)
+
+    print(f"[2l] MoE and MLA: LW-FedSSL on {MOE_ARCH} at its published "
+          f"widths, {MOE_LAYERS} blocks of {MOE_EXPERTS} routed experts, "
+          f"{MOE_RUN['clients']} clients, {MOE_RUN['rounds']} rounds, batch "
+          f"{MOE_RUN['batch']} x {MOE_RUN['seq_len']} tokens, "
+          f"{MOE_RUN['optimizer']}, fp32 wire; then the launcher on "
+          f"{' and '.join(LAUNCHER_MOE_ARCHS)} at reduced(), both engines",
+          flush=True)
+    t2l = time.perf_counter()
+    launches.update(moe_phase())
+    launcher_moe_runs()
+    print(f"  phase 2l took {time.perf_counter() - t2l:.1f}s", flush=True)
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(launches[path][name] > 0,

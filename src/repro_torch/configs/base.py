@@ -260,8 +260,7 @@ class FLConfig:
 # Registry: load src/repro/configs/<id>.py by literal arch id
 # ---------------------------------------------------------------------------
 ARCH_IDS = [
-    # the LM architectures ported so far (the other LM families of the
-    # JAX package come with later slices)
+    # the LM architectures, every one of the JAX package's
     "zamba2-2.7b",
     "internlm2-1.8b",
     "internvl2-1b",
@@ -270,6 +269,8 @@ ARCH_IDS = [
     "starcoder2-15b",
     "xlstm-125m",
     "seamless-m4t-medium",
+    "llama4-maverick-400b-a17b",
+    "deepseek-v2-236b",
     # the paper's own backbone
     "vit-tiny",
 ]

@@ -13,15 +13,20 @@
 // ragged S and T are masked, never padded in memory; the running row max,
 // row sum and accumulator stay in fp32 registers. Each block's output
 // depends only on its own (batch, head, q tile): no split over keys and no
-// atomics, so results do not depend on how callers fold batches. Head dims
-// 64, 80 (zamba2) and 128. The wrapper passes the batch, sequence and head
+// atomics, so results do not depend on how callers fold batches. Both
+// kernels take a q/k head dim DQ and a v head dim DV <= DQ (the output is
+// DV wide): (64, 64), (80, 80) (zamba2), (128, 128), and MLA's (192, 128)
+// (deepseek-v2's published widths: 128 + 64 q/k, 128 v) and (48, 32)
+// (its reduced() widths). The wrapper passes the batch, sequence and head
 // strides of each operand; the head dim is contiguous.
 //
 // Bound on the H100: for the ViT (B=256, S=T=65, 3 heads of 64, bf16) the
 // four (B, S, H, hd) tensors are 25.6 MB, 7.6 us at 3.35 TB/s, against
 // 0.83 GFLOP of q.k and p.v, 0.8 us at the bf16 tensor-core peak: bytes.
 // For zamba2's causal (4, 1024, 32, 80) the bytes are 84 MB (25 us) and the
-// causal half of the products 21.5 GFLOP (22 us): both about equal.
+// causal half of the products 21.5 GFLOP (22 us): both about equal. For
+// deepseek-v2's causal MLA (2, 1024, 128 heads, q/k 192, v 128) q, k, v
+// and o are 335.5 MB (100 us) against 85.9 GFLOP (87 us).
 //
 // bf16 kernel (flash_fwd_bf16_kernel). Products on the tensor cores with
 // mma.sync.m16n8k16 (bf16 in, fp32 accumulator), the FlashAttention-2
@@ -45,8 +50,11 @@
 // ViT's second tile; the causal diagonal) and evaluates masks only on
 // tiles that cross a mask's edge; the last q tiles of a causal problem,
 // the longest, are launched first. Registers are capped at 128 a thread
-// and the exponential is the SFU's ex2.approx: each was faster on the
-// card than the alternative (PERF.md). TMA was not used: the
+// up to DQ = 128 (two 256-thread blocks an SM) and at 255 beyond, where the
+// q fragments alone take 48 registers at DQ = 192 (one block an SM, as its
+// 137 KB of shared memory allows anyway); the exponential is the SFU's
+// ex2.approx: each was faster on the card than the alternative (PERF.md).
+// TMA was not used: the
 // ViT's tiles are 8 KB, and a descriptor built on the host for each of
 // the path's 8616 launches would add host time to a host-bound step.
 //
@@ -92,17 +100,17 @@ constexpr int NWARPS = 4;
 constexpr int THREADS = NWARPS * 32;
 constexpr int RPW = BQ / NWARPS;  // q rows per warp
 
-template <int HD>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const AttnArgs a) {
-  constexpr int KSTRIDE = HD + 1;  // padded row: lanes read distinct banks
-  constexpr int DPL = (HD + 31) / 32;  // output columns per lane
-  constexpr bool FULL = HD % 32 == 0;  // else the last column is masked
+  constexpr int KSTRIDE = DQ + 1;  // padded row: lanes read distinct banks
+  constexpr int DPL = (DV + 31) / 32;  // output columns per lane
+  constexpr bool FULL = DV % 32 == 0;  // else the last column is masked
   extern __shared__ float smem[];
-  float* Qs = smem;                // BQ x HD
-  float* Ks = Qs + BQ * HD;        // BK x (HD + 1)
-  float* Vs = Ks + BK * KSTRIDE;   // BK x HD
-  float* Ps = Vs + BK * HD;        // BQ x BK
+  float* Qs = smem;                // BQ x DQ
+  float* Ks = Qs + BQ * DQ;        // BK x (DQ + 1)
+  float* Vs = Ks + BK * KSTRIDE;   // BK x DV
+  float* Ps = Vs + BK * DV;        // BQ x BK
 
   const int nq = (a.S + BQ - 1) / BQ;
   int bid = blockIdx.x;
@@ -124,8 +132,8 @@ flash_fwd_kernel(const AttnArgs a) {
   const int warp = tid >> 5;
   const int lane = tid & 31;
 
-  for (int i = tid; i < BQ * HD; i += THREADS) {
-    const int r = i / HD, d = i - r * HD;
+  for (int i = tid; i < BQ * DQ; i += THREADS) {
+    const int r = i / DQ, d = i - r * DQ;
     const int s = q0 + r;
     Qs[i] = s < a.S ? qp[s * a.q_ss + d] : 0.f;
   }
@@ -150,12 +158,15 @@ flash_fwd_kernel(const AttnArgs a) {
 
   for (int k0 = (k_begin / BK) * BK; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile is no longer read
-    for (int i = tid; i < BK * HD; i += THREADS) {
-      const int c = i / HD, d = i - c * HD;
+    for (int i = tid; i < BK * DQ; i += THREADS) {
+      const int c = i / DQ, d = i - c * DQ;
       const int t = k0 + c;
-      const bool in = t < a.T;
-      Ks[c * KSTRIDE + d] = in ? kp[t * a.k_ss + d] : 0.f;
-      Vs[c * HD + d] = in ? vp[t * a.v_ss + d] : 0.f;
+      Ks[c * KSTRIDE + d] = t < a.T ? kp[t * a.k_ss + d] : 0.f;
+    }
+    for (int i = tid; i < BK * DV; i += THREADS) {
+      const int c = i / DV, d = i - c * DV;
+      const int t = k0 + c;
+      Vs[c * DV + d] = t < a.T ? vp[t * a.v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -166,10 +177,10 @@ flash_fwd_kernel(const AttnArgs a) {
     for (int rr = 0; rr < RPW; ++rr) {
       const int r = warp * RPW + rr;
       const int qpos = q0 + r;
-      const float* qrow = Qs + r * HD;
+      const float* qrow = Qs + r * DQ;
       float s0 = 0.f, s1 = 0.f;
 #pragma unroll 16
-      for (int d = 0; d < HD; ++d) {
+      for (int d = 0; d < DQ; ++d) {
         const float qv = qrow[d];
         s0 = fmaf(qv, k_lo[d], s0);
         s1 = fmaf(qv, k_hi[d], s1);
@@ -198,7 +209,7 @@ flash_fwd_kernel(const AttnArgs a) {
 #pragma unroll
       for (int j = 0; j < DPL; ++j) {
         const int col = lane + 32 * j;
-        vv[j] = (FULL || col < HD) ? Vs[c * HD + col] : 0.f;
+        vv[j] = (FULL || col < DV) ? Vs[c * DV + col] : 0.f;
       }
 #pragma unroll
       for (int rr = 0; rr < RPW; ++rr) {
@@ -217,26 +228,26 @@ flash_fwd_kernel(const AttnArgs a) {
 #pragma unroll
       for (int j = 0; j < DPL; ++j) {
         const int col = lane + 32 * j;
-        if (FULL || col < HD) op[s * a.o_ss + col] = acc[rr][j] / l;
+        if (FULL || col < DV) op[s * a.o_ss + col] = acc[rr][j] / l;
       }
     }
   }
 }
 
-template <int HD>
+template <int DQ, int DV>
 int launch_fp32(const AttnArgs& a, cudaStream_t st) {
   constexpr size_t smem =
-      sizeof(float) * (BQ * HD + BK * (HD + 1) + BK * HD + BQ * BK);
+      sizeof(float) * (BQ * DQ + BK * (DQ + 1) + BK * DV + BQ * BK);
   // set on every launch: the attribute is per device, and cheap to set
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DQ, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long blocks =
       static_cast<long long>(a.B) * a.Hq * ((a.S + BQ - 1) / BQ);
   if (blocks <= 0) return 0;
-  flash_fwd_kernel<HD><<<static_cast<unsigned>(blocks), THREADS, smem, st>>>(
-      a);
+  flash_fwd_kernel<DQ, DV>
+      <<<static_cast<unsigned>(blocks), THREADS, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -252,10 +263,19 @@ __host__ __device__ constexpr int pitch() {
   return HD + 8;
 }
 
-template <int HD>
+// q rows and a two-stage K ring at DQ's pitch, a two-stage V ring at DV's
+template <int DQ, int DV>
 constexpr size_t bf16_smem_bytes(int q_warps) {
-  return sizeof(bf16) * static_cast<size_t>(16 * q_warps + 4 * TK) *
-         pitch<HD>();
+  return sizeof(bf16) *
+         (static_cast<size_t>(16 * q_warps + 2 * TK) * pitch<DQ>() +
+          static_cast<size_t>(2 * TK) * pitch<DV>());
+}
+
+// two 256-thread blocks an SM (128 registers a thread) up to DQ = 128, one
+// beyond (255 registers)
+template <int DQ>
+constexpr int bf16_min_blocks() {
+  return DQ <= 128 ? 2 : 1;
 }
 
 // 2^x on the SFU (ex2.approx, flush to zero: exp2f's denormal handling
@@ -281,22 +301,25 @@ __device__ __forceinline__ void load_rows(bf16* sm, const bf16* g,
   }
 }
 
-// at most 128 registers a thread (two 256-thread blocks an SM): more
-// warps resident hide the latency of mma.sync chains better than the
-// registers they would otherwise spend (measured, see PERF.md)
-template <int HD>
-__global__ void __launch_bounds__(MAX_WARPS * 32, 2)
+// at most 128 registers a thread up to DQ = 128 (two 256-thread blocks an
+// SM): more warps resident hide the latency of mma.sync chains better than
+// the registers they would otherwise spend (measured, see PERF.md)
+template <int DQ, int DV>
+__global__ void __launch_bounds__(MAX_WARPS * 32, bf16_min_blocks<DQ>())
 flash_fwd_bf16_kernel(const AttnArgs a) {
-  constexpr int P = pitch<HD>();
-  constexpr int KC = HD / 16;   // k16 chunks of the head dim (q.k^T)
-  constexpr int DN = HD / 8;    // n8 tiles of the head dim (p.v)
+  static_assert(DQ % 16 == 0 && DV % 16 == 0 && DV <= DQ,
+                "head dims: multiples of 16, v no wider than q");
+  constexpr int PQ = pitch<DQ>();
+  constexpr int PV = pitch<DV>();
+  constexpr int KC = DQ / 16;   // k16 chunks of the q/k head dim (q.k^T)
+  constexpr int DN = DV / 8;    // n8 tiles of the v head dim (p.v)
   constexpr int SN = TK / 8;    // n8 tiles of a key tile (scores)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int q_warps = blockDim.x >> 5;
   const int bq = 16 * q_warps;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // bq x P, then o
-  bf16* Ks = Qs + bq * P;                        // 2 stages x TK x P
-  bf16* Vs = Ks + 2 * TK * P;                    // 2 stages x TK x P
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // bq x PQ, then o
+  bf16* Ks = Qs + bq * PQ;                       // 2 stages x TK x PQ
+  bf16* Vs = Ks + 2 * TK * PQ;                   // 2 stages x TK x PV
 
   const int bh_count = a.B * a.Hq;
   const int nq = (a.S + bq - 1) / bq;
@@ -329,11 +352,11 @@ flash_fwd_bf16_kernel(const AttnArgs a) {
   if (wq0 >= a.S) w_end = 0;
   const int w_begin = a.window > 0 ? max(0, wq0 - a.window + 1) : 0;
 
-  load_rows<HD>(Qs, qp, a.q_ss, q0, bq, a.S);
+  load_rows<DQ>(Qs, qp, a.q_ss, q0, bq, a.S);
   common::cp_async_commit();
   if (ntiles > 0) {
-    load_rows<HD>(Ks, kp, a.k_ss, t_begin, TK, a.T);
-    load_rows<HD>(Vs, vp, a.v_ss, t_begin, TK, a.T);
+    load_rows<DQ>(Ks, kp, a.k_ss, t_begin, TK, a.T);
+    load_rows<DV>(Vs, vp, a.v_ss, t_begin, TK, a.T);
     common::cp_async_commit();
   }
 
@@ -354,22 +377,22 @@ flash_fwd_bf16_kernel(const AttnArgs a) {
     common::cp_async_wait_all();
     __syncthreads();
     if (it + 1 < ntiles) {
-      const int nxt = ((it + 1) & 1) * TK * P;
-      load_rows<HD>(Ks + nxt, kp, a.k_ss, k0 + TK, TK, a.T);
-      load_rows<HD>(Vs + nxt, vp, a.v_ss, k0 + TK, TK, a.T);
+      const int nxt = (it + 1) & 1;
+      load_rows<DQ>(Ks + nxt * TK * PQ, kp, a.k_ss, k0 + TK, TK, a.T);
+      load_rows<DV>(Vs + nxt * TK * PV, vp, a.v_ss, k0 + TK, TK, a.T);
       common::cp_async_commit();
     }
     if (it == 0) {
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc)
-        common::ldsm_x4(qf[kc], Qs + (warp * 16 + (mi & 1) * 8 + mr) * P +
+        common::ldsm_x4(qf[kc], Qs + (warp * 16 + (mi & 1) * 8 + mr) * PQ +
                                     kc * 16 + (mi >> 1) * 8);
     }
     // keys [k0, k0 + nk) hold everything the warp's rows see in this tile
     const int nk = min(TK, w_end - k0);
     if (nk <= 0 || k0 + TK <= w_begin) continue;
-    const bf16* Kt = Ks + (it & 1) * TK * P;
-    const bf16* Vt = Vs + (it & 1) * TK * P;
+    const bf16* Kt = Ks + (it & 1) * TK * PQ;
+    const bf16* Vt = Vs + (it & 1) * TK * PV;
 
     float s[SN][4];
 #pragma unroll
@@ -380,7 +403,7 @@ flash_fwd_bf16_kernel(const AttnArgs a) {
 #pragma unroll
         for (int kc = 0; kc < KC; ++kc) {
           uint32_t kb[4];
-          common::ldsm_x4(kb, Kt + (np * 16 + (mi >> 1) * 8 + mr) * P +
+          common::ldsm_x4(kb, Kt + (np * 16 + (mi >> 1) * 8 + mr) * PQ +
                                   kc * 16 + (mi & 1) * 8);
           common::mma_bf16_16816(s[2 * np], qf[kc], kb[0], kb[1]);
           common::mma_bf16_16816(s[2 * np + 1], qf[kc], kb[2], kb[3]);
@@ -448,7 +471,7 @@ flash_fwd_bf16_kernel(const AttnArgs a) {
 #pragma unroll
         for (int dp = 0; dp < DN / 2; ++dp) {
           uint32_t vb[4];
-          common::ldsm_x4_trans(vb, Vt + (kc * 16 + (mi & 1) * 8 + mr) * P +
+          common::ldsm_x4_trans(vb, Vt + (kc * 16 + (mi & 1) * 8 + mr) * PV +
                                         dp * 16 + (mi >> 1) * 8);
           common::mma_bf16_16816(o[2 * dp], pa, vb[0], vb[1]);
           common::mma_bf16_16816(o[2 * dp + 1], pa, vb[2], vb[3]);
@@ -457,11 +480,11 @@ flash_fwd_bf16_kernel(const AttnArgs a) {
     }
   }
 
-  // normalise, stage the warp's 16 rows in its own rows of Qs, then write
-  // them out 16 bytes a store
+  // normalise, stage the warp's 16 rows in its own rows of Qs (DV <= DQ
+  // columns of each), then write them out 16 bytes a store
   common::cp_async_wait_all();
   __syncthreads();
-  bf16* Ow = Qs + warp * 16 * P;
+  bf16* Ow = Qs + warp * 16 * PQ;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float lt = l[r];
@@ -470,7 +493,7 @@ flash_fwd_bf16_kernel(const AttnArgs a) {
     const float inv = lt > 0.f ? 1.f / lt : 0.f;
 #pragma unroll
     for (int j = 0; j < DN; ++j)
-      *reinterpret_cast<uint32_t*>(Ow + (g + 8 * r) * P + j * 8 + 2 * t4) =
+      *reinterpret_cast<uint32_t*>(Ow + (g + 8 * r) * PQ + j * 8 + 2 * t4) =
           common::pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
   }
   __syncwarp();
@@ -478,26 +501,28 @@ flash_fwd_bf16_kernel(const AttnArgs a) {
     const int r = i / DN, c = i - r * DN;
     if (wq0 + r < a.S)
       *reinterpret_cast<uint4*>(op + (wq0 + r) * a.o_ss + c * 8) =
-          *reinterpret_cast<const uint4*>(Ow + r * P + c * 8);
+          *reinterpret_cast<const uint4*>(Ow + r * PQ + c * 8);
   }
 }
 
 // q_warps warps of 16 rows a block: all of a sequence up to 128 rows (the
 // ViT's S = 65 takes five), else 128-row tiles (faster than 64-row ones at
 // zamba2's S = 1024, PERF.md)
-template <int HD>
+template <int DQ, int DV>
 int launch_bf16(const AttnArgs& a, cudaStream_t st) {
   const int q_warps = a.S < 16 * MAX_WARPS ? (a.S + 15) / 16 : MAX_WARPS;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bf16_smem_bytes<HD>(MAX_WARPS)));
+      flash_fwd_bf16_kernel<DQ, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bf16_smem_bytes<DQ, DV>(MAX_WARPS)));
   if (e != cudaSuccess) return static_cast<int>(e);
   if (q_warps < 1) return 0;
   const long long blocks = static_cast<long long>(a.B) * a.Hq *
                            ((a.S + 16 * q_warps - 1) / (16 * q_warps));
   if (blocks <= 0) return 0;
-  flash_fwd_bf16_kernel<HD><<<static_cast<unsigned>(blocks), 32 * q_warps,
-                              bf16_smem_bytes<HD>(q_warps), st>>>(a);
+  flash_fwd_bf16_kernel<DQ, DV>
+      <<<static_cast<unsigned>(blocks), 32 * q_warps,
+         bf16_smem_bytes<DQ, DV>(q_warps), st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -510,12 +535,12 @@ const char* attention_error_string(int code) {
 }
 
 // dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
-// kernel). strides: 12 element
-// strides, (batch, seq, head) for q, k, v, o in that order; the head dim
-// must be contiguous, and for bfloat16 every base and stride 16-byte
-// aligned.
+// kernel). dq: the q/k head dim, dv: the v (and output) head dim, one of
+// the instantiated pairs. strides: 12 element strides, (batch, seq, head)
+// for q, k, v, o in that order; the head dim must be contiguous, and for
+// bfloat16 every base and stride 16-byte aligned.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int dtype, int hd, int B, int Hq,
+                           void* o, int dtype, int dq, int dv, int B, int Hq,
                            int Hkv, int S, int T, const long long* strides,
                            int causal, int window, int kv_len, float scale,
                            void* stream) {
@@ -530,12 +555,18 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   a.causal = causal; a.window = window; a.scale = scale;
   a.kv_len = kv_len < T ? kv_len : T;  // keys past T are not there
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64) return launch_fp32<64>(a, st);
-  if (dtype == 0 && hd == 80) return launch_fp32<80>(a, st);
-  if (dtype == 0 && hd == 128) return launch_fp32<128>(a, st);
-  if (dtype == 1 && hd == 64) return launch_bf16<64>(a, st);
-  if (dtype == 1 && hd == 80) return launch_bf16<80>(a, st);
-  if (dtype == 1 && hd == 128) return launch_bf16<128>(a, st);
+#define REPRO_HEAD_DIMS(DQ, DV)                                  \
+  if (dq == DQ && dv == DV)                                      \
+    return dtype == 0 ? launch_fp32<DQ, DV>(a, st)               \
+                      : dtype == 1 ? launch_bf16<DQ, DV>(a, st)  \
+                                   : static_cast<int>(cudaErrorInvalidValue);
+  // the pairs of kernels/flash_attention.py's HEAD_DIMS
+  REPRO_HEAD_DIMS(64, 64)
+  REPRO_HEAD_DIMS(80, 80)
+  REPRO_HEAD_DIMS(128, 128)
+  REPRO_HEAD_DIMS(192, 128)
+  REPRO_HEAD_DIMS(48, 32)
+#undef REPRO_HEAD_DIMS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

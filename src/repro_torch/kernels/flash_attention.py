@@ -9,8 +9,9 @@ the design: bfloat16 inputs go to a tensor-core kernel (``mma.sync`` bf16
 with fp32 accumulators, 16 q rows a warp, ``cp.async`` 16-byte loads, p
 rounded to bf16 for p.v), float32 inputs to a CUDA-core kernel that keeps
 everything in fp32. Unlike the TPU wrapper nothing is padded: ragged
-sequence ends are masked in the kernel and the head dim is used as it is
-(64, 80 or 128).
+sequence ends are masked in the kernel and the head dims are used as they
+are: the (q/k, v) pairs of ``HEAD_DIMS``, where MLA's v head is narrower
+than its q/k head (deepseek-v2: 192 / 128; its ``reduced()``: 48 / 32).
 
 CUDA tensors only; ``repro_torch.kernels.ops.flash_attention`` counts
 launches, sends CPU tensors to ``ref.sdpa_ref`` and adds the backward.
@@ -27,13 +28,14 @@ from repro_torch.kernels import build
 
 _c = ctypes.c_void_p
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 80, 128)
+# the (q/k head dim, v head dim) pairs both kernels are built for
+HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128), (48, 32))
 
 
 def _declare(lib) -> None:
     i = ctypes.c_int
     lib.flash_attention_launch.argtypes = [
-        _c, _c, _c, _c, i, i, i, i, i, i, i,
+        _c, _c, _c, _c, i, i, i, i, i, i, i, i,
         ctypes.POINTER(ctypes.c_longlong), i, i, i, ctypes.c_float, _c]
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.attention_error_string.argtypes = [ctypes.c_int]
@@ -44,15 +46,17 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: int = 0,
                          kv_len: Optional[int] = None,
                          scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, S, Hq, hd); k, v: (B, T, Hkv, hd), all on CUDA in one dtype
-    (float32 or bfloat16) with a contiguous head dim. Other strides are
-    free at float32; at bfloat16 each base address and each batch,
-    sequence and head stride must be a multiple of 16 bytes (the kernel
-    copies 16 bytes at a time), else this raises. Returns a contiguous
-    (B, S, Hq, hd) tensor of q's dtype. ``kv_len`` masks keys at positions
-    >= kv_len; ``scale`` defaults to 1/sqrt(hd)."""
+    """q: (B, S, Hq, hd); k: (B, T, Hkv, hd); v: (B, T, Hkv, dv), all on
+    CUDA in one dtype (float32 or bfloat16) with a contiguous head dim,
+    (hd, dv) one of ``HEAD_DIMS``. Other strides are free at float32; at
+    bfloat16 each base address and each batch, sequence and head stride
+    must be a multiple of 16 bytes (the kernel copies 16 bytes at a time),
+    else this raises. Returns a contiguous (B, S, Hq, dv) tensor of q's
+    dtype. ``kv_len`` masks keys at positions >= kv_len; ``scale``
+    defaults to 1/sqrt(hd)."""
     B, S, Hq, hd = q.shape
     Bk, T, Hkv, hdk = k.shape
+    dv = v.shape[-1]
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError("flash_attention_bshd takes CUDA tensors on one "
@@ -61,9 +65,10 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bshd: q, k, v must share a "
                          f"float32/bfloat16 dtype, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    if hd not in HEAD_DIMS or hdk != hd or v.shape != k.shape or Bk != B:
-        raise ValueError(f"flash_attention_bshd: head dim must be one of "
-                         f"{HEAD_DIMS} and shapes must agree, got q "
+    if (hd, dv) not in HEAD_DIMS or hdk != hd or Bk != B \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention_bshd: (q/k, v) head dims must be "
+                         f"one of {HEAD_DIMS} and shapes must agree, got q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}")
     if Hkv == 0 or Hq % Hkv:
@@ -80,7 +85,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "bases and batch, sequence and head strides that are multiples "
             f"of 8 elements, got strides {q.stride()}, {k.stride()}, "
             f"{v.stride()}")
-    o = torch.empty((B, S, Hq, hd), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, S, Hq, dv), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(st for t in (q, k, v, o)
           for st in (t.stride(0), t.stride(1), t.stride(2))))
@@ -90,7 +95,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     build.check(lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        _DTYPES[q.dtype], hd, B, Hq, Hkv, S, T, strides, int(causal),
+        _DTYPES[q.dtype], hd, dv, B, Hq, Hkv, S, T, strides, int(causal),
         int(window), kv_len, scale, stream),
         lib.attention_error_string, "flash_attention")
     return o

@@ -84,11 +84,13 @@ def _counting() -> bool:
     return torch._C._len_torch_dispatch_stack() > 0
 
 
-def attention_flops(q_shape, k_shape, causal: bool) -> int:
-    """The two products of attention over BSHD shapes: 4 B Hq S T hd,
-    halved where causal."""
+def attention_flops(q_shape, k_shape, causal: bool, v_shape=None) -> int:
+    """The two products of attention over BSHD shapes, q.k^T over the q/k
+    head dim and p.v over the v head dim (k's when ``v_shape`` is None):
+    2 B Hq S T (hd + dv), halved where causal."""
     B, S, Hq, hd = q_shape
-    flops = 4 * B * Hq * S * k_shape[1] * hd
+    dv = hd if v_shape is None else v_shape[-1]
+    flops = 2 * B * Hq * S * k_shape[1] * (hd + dv)
     return flops // 2 if causal else flops
 
 
@@ -291,7 +293,7 @@ def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @register_flop_formula(torch.ops.repro_torch.attention_fwd)
 def _attention_op_flops(q, k, v, causal, *args, **kwargs) -> int:
-    return attention_flops(q, k, causal)
+    return attention_flops(q, k, causal, v)
 
 
 def _attention_fwd(q, k, v, causal, window, kv_len, scale):
@@ -338,8 +340,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     kv_len: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B,S,Hq,hd); k,v: (B,T,Hkv,hd) -> (B,S,Hq,hd) (BSHD layout, as
-    the JAX package's ``ops.flash_attention``)."""
+    """q: (B,S,Hq,hd); k: (B,T,Hkv,hd); v: (B,T,Hkv,dv) -> (B,S,Hq,dv)
+    (BSHD layout, as the JAX package's ``ops.flash_attention``; dv differs
+    from hd in MLA). ``scale`` defaults to 1/sqrt(hd)."""
     return FlashAttentionFn.apply(q, k, v, causal, window, kv_len, scale)
 
 

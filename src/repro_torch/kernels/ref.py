@@ -322,8 +322,9 @@ def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              causal: bool = True, window: int = 0,
              kv_len: Optional[int] = None,
              scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B,Hq,S,hd); k,v: (B,Hkv,T,hd) -> (B,Hq,S,hd) in q's dtype.
-    fp32 logits, softmax and p.v, as the flash kernel computes them."""
+    """q: (B,Hq,S,hd); k: (B,Hkv,T,hd); v: (B,Hkv,T,dv) -> (B,Hq,S,dv) in
+    q's dtype. fp32 logits, softmax and p.v, as the flash kernel computes
+    them; ``scale`` defaults to 1/sqrt(hd)."""
     Hq, hd = q.shape[1], q.shape[-1]
     scale = 1.0 / math.sqrt(hd) if scale is None else scale
     qf = q.to(torch.float32)
@@ -336,7 +337,8 @@ def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def sdpa_bwd_ref(q, k, v, g, *, causal: bool = True, window: int = 0,
                  kv_len: Optional[int] = None, scale: Optional[float] = None):
     """Gradients of ``sdpa_ref`` wrt (q, k, v), recomputed from the inputs
-    in fp32 (BHSD layout; GQA gradients summed over each kv head's group):
+    in fp32 (BHSD layout; GQA gradients summed over each kv head's group;
+    v and g may be narrower than q and k, as in MLA):
     dV = P^T dO, dS = P (dO V^T - rowsum(dO O)), dQ = s dS K,
     dK = s dS^T Q."""
     B, Hq, S, hd = q.shape
@@ -356,7 +358,7 @@ def sdpa_bwd_ref(q, k, v, g, *, causal: bool = True, window: int = 0,
     if Hkv != Hq:
         T = k.shape[2]
         dk = dk.reshape(B, Hkv, Hq // Hkv, T, hd).sum(2)
-        dv = dv.reshape(B, Hkv, Hq // Hkv, T, hd).sum(2)
+        dv = dv.reshape(B, Hkv, Hq // Hkv, T, v.shape[-1]).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -8,15 +8,15 @@ Two modes:
         representation alignment on synthetic token shards, on the
         reference's ``reduced()`` arch: the dense decoders
         (``--arch internlm2-1.8b``, the default, internlm2-20b,
-        starcoder2-15b, mistral-large-123b, internvl2-1b) with 2 stages,
-        and zamba2-2.7b and xlstm-125m on the reductions of the
-        reference's arch smoke test (``num_layers=4, attn_every=2`` and
+        starcoder2-15b, mistral-large-123b, internvl2-1b) and deepseek-v2
+        (MLA + MoE) with 2 stages, llama4-maverick (one dense and one MoE
+        block) with 1, and zamba2-2.7b and xlstm-125m on the reductions of
+        the reference's arch smoke test (``num_layers=4, attn_every=2`` and
         ``num_layers=4, slstm_every=2``: ``reduced()`` alone leaves them
-        no stage). The MoE and MLA archs (llama4, deepseek-v2) are
-        refused as not ported yet. seamless-m4t-medium is refused too: the
-        reference's launcher trains it as a decoder-only dense LM on the
-        sequential engine and fails on the vmap engine; the
-        encoder-decoder trains through ``launch.steps``.
+        no stage). seamless-m4t-medium is refused: the reference's
+        launcher trains it as a decoder-only dense LM on the sequential
+        engine and fails on the vmap engine; the encoder-decoder trains
+        through ``launch.steps``.
 
 It runs on the card (``--device cuda``, the default) and raises without
 one; ``--device cpu`` runs the plain PyTorch versions of the kernels.
@@ -62,6 +62,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
       --arch xlstm-125m --device cpu --rounds 4 --batch 4 --samples 16 \\
       --seq-len 32 --engine vmap
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
+      --arch deepseek-v2-236b --device cpu --rounds 4 --clients 2 \\
+      --batch 4 --samples 16 --seq-len 32
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit --trace \\
       --metrics --health --obs-dir results/obs
   PYTHONPATH=src python -m repro_torch.launch.train --mode vit \\
@@ -198,14 +201,16 @@ def train_vit(args):
     return acc
 
 
-# --mode lm: the archs ported, each with what it adds on top of reduced():
-# zamba2 and xlstm the overrides of the reference's arch smoke test
-# (tests/test_arch_smoke.py), the dense decoders nothing (2 stages)
+# --mode lm: the archs, each with what it adds on top of reduced(): zamba2
+# and xlstm the overrides of the reference's arch smoke test
+# (tests/test_arch_smoke.py), the dense decoders and deepseek-v2 nothing (2
+# stages), llama4 nothing (1 stage: 2 blocks in one group of moe_every = 2)
 LM_ARCHS = {"zamba2-2.7b": dict(num_layers=4, attn_every=2),
             "xlstm-125m": dict(num_layers=4, xlstm=XLSTMConfig(
                 slstm_every=2, proj_factor=2.0)),
             "internlm2-1.8b": {}, "internlm2-20b": {}, "starcoder2-15b": {},
-            "mistral-large-123b": {}, "internvl2-1b": {}}
+            "mistral-large-123b": {}, "internvl2-1b": {},
+            "llama4-maverick-400b-a17b": {}, "deepseek-v2-236b": {}}
 # the encoder-decoder, which this launcher does not run
 ENCDEC_REFUSAL = (
     "the reference's launcher trains this arch as a decoder-only dense LM "
@@ -390,9 +395,8 @@ def main(argv=None):
     if args.arch == "seamless-m4t-medium":
         ap.error(f"--arch {args.arch}: {ENCDEC_REFUSAL}")
     if args.arch not in LM_ARCHS:
-        ap.error(f"--arch {args.arch}: this LM architecture is not ported "
-                 f"to repro_torch yet (ported: {', '.join(LM_ARCHS)}; the "
-                 f"MoE and MLA families come in the next slice)")
+        ap.error(f"--arch {args.arch}: not an LM architecture of "
+                 f"repro_torch (--mode lm takes: {', '.join(LM_ARCHS)})")
     return train_lm(args)
 
 

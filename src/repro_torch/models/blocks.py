@@ -1,12 +1,14 @@
 """Block-level composition (``repro.models.blocks``): one residual block per
 kind, pre-RMSNorm.
 
-Kinds ported so far:
+Kinds:
   enc        bidirectional attention + MLP (the ViT's block, and the
              encoder-decoder's encoder)
   dense      GQA attention (causal, optionally sliding-window) + MLP, the
              dense decoders' block (internlm2, starcoder2, mistral-large,
-             internvl2's decoder)
+             internvl2's decoder, llama4's dense blocks)
+  moe        GQA attention + the MoE FFN (llama4's MoE blocks)
+  mla_moe    latent attention (MLA) + the MoE FFN (deepseek-v2)
   mamba      Mamba2 on the residual stream (zamba2's blocks)
   attn_only  the dense block under another name, Zamba2's shared block
   mlstm      an mLSTM on the residual stream (xlstm-125m)
@@ -14,32 +16,39 @@ Kinds ported so far:
   cross      the encoder-decoder's decoder block: causal self-attention
              with RoPE, cross-attention to the encoder memory (no RoPE),
              MLP, each after an RMSNorm (seamless-m4t)
-The reference's moe and mla_moe kinds are not ported yet (the next slice).
+
+``block_apply`` returns (x, aux) as the reference does: aux is the MoE
+kinds' weighted load-balance loss (an fp32 0-d tensor), and 0.0 for the
+other kinds, which have none (a Python float, so that no kernel is spent
+on a zero).
 
 Block parameters are flat dicts keyed by their path inside the block
-(``"ln1/scale"``, ``"attn/wq"``, ``"mamba/w_in"``); a stacked block tree
-has the same keys with leading stack axes, ``(L, ...)`` for the ViT, a
-dense decoder and the encoder-decoder's two stacks, ``(groups,
-attn_every, ...)`` for zamba2, ``(groups, slstm_every - 1, ...)`` for the
-xLSTM's mLSTM blocks and ``(groups, ...)`` for its sLSTM blocks. The port
-indexes a layer's row directly where the reference slices the stack.
+(``"ln1/scale"``, ``"attn/wq"``, ``"mamba/w_in"``, ``"moe/shared/w_up"``);
+a stacked block tree has the same keys with leading stack axes, ``(L,
+...)`` for the ViT, a uniform decoder and the encoder-decoder's two
+stacks, ``(groups, attn_every, ...)`` for zamba2, ``(groups, slstm_every -
+1, ...)`` for the xLSTM's mLSTM blocks and ``(groups, moe_every - 1,
+...)`` for llama4's dense blocks, and ``(groups, ...)`` for the xLSTM's
+sLSTM blocks and llama4's MoE blocks. The port indexes a layer's row
+directly where the reference slices the stack.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.convert import subtree
 from repro_torch.federated.leaves import tree_sorted
-from repro_torch.models.layers import mamba2, xlstm
+from repro_torch.models.layers import mamba2, mla, moe, xlstm
 from repro_torch.models.layers.attention import attn_apply, cross_attn_apply
 from repro_torch.models.layers.init import dense_init_
 from repro_torch.models.layers.mlp import mlp_apply, mlp_shapes
 from repro_torch.models.layers.norms import rmsnorm
 
-KINDS = ("enc", "dense", "mamba", "attn_only", "mlstm", "slstm", "cross")
+KINDS = ("enc", "dense", "moe", "mla_moe", "mamba", "attn_only", "mlstm",
+         "slstm", "cross")
 # the kinds whose block is one layer on the residual stream after an
 # RMSNorm ("ln/scale"): (its subtree's shapes, its apply)
 _RESIDUAL = {"mamba": (mamba2.mamba2_shapes, mamba2.mamba2_apply),
@@ -49,12 +58,15 @@ _RESIDUAL = {"mamba": (mamba2.mamba2_shapes, mamba2.mamba2_apply),
 _CONSTANT_INIT = {"mamba": mamba2.CONSTANT_INIT,
                   "mlstm": xlstm.MLSTM_CONSTANT_INIT,
                   "slstm": xlstm.SLSTM_CONSTANT_INIT}
+# weights drawn at another scale than the fan-in one, by the same keys
+_INIT_SCALE = {"moe": moe.INIT_SCALE,
+               "slstm": {xlstm.SLSTM_RECURRENT: 0.5}}
+MOE_KINDS = ("moe", "mla_moe")
 
 
-def _unported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind '{kind}' is not ported to repro_torch yet (ported: "
-        f"{', '.join(KINDS)}; the MoE and MLA kinds come next)")
+def _unknown(kind: str) -> ValueError:
+    return ValueError(f"unknown block kind '{kind}' (one of "
+                      f"{', '.join(KINDS)})")
 
 
 def _attn_shapes(cfg, prefix: str) -> Dict[str, tuple]:
@@ -73,11 +85,17 @@ def block_shapes(cfg, kind: str = "enc") -> Dict[str, tuple]:
                 **{f"{kind}/{k}": s
                    for k, s in _RESIDUAL[kind][0](cfg).items()}}
     if kind not in KINDS:
-        raise _unported(kind)
-    shapes = {**_attn_shapes(cfg, "attn"), "ln1/scale": (d,),
-              "ln2/scale": (d,),
-              **{f"mlp/{k}": s for k, s in mlp_shapes(d, cfg.d_ff,
-                                                      cfg.act).items()}}
+        raise _unknown(kind)
+    shapes = {"ln1/scale": (d,), "ln2/scale": (d,)}
+    if kind == "mla_moe":
+        shapes.update({f"attn/{k}": s for k, s in mla.mla_shapes(cfg).items()})
+    else:
+        shapes.update(_attn_shapes(cfg, "attn"))
+    if kind in MOE_KINDS:
+        shapes.update({f"moe/{k}": s for k, s in moe.moe_shapes(cfg).items()})
+    else:
+        shapes.update({f"mlp/{k}": s for k, s in mlp_shapes(
+            d, cfg.d_ff, cfg.act).items()})
     if kind == "cross":
         shapes.update({**_attn_shapes(cfg, "xattn"), "ln_x/scale": (d,)})
     return tree_sorted(shapes)
@@ -87,10 +105,12 @@ def stacked_init_(stacked: Dict[str, torch.Tensor], generator=None,
                   lead: int = 1) -> None:
     """In place, for block leaves with ``lead`` leading stack axes: norm
     scales to one, the Mamba2 and xLSTM leaves with constant initial values
-    to those values, weights to fan-in truncated normal (fan-in = the
-    per-layer leaf's first dim, as ``repro.models.layers.init.dense_init``
-    takes; the sLSTM's (H, P, 4P) recurrent weights its dim 1, at half
-    scale)."""
+    to those values, weights to fan-in truncated normal, as
+    ``repro.models.layers.init.dense_init`` draws them: the fan-in is the
+    per-layer leaf's first dim, and dim 1 of a 3-d one (the experts' (E,
+    d, f), MLA's per-head (H, rank, n), the sLSTM's (H, P, 4P)); the MoE
+    router at a tenth of the scale, the sLSTM's recurrent weights at
+    half."""
     with torch.no_grad():
         for path, t in stacked.items():
             kind, _, name = path.partition("/")
@@ -99,31 +119,39 @@ def stacked_init_(stacked: Dict[str, torch.Tensor], generator=None,
                 t.fill_(1.0)
             elif name in const:
                 t.fill_(const[name])
-            elif kind == "slstm" and name == xlstm.SLSTM_RECURRENT:
-                dense_init_(t, t.shape[lead + 1], generator, scale=0.5)
             else:
-                dense_init_(t, t.shape[lead], generator)
+                fan_in = t.shape[lead + 1] if t.dim() - lead == 3 \
+                    else t.shape[lead]
+                dense_init_(t, fan_in, generator,
+                            scale=_INIT_SCALE.get(kind, {}).get(name, 1.0))
 
 
 def block_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
-                kind: str = "enc",
-                memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+                kind: str = "enc", memory: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
     """One residual block of ``kind`` over the full sequence. x: (B, S, d).
-    ``enc`` attends bidirectionally; ``dense``, ``attn_only`` and
-    ``cross``'s self-attention with ``cfg.causal`` and ``cfg.window``;
-    ``cross`` also attends to ``memory`` (B, T, d), the encoder's output."""
+    ``enc`` attends bidirectionally; ``dense``, ``attn_only``, ``moe``,
+    ``mla_moe`` and ``cross``'s self-attention with ``cfg.causal`` and
+    ``cfg.window``; ``cross`` also attends to ``memory`` (B, T, d), the
+    encoder's output. Returns (x, aux): the MoE kinds' load-balance loss,
+    0.0 for the others."""
     if kind in _RESIDUAL:
         return x + _RESIDUAL[kind][1](
-            subtree(p, kind), rmsnorm(x, p["ln/scale"], cfg.norm_eps), cfg)
+            subtree(p, kind), rmsnorm(x, p["ln/scale"], cfg.norm_eps),
+            cfg), 0.0
     if kind not in KINDS:
-        raise _unported(kind)
+        raise _unknown(kind)
     if kind == "enc":
         cfg = dataclasses.replace(cfg, causal=False)
     h = rmsnorm(x, p["ln1/scale"], cfg.norm_eps)
-    x = x + attn_apply(subtree(p, "attn"), h, cfg)
+    attend = mla.mla_apply if kind == "mla_moe" else attn_apply
+    x = x + attend(subtree(p, "attn"), h, cfg)
     if kind == "cross":
         h = rmsnorm(x, p["ln_x/scale"], cfg.norm_eps)
         x = x + cross_attn_apply(subtree(p, "xattn"), h, memory, cfg)
     h = rmsnorm(x, p["ln2/scale"], cfg.norm_eps)
+    if kind in MOE_KINDS:
+        y, aux = moe.moe_ffn(subtree(p, "moe"), h, cfg)
+        return x + y, aux
     return x + mlp_apply(subtree(p, "mlp"), h, cfg.act,
-                         getattr(torch, cfg.compute_dtype))
+                         getattr(torch, cfg.compute_dtype)), 0.0

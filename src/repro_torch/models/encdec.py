@@ -79,7 +79,7 @@ def encode(params: Tree, frames: torch.Tensor, cfg, *,
 
     def block(x, i):
         return lm_mod.remat_block({k: t[i] for k, t in stack.items()}, x,
-                                  cfg, "enc", remat)
+                                  cfg, "enc", remat)[0]
 
     if act > 0:
         with torch.no_grad():
@@ -98,7 +98,7 @@ def decode_train(params: Tree, tokens: torch.Tensor, memory: torch.Tensor,
     stack = subtree(params, "dec_blocks")
     for i in range(dec_layers(cfg)):
         x = lm_mod.remat_block({k: t[i] for k, t in stack.items()}, x,
-                               cfg, "cross", remat, memory)
+                               cfg, "cross", remat, memory)[0]
     return rmsnorm(x, params["final_ln/scale"], cfg.norm_eps)
 
 

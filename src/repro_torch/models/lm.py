@@ -1,9 +1,12 @@
-"""Decoder-only language model assembly (``repro.models.lm``), for three
+"""Decoder-only language model assembly (``repro.models.lm``), for four
 topologies:
 
-- ``uniform`` with ``dense`` blocks: L identical GQA attention + MLP blocks
-  (internlm2, starcoder2, mistral-large, internvl2's decoder); a
+- ``uniform``: L identical blocks, ``dense`` (GQA attention + MLP:
+  internlm2, starcoder2, mistral-large, internvl2's decoder) or
+  ``mla_moe`` (latent attention + MoE FFN: deepseek-v2), or ``moe``; a
   layer-wise stage is one block.
+- ``moe_il``: groups of ``moe_every - 1`` dense blocks followed by one MoE
+  block (llama4's interleave); a stage is one group.
 - ``zamba``: groups of ``attn_every`` Mamba2 blocks, each group followed by
   one *shared* attention + MLP block (Zamba2, arXiv:2411.15242); the shared
   block's weights are reused after every group; a stage is one group.
@@ -13,21 +16,23 @@ topologies:
 Parameters are a flat ``{path: tensor}`` dict at the JAX key paths, in
 ``jax.tree_util`` order: ``embed`` (V, d), ``final_ln/scale``, ``lm_head``
 (d, V) unless the embeddings are tied, and the block stacks:
-``blocks/...`` with leaves (L, ...) (uniform) or (groups, attn_every, ...)
-(zamba, plus ``shared_attn/...``), or ``mlstm/...`` (groups, slstm_every -
-1, ...) and ``slstm/...`` (groups, ...) (xlstm).
+``blocks/...`` with leaves (L, ...) (uniform), (groups, moe_every - 1,
+...) (moe_il, plus ``moe_blocks/...`` (groups, ...)) or (groups,
+attn_every, ...) (zamba, plus ``shared_attn/...``), or ``mlstm/...``
+(groups, slstm_every - 1, ...) and ``slstm/...`` (groups, ...) (xlstm).
 
 The stage interface is the JAX package's: ``sub_layers`` limits the depth
 (in stages), and the stages below ``active_from`` run under
 ``torch.no_grad()`` where the reference applies ``stop_gradient``, so
 neither they, nor the embedding, nor (zamba) the shared block's uses there
-get gradients. ``remat`` recomputes each trained block in the backward
-(the reference's per-block ``jax.checkpoint``; as there, not zamba's shared
-block nor the xLSTM's sLSTM blocks). The VLM frontend is the reference's
-stub: precomputed (B, P, d) embeddings put ahead of the token embeddings
-(``embed(..., frontend)``). The ``moe_il`` topology and the ``moe`` and
-``mla_moe`` block kinds (llama4, deepseek-v2) come next; caches, prefill
-and decode (serving) are not ported yet.
+get gradients, and their MoE load-balance loss enters the total without
+one. ``remat`` recomputes each trained block in the backward (the
+reference's per-block ``jax.checkpoint``; as there, not zamba's shared
+block, the xLSTM's sLSTM blocks nor llama4's MoE blocks). The VLM frontend
+is the reference's stub: precomputed (B, P, d) embeddings put ahead of the
+token embeddings (``embed(..., frontend)``). A uniform stack of Mamba2
+blocks (no config of the JAX package has one), caches, prefill and decode
+(serving) are not ported yet.
 """
 from __future__ import annotations
 
@@ -69,17 +74,15 @@ def uniform_kind(cfg) -> str:
 
 
 def _ported(cfg) -> str:
-    """The topology of ``cfg``; raises for those not ported."""
+    """The topology of ``cfg``; raises for a uniform Mamba2 stack, the one
+    not ported."""
     topo = topology(cfg)
-    if topo in ("zamba", "xlstm") or (topo == "uniform"
-                                      and uniform_kind(cfg) == "dense"):
-        return topo
-    what = f"{topo} with {uniform_kind(cfg)} blocks" if topo == "uniform" \
-        else topo
-    raise NotImplementedError(
-        f"LM topology '{what}' ({cfg.arch_id}) is not ported to repro_torch "
-        f"yet (ported: zamba, xlstm, uniform with dense blocks; MoE and MLA "
-        f"come next)")
+    if topo == "uniform" and uniform_kind(cfg) == "mamba":
+        raise NotImplementedError(
+            f"LM topology 'uniform with mamba blocks' ({cfg.arch_id}) is not "
+            f"ported to repro_torch yet (ported: zamba, xlstm, moe_il, "
+            f"uniform with dense, moe or mla_moe blocks)")
+    return topo
 
 
 def _xlstm_groups(cfg):
@@ -90,12 +93,14 @@ def _xlstm_groups(cfg):
 
 def num_stages(cfg) -> int:
     """Stage granularity of the layer-wise schedule: one block (uniform),
-    one group of ``attn_every`` Mamba2 blocks (zamba) or one group of
-    ``slstm_every`` xLSTM blocks (xlstm; one block a stage when
-    ``slstm_every`` is 0, as the reference counts it)."""
+    one group of ``attn_every`` Mamba2 blocks (zamba), of ``moe_every``
+    blocks (moe_il) or of ``slstm_every`` xLSTM blocks (xlstm; one block a
+    stage when ``slstm_every`` is 0, as the reference counts it)."""
     topo = _ported(cfg)
     if topo == "zamba":
         return cfg.num_layers // cfg.attn_every
+    if topo == "moe_il":
+        return cfg.num_layers // cfg.moe.moe_every
     if topo == "xlstm" and cfg.xlstm.slstm_every:
         return cfg.num_layers // cfg.xlstm.slstm_every
     return cfg.num_layers
@@ -108,8 +113,15 @@ def lm_shapes(cfg) -> Dict[str, tuple]:
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, V)
     if topo == "uniform":
-        shapes.update({f"blocks/{k}": (cfg.num_layers,) + s
+        shapes.update({f"blocks/{k}": (cfg.num_layers,) + s for k, s in
+                       B.block_shapes(cfg, uniform_kind(cfg)).items()})
+        return tree_sorted(shapes)
+    if topo == "moe_il":
+        g, per = num_stages(cfg), cfg.moe.moe_every
+        shapes.update({f"blocks/{k}": (g, per - 1) + s
                        for k, s in B.block_shapes(cfg, "dense").items()})
+        shapes.update({f"moe_blocks/{k}": (g,) + s
+                       for k, s in B.block_shapes(cfg, "moe").items()})
         return tree_sorted(shapes)
     if topo == "xlstm":
         g, per = _xlstm_groups(cfg)
@@ -134,6 +146,9 @@ def init_lm(cfg, generator=None, device="cpu") -> Tree:
     topo = topology(cfg)
     if topo == "uniform":
         B.stacked_init_(subtree(params, "blocks"), generator, lead=1)
+    elif topo == "moe_il":
+        B.stacked_init_(subtree(params, "blocks"), generator, lead=2)
+        B.stacked_init_(subtree(params, "moe_blocks"), generator, lead=1)
     elif topo == "xlstm":
         B.stacked_init_(subtree(params, "mlstm"), generator, lead=2)
         B.stacked_init_(subtree(params, "slstm"), generator, lead=1)
@@ -170,7 +185,8 @@ class _Remat(torch.autograd.Function):
     and the backward recomputes the block inside ``torch.func.vjp``. It
     works under autograd and under ``torch.func.grad`` / ``vmap`` alike;
     ``torch.utils.checkpoint`` does not, since the ``torch.func``
-    transforms refuse its saved-tensor hooks."""
+    transforms refuse its saved-tensor hooks. ``fn`` returns a tensor, or
+    a tuple of tensors (a MoE block's output and load-balance loss)."""
     generate_vmap_rule = True
 
     @staticmethod
@@ -185,74 +201,95 @@ class _Remat(torch.autograd.Function):
         ctx.save_for_backward(*tensors)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, *grads):
         _, pull = vjp(ctx.fn, *ctx.saved_tensors)
-        return (None, *pull(g))
+        return (None, *pull(grads if len(grads) > 1 else grads[0]))
 
 
 def remat_block(p: Tree, x: torch.Tensor, cfg, kind: str, remat: bool,
-                memory: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One block of ``kind``, recomputed in the backward when ``remat``;
-    ``memory`` (the encoder's output, for ``cross``) is an input of the
-    recomputed block, so that its gradient flows."""
+                memory: Optional[torch.Tensor] = None):
+    """One block of ``kind`` (``block_apply``: returns (x, aux)),
+    recomputed in the backward when ``remat``; ``memory`` (the encoder's
+    output, for ``cross``) is an input of the recomputed block, so that its
+    gradient flows."""
     if not remat or not torch.is_grad_enabled():
         return B.block_apply(p, x, cfg, kind, memory=memory)
-    keys = list(p)
-    if memory is None:
-        def fn(x, *weights):
-            return B.block_apply(dict(zip(keys, weights)), x, cfg, kind)
+    keys, has_aux = list(p), kind in B.MOE_KINDS
+    inputs = (x,) if memory is None else (x, memory)
 
-        return _Remat.apply(fn, x, *p.values())
+    def fn(*args):
+        mem = None if memory is None else args[1]
+        y, aux = B.block_apply(dict(zip(keys, args[len(inputs):])), args[0],
+                               cfg, kind, memory=mem)
+        return (y, aux) if has_aux else y
 
-    def fn_mem(x, mem, *weights):
-        return B.block_apply(dict(zip(keys, weights)), x, cfg, kind,
-                             memory=mem)
-
-    return _Remat.apply(fn_mem, x, memory, *p.values())
+    out = _Remat.apply(fn, *inputs, *p.values())
+    return out if has_aux else (out, 0.0)
 
 
 def forward_hidden(params: Tree, x: torch.Tensor, cfg, *,
                    sub_layers: Optional[int] = None, active_from: int = 0,
                    remat: bool = False):
-    """x: (B, S, d) embedded inputs. Returns (hidden, aux_loss); the aux
-    loss of these block kinds is 0."""
+    """x: (B, S, d) embedded inputs. Returns (hidden, aux_loss): the sum
+    of the MoE blocks' load-balance losses, fp32 (0 without MoE blocks);
+    the frozen stages' part carries no gradient."""
     topo = _ported(cfg)
     S = num_stages(cfg)
     sub = S if sub_layers is None else sub_layers
     act = max(0, min(active_from, sub))
     stack = subtree(params, "blocks")
 
+    def inner(x, aux, st, idx, kind):
+        """The stage's stacked blocks of ``st`` at row ``idx`` (group rows
+        of a grouped stack), each after the other, remat as asked."""
+        for i in idx:
+            x, a = remat_block({k: t[i] for k, t in st.items()}, x, cfg,
+                               kind, remat)
+            if kind in B.MOE_KINDS:
+                aux = aux + a
+        return x, aux
+
     if topo == "uniform":
-        def stage(x, i):
-            return remat_block({k: t[i] for k, t in stack.items()}, x, cfg,
-                               "dense", remat)
+        kind = uniform_kind(cfg)
+
+        def stage(x, aux, i):
+            return inner(x, aux, stack, [i], kind)
+    elif topo == "moe_il":
+        mstack = subtree(params, "moe_blocks")
+
+        def stage(x, aux, gi):
+            x, aux = inner(x, aux, stack,
+                           [(gi, i) for i in range(cfg.moe.moe_every - 1)],
+                           "dense")
+            x, a = B.block_apply({k: t[gi] for k, t in mstack.items()}, x,
+                                 cfg, "moe")
+            return x, aux + a
     elif topo == "xlstm":
         mstack, sstack = subtree(params, "mlstm"), subtree(params, "slstm")
         per = _xlstm_groups(cfg)[1]
 
-        def stage(x, gi):
-            for i in range(per - 1):
-                x = remat_block({k: t[gi, i] for k, t in mstack.items()},
-                                x, cfg, "mlstm", remat)
+        def stage(x, aux, gi):
+            x, aux = inner(x, aux, mstack, [(gi, i) for i in range(per - 1)],
+                           "mlstm")
             return B.block_apply({k: t[gi] for k, t in sstack.items()}, x,
-                                 cfg, "slstm")
+                                 cfg, "slstm")[0], aux
     else:
         shared = subtree(params, "shared_attn")
 
-        def stage(x, gi):
-            for i in range(cfg.attn_every):
-                x = remat_block({k: t[gi, i] for k, t in stack.items()},
-                                x, cfg, "mamba", remat)
-            return B.block_apply(shared, x, cfg, "attn_only")
+        def stage(x, aux, gi):
+            x, aux = inner(x, aux, stack,
+                           [(gi, i) for i in range(cfg.attn_every)], "mamba")
+            return B.block_apply(shared, x, cfg, "attn_only")[0], aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if act > 0:
         with torch.no_grad():
             for i in range(act):
-                x = stage(x, i)
+                x, aux = stage(x, aux, i)
     for i in range(act, sub):
-        x = stage(x, i)
+        x, aux = stage(x, aux, i)
     x = rmsnorm(x, params["final_ln/scale"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def xent_loss(params: Tree, hidden: torch.Tensor, labels: torch.Tensor,

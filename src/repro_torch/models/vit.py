@@ -98,7 +98,8 @@ class ViT(ParamTree):
         return x[:, 0]
 
     def _gated(self, stack, i: int, x: torch.Tensor, gates) -> torch.Tensor:
-        x2 = B.block_apply({k: t[i] for k, t in stack.items()}, x, self.cfg)
+        x2, _ = B.block_apply({k: t[i] for k, t in stack.items()}, x,
+                              self.cfg)
         return x + gates[i].to(x.dtype) * (x2 - x)
 
 

@@ -136,6 +136,8 @@ BF16_CASES = [
     # the dense LM's attention (internlm2-1.8b: 16 q heads over 8 kv heads
     # of 128, causal, 4 x 1024 tokens)
     (4, 1024, 1024, 16, 8, 128, True, 0, None),
+    # llama4-maverick's: 40 q heads over 8 kv heads of 128
+    (2, 1024, 1024, 40, 8, 128, True, 0, None),
 ]
 
 
@@ -206,6 +208,61 @@ def test_flash_attention_fully_masked_rows_are_zero(dev, dtype):
     assert (got.float() - want.float()).abs().max().item() < tol
 
 
+# MLA: q/k heads wider than v heads, deepseek-v2's published (192, 128) and
+# its reduced() (48, 32); (B, S, T, Hq, Hkv, q/k head dim, v head dim,
+# causal, window, kv_len, dtype)
+MLA_CASES = [
+    (2, 1024, 1024, 128, 128, 192, 128, True, 0, None, torch.bfloat16),
+    (2, 1024, 1024, 128, 128, 192, 128, True, 0, None, torch.float32),
+    (2, 130, 130, 4, 4, 192, 128, False, 0, None, torch.bfloat16),
+    (1, 1000, 1000, 2, 1, 192, 128, True, 200, 900, torch.float32),
+    (4, 64, 64, 4, 4, 48, 32, True, 0, None, torch.float32),
+    (2, 129, 129, 4, 2, 48, 32, True, 16, 100, torch.bfloat16),
+    (3, 17, 40, 2, 2, 48, 32, False, 0, None, torch.float32),
+]
+
+
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,hd,dv,causal,window,kv_len,dtype",
+                         MLA_CASES)
+def test_flash_attention_mla_head_dims(dev, B, S, T, Hq, Hkv, hd, dv,
+                                       causal, window, kv_len, dtype):
+    """Both kernels with v heads narrower than q/k heads: a (B, S, Hq, dv)
+    output within the tolerance of ``ref.sdpa_ref`` at scale 1/sqrt(hd),
+    through the kernel (one launch), not the plain version."""
+    q = _rand((B, S, Hq, hd), dtype, dev, 0)
+    k = _rand((B, T, Hkv, hd), dtype, dev, 1)
+    v = _rand((B, T, Hkv, dv), dtype, dev, 2)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              kv_len=kv_len)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.shape == (B, S, Hq, dv) and got.dtype == dtype
+    want = ref.sdpa_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal, window=window,
+                        kv_len=kv_len).transpose(1, 2)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert (got.float() - want.float()).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("hd,dv", [(48, 32), (192, 128)])
+def test_flash_attention_mla_backward_on_card(dev, hd, dv):
+    """``FlashAttentionFn``'s backward (``ref.sdpa_bwd_ref``) with a
+    narrower v, GQA included, against autograd through the plain
+    version."""
+    q = _rand((2, 130, 4, hd), torch.float32, dev, 3).requires_grad_()
+    k = _rand((2, 130, 2, hd), torch.float32, dev, 4).requires_grad_()
+    v = _rand((2, 130, 2, dv), torch.float32, dev, 5).requires_grad_()
+    go = _rand((2, 130, 4, dv), torch.float32, dev, 6)
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, causal=True),
+                              (q, k, v), go)
+    want = torch.autograd.grad(
+        ref.sdpa_ref(q.transpose(1, 2), k.transpose(1, 2),
+                     v.transpose(1, 2), causal=True).transpose(1, 2),
+        (q, k, v), go)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.allclose(a, b, atol=1e-4)
+
+
 def test_autograd_functions_on_card(dev):
     x = _rand((130, 192), torch.float32, dev).requires_grad_()
     s = (1.0 + 0.1 * _rand((192,), torch.float32, dev, 1)).requires_grad_()
@@ -231,9 +288,12 @@ def test_autograd_functions_on_card(dev):
 def test_wrappers_raise_instead_of_falling_back(dev):
     """On CUDA tensors a wrapper launches its kernel or raises: no silent
     plain-PyTorch fallback for inputs the kernel does not take."""
-    q = torch.zeros((1, 8, 2, 48), device=dev)          # head dim 48
+    q = torch.zeros((1, 8, 2, 48), device=dev)          # head dims 48 / 48
     with pytest.raises(ValueError):
         ops.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=dev)          # v wider than q
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, torch.zeros((1, 8, 2, 128), device=dev))
     with pytest.raises(ValueError):
         ops.rmsnorm(torch.zeros((4, 8), dtype=torch.float16, device=dev),
                     torch.ones(8, device=dev))

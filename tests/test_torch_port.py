@@ -38,6 +38,9 @@ def test_import_leaves_jax_and_reference_out():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "new = ['repro_torch.models.layers.moe', "
+        "'repro_torch.models.layers.mla']\n"
+        "assert all(m in sys.modules for m in new), new\n"
         "print('ok')\n")
     out = _run(["-c", code])
     assert out.returncode == 0 and "ok" in out.stdout, out.stderr
@@ -49,6 +52,10 @@ def test_sources_import_neither_jax_nor_reference():
     files = list((SRC / "repro_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    for new in ("models/layers/moe.py", "models/layers/mla.py",
+                "configs/deepseek-v2-236b.py",
+                "configs/llama4-maverick-400b-a17b.py"):
+        assert SRC / "repro_torch" / new in files, new
     for f in files:
         assert not pattern.search(f.read_text()), f
 
@@ -120,19 +127,26 @@ def test_cli_rejects_unknown_codec(capsys):
     assert e.value.code == 2 and "unknown codec" in capsys.readouterr().err
 
 
-# the LM families still to port: MoE (llama4), MLA + MoE (deepseek-v2)
+# --mode lm on an arch that is no LM: the paper's ViT backbone (no
+# vocabulary), and a name that is no arch at all
 NOT_PORTED_CASES = [["--mode", "lm", "--arch", a] for a in (
-    "llama4-maverick-400b-a17b", "deepseek-v2-236b")]
+    "vit-tiny", "no-such-arch")]
 
 
 @pytest.mark.parametrize("flag", NOT_PORTED_CASES)
 def test_cli_rejects_features_not_ported(flag, capsys):
+    """Every LM arch of the JAX package runs under ``--mode lm`` (the MoE
+    and MLA families, refused until they were ported, among them; the
+    encoder-decoder has its own refusal); anything else exits 2 and names
+    the archs it takes."""
     with pytest.raises(SystemExit) as e:
         train.main(["--device", "cpu", *flag])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "not ported to repro_torch yet" in err
-    assert "MoE and MLA families come in the next slice" in err
+    assert f"--arch {flag[-1]}: not an LM architecture of repro_torch" in err
+    for arch in ("llama4-maverick-400b-a17b", "deepseek-v2-236b",
+                 "internlm2-1.8b", "zamba2-2.7b", "xlstm-125m"):
+        assert arch in err
 
 
 def test_cli_refuses_the_encoder_decoder_and_says_why(capsys):
