@@ -185,6 +185,28 @@ Phases, each of which must pass (any failure exits non-zero):
    ``reduced()`` configs on both engines (four processes at once, 2
    rounds, batch 4 x 64): each exits 0 with finite losses, and each arch's
    engines agree.
+2m. serving: (a) ``python -m repro_torch.launch.serve --arch
+   internlm2-1.8b --full --batch 4 --prompt-len 64 --gen 64`` through its
+   ``main``: the published config at full depth (24 blocks,
+   1,889,110,016 parameters, fp32 weights, bf16 compute), 64 prompt
+   tokens stepped through the decoder, then 64 generated greedily; tok/s,
+   ms a decode step, peak memory; launches equal to the plan's (attention
+   24 and RMSNorm 49 a step over 128 steps, no other kernel); one decode
+   step's wall time against the device's busy time under torch.profiler,
+   by kernel (``profile_device``). (b) The same
+   model at fp32 compute: the decoder stepped over 2 x 32 tokens against
+   ``forward_hidden``'s logits within 1e-4 of the largest logit; at bf16
+   the same error printed, not checked; a 2-block copy's decode card
+   against CPU within 1e-4. (c) Each other family's decode against its
+   own forward at fp32 within 1e-4: zamba2-2.7b at its published widths
+   and depth, xlstm-125m at its published widths and depth, deepseek-v2
+   at phase 2l's cut with a capacity factor of 2 E / k (no token drops,
+   as in the reference's decode parity test), llama4-maverick at
+   ``reduced()`` likewise, seamless-m4t-medium at its published widths
+   and depth over 512 frames against ``decode_train``. (d) The ring
+   buffer: internlm2-1.8b's widths at 2 blocks with a window of 16 (a
+   cache of 16 slots), 48 steps against the windowed forward within 1e-4.
+   Prints each part's seconds and the phase's.
 3. reference: one SSL loss at full width on 8 images, fp32 compute, on the
    card (kernels) against the CPU (plain PyTorch versions); then one
    ``lm_ssl_loss`` with alignment on the trained zamba2 model, one stage
@@ -227,7 +249,10 @@ Phases, each of which must pass (any failure exits non-zero):
    192 / 128) in bf16 and fp32 and the reduced (4, 64, 4/4, 48 / 32) in
    fp32, and llama4-maverick's (2, 1024, 40/8, 128) bf16, against
    ``ref.sdpa_ref`` and beside ``F.scaled_dot_product_attention``; the
-   attention backward at the MLA head dims.
+   attention backward at the MLA head dims. Phase 2m's: the dense LM's
+   decode attention, one query over 128 keys (4, 1 / 128, 16/8 heads of
+   128, non-causal, bf16), beside ``F.scaled_dot_product_attention``, and
+   its RMSNorm at (4, 2048) fp32 beside ``F.rms_norm``.
 
 With ``--profile``, a fifth phase traces one local step of the last stage
 with ``torch.profiler``, of one client and of four at once (the vmap
@@ -311,6 +336,8 @@ PATH_KERNELS = {
                       "info_nce_rows", "info_nce_rows_dq"),
     "encdec": MAIN_KERNELS,
     "lm_moe": MAIN_KERNELS,
+    # serving: decode attention over the KV cache and the decode RMSNorms
+    "serve": ("flash_attention", "rmsnorm_rows"),
 }
 TOPK_ROUNDS_PER_STAGE = (1,) * 11 + (3,)
 # phase 2d: zamba2-2.7b at full width, 2 stage groups of 6 Mamba2 blocks
@@ -1608,6 +1635,251 @@ def launcher_moe_runs():
               f"decimals)", flush=True)
         check(rel <= LAUNCHER_ENGINE_RTOL,
               f"{arch}: the launcher's engines disagree: {a} / {b}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2m: serving
+# ---------------------------------------------------------------------------
+# (a) the entry point at internlm2-1.8b's published widths and depth: 64
+# prompt tokens stepped through the decoder, then 64 generated, batch 4
+SERVE_ARCH = "internlm2-1.8b"
+SERVE_RUN = dict(batch=4, prompt_len=64, gen=64)
+# its parameters: 630,736,896 at 4 blocks (phase 2i) + 20 x 62,918,656
+SERVE_PARAMS = 1889110016
+# decode against the full-sequence forward at fp32 (TF32 off), and the
+# card's decode against the CPU's: the same math summed in another order
+# (one position's products against the whole sequence's, the kernels
+# against the plain versions), through up to 54 blocks; relative to the
+# largest logit
+SERVE_RTOL = 1e-4
+# (b), (c): the tokens stepped
+SERVE_CHECK = dict(batch=2, tokens=32)
+# (d) the ring buffer: a window of 16 slots at 2 blocks, 48 steps
+RING = dict(window=16, layers=2, steps=48)
+
+
+def serve_expected_launches(cfg, steps):
+    """The serving path's launches: a step runs every block once at S = 1
+    (one attention and two RMSNorms a dense block) and the final RMSNorm;
+    no other kernel."""
+    out = dict.fromkeys(("gather_pack", "scatter_unpack", "info_nce_rows",
+                         "info_nce_rows_dq", "info_nce_rows_dk",
+                         "ssd_scan"), 0)
+    out["flash_attention"] = steps * cfg.num_layers
+    out["rmsnorm_rows"] = steps * (2 * cfg.num_layers + 1)
+    return out
+
+
+def decode_logits(cfg, params, toks, memory=None, seq_len=None):
+    """The decoder stepped over ``toks`` (B, S) one position a step from
+    fresh caches of ``seq_len`` (default S) slots; (B, S, V) fp32."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec, lm
+
+    B, S = toks.shape
+    dev = toks.device
+    if memory is None:
+        caches = lm.init_caches(cfg, B, seq_len or S, device=dev)
+    else:
+        caches = encdec.init_dec_caches(cfg, B, seq_len or S, device=dev)
+    step = steps.make_decode_step(cfg)
+    extra = () if memory is None else (memory,)
+    outs = []
+    for t in range(S):
+        logits, caches = step(params, caches, toks[:, t:t + 1], t, *extra)
+        outs.append(logits[:, 0])
+    return torch.stack(outs, dim=1)
+
+
+def forward_logits(cfg, params, toks, memory=None):
+    """The full-sequence forward's logits at every position, (B, S, V)
+    fp32: ``forward_hidden`` (or the encoder-decoder's ``decode_train``)
+    and the head, in the compute dtype as the decode step computes them."""
+    import torch
+    from repro_torch.models import encdec, lm
+
+    cdt = getattr(torch, cfg.compute_dtype)
+    with torch.no_grad():
+        if memory is None:
+            hidden, _ = lm.forward_hidden(params, lm.embed(params, toks, cfg),
+                                          cfg)
+            head = lm._head_matrix(params, cfg)
+        else:
+            hidden = encdec.decode_train(params, toks, memory, cfg)
+            head = params["lm_head"]
+        return (hidden.to(cdt) @ head.to(cdt)).to(torch.float32)
+
+
+def rel_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def no_drop(cfg):
+    """``cfg`` with a MoE capacity factor of twice E / k: every expert can
+    take every token of a row, so the forward's capacity dispatch drops
+    none and equals the decode's dense experts (the reference's decode
+    parity test does the same)."""
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=2.0 * m.num_experts / m.experts_per_token))
+
+
+def serve_phase():
+    """Phase 2m. Returns {"serve": launch counts of (a)}."""
+    import torch
+    from repro_torch.configs.base import load_arch, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec, lm
+
+    dev = torch.device("cuda")
+    # (a) the entry point, through its main
+    cfg = serve.serve_config(SERVE_ARCH, full=True)
+    n_params = sum(math.prod(s) for s in lm.lm_shapes(cfg).values())
+    check(n_params == SERVE_PARAMS,
+          f"{SERVE_ARCH} holds {n_params} parameters, not {SERVE_PARAMS}")
+    argv = ["--arch", SERVE_ARCH, "--full", "--batch",
+            str(SERVE_RUN["batch"]), "--prompt-len",
+            str(SERVE_RUN["prompt_len"]), "--gen", str(SERVE_RUN["gen"])]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens, tps = serve.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"serve": ops.launch_counts()}
+    check(tokens.shape == (SERVE_RUN["gen"], SERVE_RUN["batch"])
+          and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab_size,
+          f"served tokens {tokens.shape}, range {int(tokens.min())}.."
+          f"{int(tokens.max())}")
+    steps = SERVE_RUN["prompt_len"] + SERVE_RUN["gen"]
+    print(f"  (a) python -m repro_torch.launch.serve {' '.join(argv)}: "
+          f"{SERVE_ARCH}, {cfg.num_layers} blocks, d {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, "
+          f"{cfg.compute_dtype} compute, {n_params} parameters; "
+          f"{tps:.1f} tok/s, {SERVE_RUN['batch'] * 1e3 / tps:.3f} ms a "
+          f"decode step; {secs:.1f}s in all (parameters, {steps} steps); "
+          f"{peak_line(base)}", flush=True)
+    check_launches("serve", launches["serve"],
+                   serve_expected_launches(cfg, steps))
+    # where a decode step's time goes: its wall time against the device's
+    # busy time (torch.profiler), at the position after the prompt
+    params = lm.init_lm(cfg, torch.Generator(dev).manual_seed(0), dev)
+    caches = lm.init_caches(cfg, SERVE_RUN["batch"], steps, device=dev)
+    tok = torch.zeros((SERVE_RUN["batch"], 1), dtype=torch.long, device=dev)
+    profile_device(lambda: lm.decode_step(params, caches, tok,
+                                          SERVE_RUN["prompt_len"], cfg),
+                   f"(a) one decode step of {SERVE_ARCH}, batch "
+                   f"{SERVE_RUN['batch']}, at position "
+                   f"{SERVE_RUN['prompt_len']}", 8)
+    del params, caches
+
+    # (b) decode against forward at full width and depth, fp32
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    g = torch.Generator(dev).manual_seed(11)
+    params = lm.init_lm(cfg32, g, dev)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (SERVE_CHECK["batch"], SERVE_CHECK["tokens"]),
+                         generator=g, device=dev)
+    dec = decode_logits(cfg32, params, toks)
+    err = rel_err(dec, forward_logits(cfg32, params, toks))
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    err16 = rel_err(decode_logits(cfg16, params, toks),
+                    forward_logits(cfg16, params, toks))
+    two = dataclasses.replace(cfg32, num_layers=2)
+    p2 = {k: v[:2] if k.startswith("blocks/") else v
+          for k, v in params.items()}
+    cpu = decode_logits(two, {k: v.cpu() for k, v in p2.items()},
+                        toks.cpu())
+    err_cpu = rel_err(decode_logits(two, p2, toks).cpu(), cpu)
+    print(f"  (b) {SERVE_ARCH} at {cfg.num_layers} blocks, "
+          f"{SERVE_CHECK['batch']} x {SERVE_CHECK['tokens']} tokens: decode "
+          f"against forward_hidden's logits, fp32 {err:.3e} (tolerance "
+          f"{SERVE_RTOL:g}), bf16 {err16:.3e} (not checked); at 2 blocks, "
+          f"card against CPU fp32 {err_cpu:.3e} (tolerance {SERVE_RTOL:g}); "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    check(err <= SERVE_RTOL and err_cpu <= SERVE_RTOL,
+          f"{SERVE_ARCH}: decode {err} from the forward, {err_cpu} from the "
+          f"CPU")
+    del params, p2, dec
+    torch.cuda.empty_cache()
+
+    # (c) every other family's decode against its own forward, fp32
+    def capacity_cut(c):
+        return (f"capacity factor {c.moe.capacity_factor:g} -> "
+                f"{no_drop(c).moe.capacity_factor:.4g} so that no token "
+                f"drops")
+
+    llama4 = reduced(load_arch("llama4-maverick-400b-a17b"))
+    families = (
+        ("zamba2-2.7b", load_arch("zamba2-2.7b"), "published widths and "
+         "depth, no cut"),
+        ("xlstm-125m", load_arch("xlstm-125m"), "published widths and depth, "
+         "no cut"),
+        (MOE_ARCH, no_drop(moe_config()), f"phase 2l's cut, {MOE_LAYERS} "
+         f"blocks of {MOE_EXPERTS} routed experts; "
+         f"{capacity_cut(moe_config())}"),
+        ("llama4-maverick-400b-a17b", no_drop(llama4),
+         f"reduced(); {capacity_cut(llama4)}"),
+        (ENCDEC_ARCH, load_arch(ENCDEC_ARCH), "published widths and depth, "
+         f"{load_arch(ENCDEC_ARCH).frontend_embed_len} frames"))
+    for name, fcfg, cut in families:
+        t0 = time.perf_counter()
+        fcfg = dataclasses.replace(fcfg, compute_dtype="float32")
+        g = torch.Generator(dev).manual_seed(12)
+        toks = torch.randint(0, fcfg.vocab_size,
+                             (SERVE_CHECK["batch"], SERVE_CHECK["tokens"]),
+                             generator=g, device=dev)
+        memory = None
+        if name == ENCDEC_ARCH:
+            params = encdec.init_encdec(fcfg, g, dev)
+            frames = torch.randn((SERVE_CHECK["batch"],
+                                  fcfg.frontend_embed_len, fcfg.d_model),
+                                 generator=g, device=dev)
+            with torch.no_grad():
+                memory = encdec.encode(params, frames, fcfg)
+        else:
+            params = lm.init_lm(fcfg, g, dev)
+        err = rel_err(decode_logits(fcfg, params, toks, memory),
+                      forward_logits(fcfg, params, toks, memory))
+        print(f"  (c) {name} ({cut}; {fcfg.num_layers} blocks, "
+              f"{sum(t.numel() for t in params.values())} parameters): "
+              f"decode against the forward, fp32, {err:.3e} (tolerance "
+              f"{SERVE_RTOL:g}); {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        check(err <= SERVE_RTOL, f"{name}: decode {err} from the forward")
+        del params, memory
+        torch.cuda.empty_cache()
+
+    # (d) the ring buffer past its window
+    t0 = time.perf_counter()
+    rcfg = dataclasses.replace(cfg32, num_layers=RING["layers"],
+                               window=RING["window"])
+    g = torch.Generator(dev).manual_seed(13)
+    params = lm.init_lm(rcfg, g, dev)
+    toks = torch.randint(0, rcfg.vocab_size,
+                         (SERVE_CHECK["batch"], RING["steps"]), generator=g,
+                         device=dev)
+    caches = lm.init_caches(rcfg, SERVE_CHECK["batch"], RING["steps"],
+                            device=dev)
+    check(caches["k"].shape[2] == RING["window"],
+          f"ring cache of {caches['k'].shape[2]} slots")
+    err = rel_err(decode_logits(rcfg, params, toks),
+                  forward_logits(rcfg, params, toks))
+    print(f"  (d) the ring buffer: {SERVE_ARCH} widths, {RING['layers']} "
+          f"blocks, window {RING['window']} (a cache of {RING['window']} "
+          f"slots), {RING['steps']} steps: decode against the windowed "
+          f"forward, fp32, {err:.3e} (tolerance {SERVE_RTOL:g}); "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    check(err <= SERVE_RTOL, f"ring buffer: decode {err} from the forward")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2966,7 +3238,10 @@ LM_ATTENTION = (
      "llama4-maverick's GQA 40/8"),
     ("flash_attention_mla_reduced",
      (4, 64, 64, 4, 4, 48, 32, True, "float32"),
-     "deepseek-v2's reduced() MLA, the launcher's in phase 2l(b)"))
+     "deepseek-v2's reduced() MLA, the launcher's in phase 2l(b)"),
+    ("flash_attention_decode",
+     (4, 1, 128, 16, 8, 128, 128, False, "bfloat16"),
+     "the dense LM's decode step over its 128-slot KV cache, phase 2m"))
 # their RMSNorms: (record, (rows, d, dtype), use)
 LM_RMSNORM = (
     ("rmsnorm_rows_2560", (4096, 2560, "float32"), "zamba2's residual stream"),
@@ -2980,7 +3255,9 @@ LM_RMSNORM = (
     ("rmsnorm_rows_1024", (2048, 1024, "float32"),
      "seamless-m4t's decoder blocks"),
     ("rmsnorm_rows_1024_enc", (1024, 1024, "float32"),
-     "seamless-m4t's encoder blocks"))
+     "seamless-m4t's encoder blocks"),
+    ("rmsnorm_rows_2048_decode", (4, 2048, "float32"),
+     "the dense LM's decode step, batch 4, phase 2m"))
 # InfoNCE: (record suffix, (C, B, d)); a suffix of None is checked only
 LM_INFONCE = (("", (1, 4, 2560)), (None, (1, 4, 5000)), (None, (2, 40, 4100)),
               ("xlstm", (1, 4, 768)), ("encdec", (1, 2, 1024)))
@@ -3787,6 +4064,15 @@ def run(profile: bool = False) -> int:
     launches.update(moe_phase())
     launcher_moe_runs()
     print(f"  phase 2l took {time.perf_counter() - t2l:.1f}s", flush=True)
+
+    print(f"[2m] serving: python -m repro_torch.launch.serve --full on "
+          f"{SERVE_ARCH} (batch {SERVE_RUN['batch']}, "
+          f"{SERVE_RUN['prompt_len']} prompt + {SERVE_RUN['gen']} generated "
+          f"tokens); decode against forward on every family at fp32; the "
+          f"ring buffer", flush=True)
+    t2m = time.perf_counter()
+    launches.update(serve_phase())
+    print(f"  phase 2m took {time.perf_counter() - t2m:.1f}s", flush=True)
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(launches[path][name] > 0,

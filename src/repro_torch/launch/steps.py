@@ -7,6 +7,10 @@ Modes
   train_lw   the LW-FedSSL local step at the *final* stage: full-depth
              forward, only the last stage trained, with the representation
              alignment against the broadcast global model.
+  prefill    the full-prompt forward, the last position's logits
+             (``make_prefill_step``).
+  decode     one token a sequence against the decode caches
+             (``make_decode_step``).
 
 ``make_train_step`` is one client's step under autograd; gradient
 accumulation (``train_cfg.microbatch``) runs the microbatch slices one
@@ -25,7 +29,6 @@ the global model's mean-pooled encoder memory when aligning; its batches
 and shards carry the ``frontend`` frames. Its stages are its encoder
 blocks, as in the reference, and the stage plan's row range selects rows
 of ``dec_blocks`` too (a stacked leaf), although every decoder block runs.
-The reference's prefill and decode steps (serving) are not ported yet.
 """
 from __future__ import annotations
 
@@ -153,6 +156,36 @@ def make_train_step(cfg, train_cfg, *, mode: str = "train",
         return new_params, new_opt, metrics
 
     return step, opt
+
+
+def make_prefill_step(cfg):
+    """``step(params, batch)`` -> the last position's logits, for a batch
+    {"tokens", optional "frontend"}; the encoder-decoder's ``step(params,
+    frames, tokens)``."""
+    if is_encdec(cfg):
+        def step(params, frames, tokens):
+            return encdec_mod.prefill(params, frames, tokens, cfg)[0]
+        return step
+
+    def step(params, batch):
+        return lm_mod.prefill(params, batch["tokens"], cfg,
+                              batch.get("frontend"))[0]
+    return step
+
+
+def make_decode_step(cfg):
+    """``step(params, caches, token, pos)`` -> (logits, caches); the
+    encoder-decoder's ``step(params, caches, token, pos, memory)``. ``pos``
+    is a Python int; the caches are written in place."""
+    if is_encdec(cfg):
+        def step(params, caches, token, pos, memory):
+            return encdec_mod.decode_step(params, caches, token, pos, memory,
+                                          cfg)
+        return step
+
+    def step(params, caches, token, pos):
+        return lm_mod.decode_step(params, caches, token, pos, cfg)
+    return step
 
 
 def make_fl_round_program(cfg, train_cfg, *, mode: str = "train",

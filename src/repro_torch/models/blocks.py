@@ -31,6 +31,13 @@ stacks, ``(groups, attn_every, ...)`` for zamba2, ``(groups, slstm_every -
 ...)`` for llama4's dense blocks, and ``(groups, ...)`` for the xLSTM's
 sLSTM blocks and llama4's MoE blocks. The port indexes a layer's row
 directly where the reference slices the stack.
+
+Serving: ``block_cache_init`` is one layer's decode cache of a kind (the
+Mamba2 or xLSTM state, MLA's latent cache, else the KV ring buffer, which
+``cross`` keeps for its self-attention only: its cross attention is
+recomputed from the memory at every step, as in the reference), and
+``block_decode`` one token through one block. The MoE kinds decode
+through ``moe_ffn``'s S = 1 branch (every expert densely).
 """
 from __future__ import annotations
 
@@ -41,7 +48,7 @@ import torch
 
 from repro_torch.convert import subtree
 from repro_torch.federated.leaves import tree_sorted
-from repro_torch.models.layers import mamba2, mla, moe, xlstm
+from repro_torch.models.layers import attention, mamba2, mla, moe, xlstm
 from repro_torch.models.layers.attention import attn_apply, cross_attn_apply
 from repro_torch.models.layers.init import dense_init_
 from repro_torch.models.layers.mlp import mlp_apply, mlp_shapes
@@ -54,6 +61,11 @@ KINDS = ("enc", "dense", "moe", "mla_moe", "mamba", "attn_only", "mlstm",
 _RESIDUAL = {"mamba": (mamba2.mamba2_shapes, mamba2.mamba2_apply),
              "mlstm": (xlstm.mlstm_shapes, xlstm.mlstm_apply),
              "slstm": (xlstm.slstm_shapes, xlstm.slstm_apply)}
+# the decoders of the residual kinds: (their state's init, their step)
+_RESIDUAL_DECODE = {
+    "mamba": (mamba2.init_state, mamba2.mamba2_decode),
+    "mlstm": (xlstm.mlstm_init_state, xlstm.mlstm_decode),
+    "slstm": (xlstm.slstm_init_state, xlstm.slstm_decode)}
 # constant initial values, by kind and leaf path inside the kind's subtree
 _CONSTANT_INIT = {"mamba": mamba2.CONSTANT_INIT,
                   "mlstm": xlstm.MLSTM_CONSTANT_INIT,
@@ -155,3 +167,49 @@ def block_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
         return x + y, aux
     return x + mlp_apply(subtree(p, "mlp"), h, cfg.act,
                          getattr(torch, cfg.compute_dtype)), 0.0
+
+
+def _check_decodes(kind: str) -> None:
+    if kind not in KINDS:
+        raise _unknown(kind)
+    if kind == "enc":
+        raise ValueError("the 'enc' kind (bidirectional) does not decode")
+
+
+def block_cache_init(cfg, kind: str, batch: int, seq_len: int, dtype,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """One layer's decode cache of ``kind``, for ``batch`` sequences of up
+    to ``seq_len`` positions; attention caches in ``dtype``, recurrent
+    states in fp32."""
+    if kind in _RESIDUAL_DECODE:
+        return _RESIDUAL_DECODE[kind][0](cfg, batch, device)
+    _check_decodes(kind)
+    if kind == "mla_moe":
+        return mla.init_cache(cfg, batch, seq_len, dtype, device)
+    return attention.init_cache(cfg, batch, seq_len, dtype, device)
+
+
+def block_decode(p: Dict[str, torch.Tensor], x: torch.Tensor, cache, pos: int,
+                 cfg, kind: str, memory: Optional[torch.Tensor] = None):
+    """One token through one block of ``kind``. x: (B, 1, d) at position
+    ``pos`` (a Python int); ``memory`` the encoder's output for ``cross``.
+    Returns (x, the layer's new cache): attention caches are written in
+    place and returned, recurrent states are new tensors."""
+    if kind in _RESIDUAL_DECODE:
+        y, st = _RESIDUAL_DECODE[kind][1](
+            subtree(p, kind), rmsnorm(x, p["ln/scale"], cfg.norm_eps),
+            cache, cfg)
+        return x + y, st
+    _check_decodes(kind)
+    h = rmsnorm(x, p["ln1/scale"], cfg.norm_eps)
+    decode = mla.mla_decode if kind == "mla_moe" else attention.attn_decode
+    y, cache = decode(subtree(p, "attn"), h, cache, pos, cfg)
+    x = x + y
+    if kind == "cross":
+        h = rmsnorm(x, p["ln_x/scale"], cfg.norm_eps)
+        x = x + cross_attn_apply(subtree(p, "xattn"), h, memory, cfg)
+    h = rmsnorm(x, p["ln2/scale"], cfg.norm_eps)
+    if kind in MOE_KINDS:
+        return x + moe.moe_ffn(subtree(p, "moe"), h, cfg)[0], cache
+    return x + mlp_apply(subtree(p, "mlp"), h, cfg.act,
+                         getattr(torch, cfg.compute_dtype)), cache

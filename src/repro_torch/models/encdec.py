@@ -16,8 +16,15 @@ whether or not the embeddings are tied.
 The encoder takes the layer-wise stage interface (``sub_layers``,
 ``active_from``: its frozen prefix runs under ``torch.no_grad()``); the
 decoder always runs every block, as in the reference. ``remat`` recomputes
-each block in the backward. The decoder caches, ``decode_step`` and
-``prefill`` (serving) are not ported yet.
+each block in the backward.
+
+Serving: ``init_dec_caches`` is the decoder's self-attention KV caches
+(dec_layers, ...) at the reference's paths (``k``, ``v``, ``pos``);
+``decode_step`` runs one token through the decoder against a fixed
+encoder memory (its cross attention recomputed from the memory every
+step, as in the reference), under ``torch.no_grad()`` with the caches
+written in place; ``prefill`` encodes the frames and runs the decoder over
+the prompt.
 """
 from __future__ import annotations
 
@@ -114,3 +121,42 @@ def encdec_loss(params: Tree, batch, cfg, *, sub_layers=None,
     return loss, {"xent": loss,
                   "aux": torch.zeros((), dtype=torch.float32,
                                      device=loss.device)}
+
+
+def init_dec_caches(cfg, batch: int, seq_len: int, dtype=None,
+                    device="cpu") -> Tree:
+    """The decoder blocks' KV caches, attention caches in ``dtype``
+    (default the compute dtype)."""
+    dtype = dtype or getattr(torch, cfg.compute_dtype)
+    one = B.block_cache_init(cfg, "cross", batch, seq_len, dtype, device)
+    return lm_mod._fix_pos(tree_sorted({
+        k: torch.zeros((dec_layers(cfg),) + t.shape, dtype=t.dtype,
+                       device=t.device) for k, t in one.items()}))
+
+
+@torch.no_grad()
+def decode_step(params: Tree, caches: Tree, token: torch.Tensor, pos: int,
+                memory: torch.Tensor, cfg):
+    """One decoder token (B, 1) at position ``pos`` (a Python int) against
+    ``memory`` (B, T, d). Returns (logits (B, 1, V) fp32, caches)."""
+    x = lm_mod.embed(params, token, cfg)
+    stack = subtree(params, "dec_blocks")
+    for i in range(dec_layers(cfg)):
+        x = lm_mod.decode_block({k: t[i] for k, t in stack.items()}, x,
+                                {k: t[i] for k, t in caches.items()}, pos,
+                                cfg, "cross", memory)
+    x = rmsnorm(x, params["final_ln/scale"], cfg.norm_eps)
+    cdt = getattr(torch, cfg.compute_dtype)
+    logits = x.to(cdt) @ params["lm_head"].to(cdt)
+    return logits.to(torch.float32), caches
+
+
+@torch.no_grad()
+def prefill(params: Tree, frames: torch.Tensor, tokens: torch.Tensor, cfg):
+    """Returns (the prompt's last logits (B, 1, V) fp32, the encoder
+    memory)."""
+    memory = encode(params, frames, cfg)
+    hidden = decode_train(params, tokens, memory, cfg)
+    cdt = getattr(torch, cfg.compute_dtype)
+    logits = hidden[:, -1:].to(cdt) @ params["lm_head"].to(cdt)
+    return logits.to(torch.float32), memory

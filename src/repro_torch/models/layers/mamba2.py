@@ -9,10 +9,16 @@ its own ``ssd_chunked`` there, which the kernel is checked against. The
 gated norm is the RMSNorm kernel at width ``d_inner``.
 
 ``ssd_chunked`` is the layer's plain scan (dt and A separately, an
-optional incoming state, the final state). ``init_state`` and
-``mamba2_decode`` (serving) are not ported yet.
+optional incoming state, the final state).
+
+Serving: ``init_state`` is the recurrent state, the SSM's ``h`` (B, H, P,
+N) and the convolution's last K - 1 inputs ``conv`` (B, K - 1, C), both
+fp32 and zero; ``mamba2_decode`` is the O(1) single-token update (no scan
+kernel), its gated norm the RMSNorm kernel as in ``mamba2_apply``.
 """
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -97,3 +103,41 @@ def mamba2_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
     y = rmsnorm(y.reshape(B, S, di) * F.silu(z), p["norm/scale"],
                 cfg.norm_eps)
     return (y.to(cdt) @ p["w_out"].to(cdt)).to(x.dtype)
+
+
+def init_state(cfg, batch: int, device=None) -> Dict[str, torch.Tensor]:
+    s = cfg.ssm
+    conv_ch = d_inner(cfg) + 2 * s.state_dim
+    f32 = torch.float32
+    return {"conv": torch.zeros((batch, s.conv_width - 1, conv_ch),
+                                dtype=f32, device=device),
+            "h": torch.zeros((batch, n_heads(cfg), s.head_dim, s.state_dim),
+                             dtype=f32, device=device)}
+
+
+def mamba2_decode(p, x: torch.Tensor, state,
+                  cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token recurrent update. p: the block's ``mamba`` leaves; x:
+    (B, 1, d). Returns (y (B, 1, d), the new state)."""
+    s = cfg.ssm
+    B = x.shape[0]
+    di, H, N = d_inner(cfg), n_heads(cfg), s.state_dim
+    cdt = getattr(torch, cfg.compute_dtype)
+    proj = (x[:, 0].to(cdt) @ p["w_in"].to(cdt)).to(torch.float32)
+    z, xr, Bm, Cm, dt = torch.split(proj, [di, di, N, N, H], dim=-1)
+    conv_in = torch.cat([xr, Bm, Cm], dim=-1)                  # (B, C)
+    window = torch.cat([state["conv"], conv_in[:, None]], dim=1)  # (B,K,C)
+    conv_out = F.silu(torch.einsum("bkc,kc->bc", window,
+                                   p["conv_w"].to(torch.float32))
+                      + p["conv_b"].to(torch.float32))
+    xr, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
+    dt = F.softplus(dt + p["dt_bias"])                         # (B, H)
+    A = -torch.exp(p["a_log"])
+    xh = xr.reshape(B, H, s.head_dim)
+    decay = torch.exp(dt * A)                                  # (B, H)
+    h = state["h"] * decay[:, :, None, None] + \
+        (dt[:, :, None] * xh)[..., None] * Bm[:, None, None, :]
+    y = torch.einsum("bhpn,bn->bhp", h, Cm) + xh * p["D"][None, :, None]
+    y = rmsnorm(y.reshape(B, di) * F.silu(z), p["norm/scale"], cfg.norm_eps)
+    out = (y.to(cdt) @ p["w_out"].to(cdt)).to(x.dtype)
+    return out[:, None], {"conv": window[:, 1:], "h": h}

@@ -18,8 +18,13 @@ norm is a LayerNorm.
 Both cores are jnp code in the reference, outside any Pallas kernel, so
 they are plain PyTorch here. The -1e30 masks (``NEG_INF``) and the
 ``max(|den|, exp(-m))`` normaliser are the reference's, so that the
-gradients through ``exp(dmat - m)`` match. The decode steps and the
-returned states (serving) are not ported yet.
+gradients through ``exp(dmat - m)`` match.
+
+Serving: ``mlstm_decode`` and ``slstm_decode`` are the O(1) single-token
+steps on the states of ``mlstm_init_state`` (C, n zero, the stabiliser m
+at -1e30) and ``slstm_init_state`` (c, h, m zero, the normaliser n at
+one). The full-sequence layers do not return their final state (the
+reference's ``return_state`` prefill hand-off is not ported).
 """
 from __future__ import annotations
 
@@ -232,3 +237,45 @@ def slstm_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
     y = layernorm(y, p["norm/scale"], p["norm/bias"], cfg.norm_eps)
     return (y @ p["w_down"].to(cdt)).to(x.dtype)
 
+
+
+def mlstm_decode(p, x: torch.Tensor, state, cfg):
+    """The O(1) recurrent step. p: the ``mlstm`` subtree of one layer; x:
+    (B, 1, d). Returns (y (B, 1, d), the new (C, n, m) state)."""
+    di, H = d_inner(cfg), cfg.num_heads
+    P = di // H
+    B = x.shape[0]
+    cdt = getattr(torch, cfg.compute_dtype)
+    f32 = torch.float32
+    up = x[:, 0].to(cdt) @ p["w_up"].to(cdt)
+    xi, z = up.chunk(2, dim=-1)
+    q = (xi @ p["w_q"].to(cdt)).reshape(B, H, P).to(f32)
+    k = ((xi @ p["w_k"].to(cdt)).reshape(B, H, P)
+         / _key_divisor(P, cdt)).to(f32)
+    v = (xi @ p["w_v"].to(cdt)).reshape(B, H, P).to(f32)
+    logi, logf = _mlstm_gates(p, xi.to(f32))                  # (B, H)
+    m_new = torch.maximum(logf + state["m"], logi)
+    a = torch.exp(logf + state["m"] - m_new)
+    b = torch.exp(logi - m_new)
+    C = state["C"] * a[..., None, None] + b[..., None, None] * \
+        torch.einsum("bhp,bhq->bhpq", v, k)
+    n = state["n"] * a[..., None] + b[..., None] * k
+    num = torch.einsum("bhpq,bhq->bhp", C, q)
+    den = torch.maximum(torch.abs(torch.einsum("bhp,bhp->bh", n, q)),
+                        torch.exp(-m_new))
+    y = (num / den[..., None]).reshape(B, di).to(cdt)
+    y = rmsnorm(y, p["norm/scale"], cfg.norm_eps) * F.silu(z)
+    out = (y @ p["w_down"].to(cdt)).to(x.dtype)
+    return out[:, None], {"C": C, "m": m_new, "n": n}
+
+
+def slstm_decode(p, x: torch.Tensor, state, cfg):
+    """One recurrence step. p: the ``slstm`` subtree of one layer; x: (B,
+    1, d). Returns (y (B, 1, d), the new (c, h, m, n) state)."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    xt = (x[:, 0].to(cdt) @ p["w"].to(cdt)).to(torch.float32)
+    st = _slstm_cell(_recurrent_matrix(p[SLSTM_RECURRENT].to(torch.float32)),
+                     p["b"], xt, state)
+    y = layernorm(st["h"].to(cdt)[:, None], p["norm/scale"], p["norm/bias"],
+                  cfg.norm_eps)
+    return (y @ p["w_down"].to(cdt)).to(x.dtype), st

@@ -31,8 +31,22 @@ reference's per-block ``jax.checkpoint``; as there, not zamba's shared
 block, the xLSTM's sLSTM blocks nor llama4's MoE blocks). The VLM frontend
 is the reference's stub: precomputed (B, P, d) embeddings put ahead of the
 token embeddings (``embed(..., frontend)``). A uniform stack of Mamba2
-blocks (no config of the JAX package has one), caches, prefill and decode
-(serving) are not ported yet.
+blocks is the ``uniform`` topology with ``mamba`` blocks (no config of the
+JAX package has one; its decode parity test does).
+
+Serving: ``init_caches`` builds every layer's decode cache (KV ring
+buffers, MLA's latent caches, the Mamba2 and xLSTM states), a flat
+``{path: tensor}`` dict at the paths of the reference's cache tree with
+its shapes: the uniform stack's leaves (L, ...) at the top (``k``, ``v``,
+``pos``, or ``c_kv``, ``k_rope``, ``pos``, or ``conv``, ``h``), zamba's
+``mamba/...`` (groups, attn_every, ...) and ``attn/...`` (groups, ...),
+llama4's ``dense/...`` (groups, moe_every - 1, ...) and ``moe/...``
+(groups, ...), the xLSTM's ``mlstm/...`` (groups, slstm_every - 1, ...)
+and ``slstm/...`` (groups, ...); so ``convert.from_numpy_tree`` carries a
+reference cache across. ``decode_step`` runs one token a sequence through
+every layer under ``torch.no_grad()``, writing the caches in place (the
+reference donates them), and returns the logits and the caches.
+``prefill`` is the full-prompt forward and its last position's logits.
 """
 from __future__ import annotations
 
@@ -73,18 +87,6 @@ def uniform_kind(cfg) -> str:
     return "dense"
 
 
-def _ported(cfg) -> str:
-    """The topology of ``cfg``; raises for a uniform Mamba2 stack, the one
-    not ported."""
-    topo = topology(cfg)
-    if topo == "uniform" and uniform_kind(cfg) == "mamba":
-        raise NotImplementedError(
-            f"LM topology 'uniform with mamba blocks' ({cfg.arch_id}) is not "
-            f"ported to repro_torch yet (ported: zamba, xlstm, moe_il, "
-            f"uniform with dense, moe or mla_moe blocks)")
-    return topo
-
-
 def _xlstm_groups(cfg):
     """(groups, blocks a group) of the xlstm topology."""
     per = cfg.xlstm.slstm_every or cfg.num_layers
@@ -96,7 +98,7 @@ def num_stages(cfg) -> int:
     one group of ``attn_every`` Mamba2 blocks (zamba), of ``moe_every``
     blocks (moe_il) or of ``slstm_every`` xLSTM blocks (xlstm; one block a
     stage when ``slstm_every`` is 0, as the reference counts it)."""
-    topo = _ported(cfg)
+    topo = topology(cfg)
     if topo == "zamba":
         return cfg.num_layers // cfg.attn_every
     if topo == "moe_il":
@@ -107,7 +109,7 @@ def num_stages(cfg) -> int:
 
 
 def lm_shapes(cfg) -> Dict[str, tuple]:
-    topo = _ported(cfg)
+    topo = topology(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     shapes = {"embed": (V, d), "final_ln/scale": (d,)}
     if not cfg.tie_embeddings:
@@ -233,7 +235,7 @@ def forward_hidden(params: Tree, x: torch.Tensor, cfg, *,
     """x: (B, S, d) embedded inputs. Returns (hidden, aux_loss): the sum
     of the MoE blocks' load-balance losses, fp32 (0 without MoE blocks);
     the frozen stages' part carries no gradient."""
-    topo = _ported(cfg)
+    topo = topology(cfg)
     S = num_stages(cfg)
     sub = S if sub_layers is None else sub_layers
     act = max(0, min(active_from, sub))
@@ -327,3 +329,105 @@ def lm_loss(params: Tree, batch, cfg, *, sub_layers=None,
                                  active_from=active_from)
     loss = xent_loss(params, hidden, batch["labels"], cfg, batch.get("mask"))
     return loss + aux, {"xent": loss, "aux": aux}
+
+
+# -- serving ------------------------------------------------------------------
+def _cache_stacks(cfg):
+    """(cache prefix, block kind, stack dims) of each cache stack."""
+    topo = topology(cfg)
+    if topo == "uniform":
+        return [("", uniform_kind(cfg), (cfg.num_layers,))]
+    g = num_stages(cfg)
+    if topo == "zamba":
+        return [("mamba/", "mamba", (g, cfg.attn_every)),
+                ("attn/", "attn_only", (g,))]
+    if topo == "moe_il":
+        return [("dense/", "dense", (g, cfg.moe.moe_every - 1)),
+                ("moe/", "moe", (g,))]
+    g, per = _xlstm_groups(cfg)
+    return [("mlstm/", "mlstm", (g, per - 1)), ("slstm/", "slstm", (g,))]
+
+
+def _fix_pos(tree: Tree) -> Tree:
+    """Attention caches' ``pos`` leaves set to -1 (an empty slot), for
+    caches stacked from zeros."""
+    return {k: torch.full_like(t, -1) if k.rsplit("/", 1)[-1] == "pos"
+            else t for k, t in tree.items()}
+
+
+def init_caches(cfg, batch: int, seq_len: int, dtype=None,
+                device="cpu") -> Tree:
+    """Every layer's decode cache for ``batch`` sequences of up to
+    ``seq_len`` positions; attention caches in ``dtype`` (default the
+    compute dtype), recurrent states in fp32."""
+    dtype = dtype or getattr(torch, cfg.compute_dtype)
+    caches = {}
+    for prefix, kind, dims in _cache_stacks(cfg):
+        one = B.block_cache_init(cfg, kind, batch, seq_len, dtype, device)
+        # broadcast, not zeros: the recurrent states start at non-zero
+        # values (the mLSTM stabiliser m = -1e30, the sLSTM normaliser 1)
+        caches.update({f"{prefix}{k}": t.expand(*dims, *t.shape).clone(
+            memory_format=torch.contiguous_format) for k, t in one.items()})
+    return tree_sorted(caches)
+
+
+def decode_block(p: Tree, x: torch.Tensor, layer: Tree, pos: int, cfg,
+                 kind: str, memory: Optional[torch.Tensor] = None):
+    """One block's decode step against ``layer``, the block's rows of the
+    cache stacks (views), into which its new state is written."""
+    x, new = B.block_decode(p, x, layer, pos, cfg, kind, memory)
+    for k, t in new.items():
+        if t is not layer[k]:
+            layer[k].copy_(t)
+    return x
+
+
+def _rows(stack: Tree, i) -> Tree:
+    return {k: t[i] for k, t in stack.items()}
+
+
+@torch.no_grad()
+def decode_step(params: Tree, caches: Tree, token: torch.Tensor, pos: int,
+                cfg):
+    """token: (B, 1) int, at position ``pos`` (a Python int). Returns
+    (logits (B, 1, V) fp32, caches), the caches written in place."""
+    x = embed(params, token, cfg)
+    topo = topology(cfg)
+    if topo == "uniform":
+        stack, kind = subtree(params, "blocks"), uniform_kind(cfg)
+        for i in range(cfg.num_layers):
+            x = decode_block(_rows(stack, i), x, _rows(caches, i), pos, cfg,
+                             kind)
+    else:
+        # each group: ``per`` inner blocks, then the group's last block
+        # (zamba's shared one, llama4's MoE one, the xLSTM's sLSTM)
+        (pre, kind, (g, per)), (lpre, last, _) = _cache_stacks(cfg)
+        inner = subtree(params, "mlstm" if topo == "xlstm" else "blocks")
+        outer = subtree(params, {"zamba": "shared_attn",
+                                 "moe_il": "moe_blocks",
+                                 "xlstm": "slstm"}[topo])
+        cin, clast = subtree(caches, pre[:-1]), subtree(caches, lpre[:-1])
+        for gi in range(g):
+            for j in range(per):
+                x = decode_block(_rows(inner, (gi, j)), x,
+                                 _rows(cin, (gi, j)), pos, cfg, kind)
+            p = outer if topo == "zamba" else _rows(outer, gi)
+            x = decode_block(p, x, _rows(clast, gi), pos, cfg, last)
+    x = rmsnorm(x, params["final_ln/scale"], cfg.norm_eps)
+    cdt = getattr(torch, cfg.compute_dtype)
+    logits = x.to(cdt) @ _head_matrix(params, cfg).to(cdt)
+    return logits.to(torch.float32), caches
+
+
+@torch.no_grad()
+def prefill(params: Tree, tokens: torch.Tensor, cfg,
+            frontend: Optional[torch.Tensor] = None):
+    """The full prompt's forward. Returns (the last position's logits (B,
+    1, V) fp32, the hidden states (B, S, d)). As in the reference, it
+    hands no cache to ``decode_step``, which serving steps over the
+    prompt instead."""
+    x = embed(params, tokens, cfg, frontend)
+    hidden, _ = forward_hidden(params, x, cfg)
+    cdt = getattr(torch, cfg.compute_dtype)
+    logits = hidden[:, -1:].to(cdt) @ _head_matrix(params, cfg).to(cdt)
+    return logits.to(torch.float32), hidden

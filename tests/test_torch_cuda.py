@@ -244,6 +244,67 @@ def test_flash_attention_mla_head_dims(dev, B, S, T, Hq, Hkv, hd, dv,
     assert (got.float() - want.float()).abs().max().item() < tol
 
 
+# decode: one query over a KV cache of T slots of which the first kv_len
+# are filled, non-causal (the serving path's call); (B, T, Hq, Hkv, hd,
+# kv_len): the dense LM's (16/8 of 128) and zamba2's (32/32 of 80) shared
+# block, GQA 4:1 and 8:1, a single filled slot and a ragged last tile
+DECODE_CASES = [
+    (4, 128, 16, 8, 128, 77),
+    (4, 128, 16, 8, 128, 128),
+    (2, 200, 32, 32, 80, 133),
+    (3, 64, 8, 2, 128, 1),
+    (1, 130, 8, 1, 80, 129),
+    (2, 1000, 4, 1, 64, 555),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,Hq,Hkv,hd,kv_len", DECODE_CASES)
+def test_flash_attention_decode_kv_len(dev, B, T, Hq, Hkv, hd, kv_len,
+                                       dtype):
+    """S = 1 with ``kv_len`` below T: the keys at and past ``kv_len`` (the
+    cache's empty slots, here filled with large values) take no part."""
+    q, k, v, want = _attention_case(dev, B, 1, T, Hq, Hkv, hd, False, 0,
+                                    kv_len, dtype)
+    k[:, kv_len:] = 30.0
+    v[:, kv_len:] = 1e4
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=False, kv_len=kv_len)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() < tol
+
+
+def test_decode_step_on_card_matches_cpu(dev):
+    """The serving path's decode (a sliding-window GQA LM whose ring buffer
+    evicts, fp32) on the card against the CPU's plain versions, step by
+    step: one attention and two RMSNorm launches a block, one final
+    RMSNorm, every step."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import lm
+    cfg = ModelConfig("t", "dense", 2, 256, 4, 2, 512, 97, head_dim=128,
+                      window=8, compute_dtype="float32")
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 97, (2, 20)))
+    caches = {d: lm.init_caches(cfg, 2, 20, device=d) for d in ("cpu", dev)}
+    cparams = {k: v.to(dev) for k, v in params.items()}
+    before = ops.launch_counts()
+    for t in range(20):
+        want, _ = lm.decode_step(params, caches["cpu"], toks[:, t:t + 1], t,
+                                 cfg)
+        got, _ = lm.decode_step(cparams, caches[dev],
+                                toks[:, t:t + 1].to(dev), t, cfg)
+        err = (got.cpu() - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), (t, err)
+    after = ops.launch_counts()
+    assert after["flash_attention"] - before["flash_attention"] == 20 * 2
+    assert after["rmsnorm_rows"] - before["rmsnorm_rows"] == 20 * 5
+    for k, v in caches["cpu"].items():
+        assert torch.allclose(caches[dev][k].cpu(), v, atol=1e-5), k
+
+
 @pytest.mark.parametrize("hd,dv", [(48, 32), (192, 128)])
 def test_flash_attention_mla_backward_on_card(dev, hd, dv):
     """``FlashAttentionFn``'s backward (``ref.sdpa_bwd_ref``) with a

@@ -290,14 +290,18 @@ def test_masks_bytes_slots_and_transfer_match_reference(jparams, tparams,
 
 
 def test_other_topologies_are_refused():
-    """The one topology still to port, a uniform Mamba2 stack (no config of
-    the JAX package has one), is refused; llama4's interleaved MoE and
-    deepseek-v2's MLA + MoE, refused before, now count their stages as
-    the reference does."""
+    """No topology is refused any more: a uniform Mamba2 stack (no config
+    of the JAX package has one; its decode parity test does), refused
+    before, now counts its blocks as stages, as do llama4's interleaved
+    MoE and deepseek-v2's MLA + MoE, as the reference counts them."""
     import dataclasses
     base = tbase.reduced(tbase.load_arch("internlm2-1.8b"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lm.num_stages(dataclasses.replace(base, ssm=tbase.SSMConfig()))
+    mamba = dataclasses.replace(base, ssm=tbase.SSMConfig())
+    assert lm.topology(mamba) == "uniform" and lm.uniform_kind(mamba) == \
+        "mamba"
+    assert lm.num_stages(mamba) == jlm.num_stages(dataclasses.replace(
+        jbase.reduced(jbase.load_arch("internlm2-1.8b")),
+        ssm=jbase.SSMConfig())) == base.num_layers
     for over, stages in ((dict(moe=tbase.MoEConfig(num_experts=4,
                                                    moe_every=2)), 1),
                          (dict(moe=tbase.MoEConfig(num_experts=4),
