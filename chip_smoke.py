@@ -207,6 +207,34 @@ Phases, each of which must pass (any failure exits non-zero):
    buffer: internlm2-1.8b's widths at 2 blocks with a window of 16 (a
    cache of 16 slots), 48 steps against the windowed forward within 1e-4.
    Prints each part's seconds and the phase's.
+2n. sharding, expert parallelism and the prefill hand-off: (a)
+   deepseek-v2-236b's MoE layer at its published widths with all 160
+   routed experts (15.1 GB of fp32 expert weights; phase 2l's cut of 160
+   to 8 lifted for this one layer), fp32 compute, 2 x 1024 tokens:
+   ``moe_ffn_local`` as 4 shards of 40 experts one after another, their
+   partial outputs summed, against one call with ``e_local = 160``: the
+   sum within 1e-5 of the largest output, ``aux`` equal to the bit, the
+   shards' ``dropped`` summing to the whole's; its peak memory; then
+   card against CPU at ``reduced()`` (4 experts, 2 shards) within 1e-5.
+   (b) ``make_sharded_train_step`` on a real one-rank mesh (``nccl``,
+   world size 1, mesh (1, 1)): internlm2-1.8b at its published widths,
+   4 blocks, batch 4 x 1024; its loss and updated parameters equal the
+   unsharded ``make_train_step``'s to the bit, and its kernel launches
+   (counters set to 0 before, read after) equal the unsharded step's.
+   (c) ``python -m repro_torch.launch.dryrun`` as two subprocesses at
+   once, on ``meta`` over fake process groups: internlm2-1.8b train_4k on
+   16 x 16 and deepseek-v2-236b decode_32k on 2 x 16 x 16; each exits 0
+   and prints its roofline row and its collective bytes by source (the
+   rules' layouts apart from the port's own reshards). (d) The prefill hand-off on phase 2d's
+   zamba2 model (12 Mamba2 blocks at published widths): each block on its
+   own input, 4 prompts of 1024 tokens, as two halves, the first half's
+   (h_final, conv) handed to the second as ``h0`` / ``conv0``; the first
+   half's final state against the plain scan on the card within 1e-4 and
+   against ``mamba2_decode`` stepped over the same 512 tokens within
+   1e-4 of the largest state entry; the second half's scan with ``h0``
+   against the plain scan within 1e-4; the gap between the two-part run
+   and one pass printed (the reference's ignored ``conv0``). Counters set
+   to 0 before (b) and before (d), read after each.
 3. reference: one SSL loss at full width on 8 images, fp32 compute, on the
    card (kernels) against the CPU (plain PyTorch versions); then one
    ``lm_ssl_loss`` with alignment on the trained zamba2 model, one stage
@@ -232,7 +260,10 @@ Phases, each of which must pass (any failure exits non-zero):
    and dq must give the same bits twice, and a client alone the bits it
    gets inside C = 4. The LM path's shapes: the SSD scan at (4, 1024, 80,
    64), N 64, chunk 256 (bit-identical over two calls, and its four
-   kernels' times), five other shapes of one to five chunks, and its
+   kernels' times), the same from a non-zero ``h0`` with its final state
+   (the prefill hand-off; y and the state within 1e-4, timed, and the
+   backward's gradients for every input and h0 at a small shape), five
+   other shapes of one to five chunks, and its
    backward; causal attention at (4, 1024, 32, 80) bf16 and at the dense
    LM's (4, 1024, 16/8, 128) bf16 (GQA), against
    ``F.scaled_dot_product_attention(enable_gqa=True)``; RMSNorm at (4096,
@@ -338,6 +369,9 @@ PATH_KERNELS = {
     "lm_moe": MAIN_KERNELS,
     # serving: decode attention over the KV cache and the decode RMSNorms
     "serve": ("flash_attention", "rmsnorm_rows"),
+    # phase 2n: the sharded dense step and the Mamba2 prefill hand-off
+    "sharded": ("flash_attention", "rmsnorm_rows"),
+    "prefill": ("ssd_scan", "rmsnorm_rows"),
 }
 TOPK_ROUNDS_PER_STAGE = (1,) * 11 + (3,)
 # phase 2d: zamba2-2.7b at full width, 2 stage groups of 6 Mamba2 blocks
@@ -1885,6 +1919,286 @@ def serve_phase():
 # ---------------------------------------------------------------------------
 # phase 2e: observability on the card
 # ---------------------------------------------------------------------------
+# phase 2n: the MoE layer at published widths, all routed experts, as
+# MOE_SHARDS expert shards; the sharded dense step (phase 2i's model);
+# the dry runs; the prefill hand-off on phase 2d's model
+MOE_SHARDS, MOE_TOKENS = 4, 2 * 1024
+SHARDED_BATCH = (4, 1024)
+DRYRUNS = (("internlm2-1.8b", "train_4k", False),
+           ("deepseek-v2-236b", "decode_32k", True))
+DRYRUN_TIMEOUT = 300
+PREFILL = dict(batch=4, seq_len=1024)
+
+
+def moe_local_check():
+    """Phase 2n (a): ``moe_ffn_local`` at deepseek-v2's published widths
+    with all routed experts, as ``MOE_SHARDS`` shards against one call;
+    then card against CPU at ``reduced()``."""
+    import torch
+    from repro_torch.configs.base import load_arch, reduced
+    from repro_torch.models.layers import moe
+
+    cfg = dataclasses.replace(load_arch(MOE_ARCH), compute_dtype="float32")
+    m = cfg.moe
+    E, d, f = m.num_experts, cfg.d_model, m.d_ff_expert
+    gen = torch.Generator("cuda").manual_seed(11)
+
+    def weights(E, d, f, dev="cuda", g=gen):
+        def rn(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+        return {"router": rn(d, E) * (0.1 / math.sqrt(d)),
+                "w_gate": rn(E, d, f) / math.sqrt(d),
+                "w_up": rn(E, d, f) / math.sqrt(d),
+                "w_down": rn(E, f, d) / math.sqrt(f)}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    p = weights(E, d, f)
+    x = torch.randn((MOE_TOKENS, d), generator=gen, device="cuda")
+    cap = moe.capacity(MOE_TOKENS, cfg)
+    wbytes = sum(p[k].numel() * 4 for k in ("w_gate", "w_up", "w_down"))
+    t0 = time.perf_counter()
+    whole, wa = moe.moe_ffn_local(p, x, cfg, 0, E, cap)
+    torch.cuda.synchronize()
+    t_whole = time.perf_counter() - t0
+    per = E // MOE_SHARDS
+    t0 = time.perf_counter()
+    total, parts = torch.zeros_like(whole), []
+    for i in range(MOE_SHARDS):
+        shard = {k: v if k == "router" else v[i * per:(i + 1) * per]
+                 for k, v in p.items()}
+        out, a = moe.moe_ffn_local(shard, x, cfg, i * per, per, cap)
+        total, parts = total + out, parts + [a]
+    torch.cuda.synchronize()
+    t_parts = time.perf_counter() - t0
+    err = rel_err(total, whole)
+    dropped = [int(a["dropped"]) for a in parts]
+    print(f"  (a) {MOE_ARCH} MoE layer: {E} routed experts, top-"
+          f"{m.experts_per_token}, d {d}, expert width {f}, "
+          f"{wbytes / 1e9:.2f} GB of fp32 expert weights, {MOE_TOKENS} "
+          f"tokens, capacity {cap}; one call {t_whole:.3f}s, "
+          f"{MOE_SHARDS} shards of {per} {t_parts:.3f}s; summed shards "
+          f"against one call {err:.3e} of the largest output (tolerance "
+          f"1e-5); aux {float(wa['aux'])}; dropped {dropped} (sum "
+          f"{sum(dropped)}) of {int(wa['dropped'])}; {peak_line(base)}",
+          flush=True)
+    check(err <= 1e-5, f"MoE shards disagree with one call: {err}")
+    check(all(torch.equal(a["aux"], wa["aux"]) for a in parts),
+          "MoE aux differs between the shards and one call")
+    check(sum(dropped) == int(wa["dropped"]),
+          f"MoE drops {dropped} do not sum to {int(wa['dropped'])}")
+    del p, x, whole, total
+    torch.cuda.empty_cache()
+    # card against CPU at reduced(), two shards
+    rcfg = reduced(load_arch(MOE_ARCH))
+    rm = rcfg.moe
+    cpu_gen = torch.Generator().manual_seed(12)
+    rp = weights(rm.num_experts, rcfg.d_model, rm.d_ff_expert, "cpu",
+                 cpu_gen)
+    rx = torch.randn((64, rcfg.d_model), generator=cpu_gen)
+    rcap, half = moe.capacity(64, rcfg), rm.num_experts // 2
+    errs = []
+    for i in range(2):
+        shard = {k: v if k == "router" else v[i * half:(i + 1) * half]
+                 for k, v in rp.items()}
+        want, wa = moe.moe_ffn_local(shard, rx, rcfg, i * half, half, rcap)
+        got, ga = moe.moe_ffn_local({k: v.cuda() for k, v in shard.items()},
+                                    rx.cuda(), rcfg, i * half, half, rcap)
+        errs.append(rel_err(got.cpu(), want))
+        check(int(ga["dropped"]) == int(wa["dropped"]),
+              "MoE drops differ between card and CPU")
+    print(f"  (a) reduced() MoE layer, 2 shards, card against CPU: "
+          f"{[f'{e:.2e}' for e in errs]} of the largest output (tolerance "
+          f"1e-5)", flush=True)
+    check(max(errs) <= 1e-5, f"MoE card and CPU disagree: {errs}")
+
+
+def sharded_step_check():
+    """Phase 2n (b): ``make_sharded_train_step`` on a one-rank ``nccl``
+    mesh against ``make_train_step``. Returns the sharded step's launch
+    counts."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.base import load_train
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import rules
+
+    cfg, tc = dense_config(), load_train(DENSE_ARCH)
+    B, S = SHARDED_BATCH
+    toks, labs, params = lm_init("cuda", cfg, B, S, seed=3)
+    batch = {"tokens": toks, "labels": labs}
+    step, opt = steps.make_train_step(cfg, tc)
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    want_p, _, want_m = step(params, opt.init(params), batch)
+    torch.cuda.synchronize()
+    want_launch = ops.launch_counts()
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh("cuda")
+
+        def put(tree, specs):
+            return {k: distribute_tensor(v, mesh, rules.to_placements(
+                specs[k], mesh)) for k, v in tree.items()}
+
+        p_specs = rules.param_pspecs(params, mesh)
+        st = opt.init(params)
+        o_specs = rules.opt_state_specs(st, p_specs, tc.optimizer, mesh)
+        dst = {k: (put(v, o_specs[k]) if isinstance(v, dict) else v)
+               for k, v in st.items()}
+        dp = put(params, p_specs)
+        db = put(batch, rules.batch_specs(batch, mesh))
+        sstep, _ = steps.make_sharded_train_step(cfg, tc, mesh)
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        got_p, _, got_m = sstep(dp, dst, db)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        secs = time.perf_counter() - t0
+        same = [k for k, v in want_p.items()
+                if torch.equal(got_p[k].to_local(), v)]
+        print(f"  (b) sharded train step, {DENSE_ARCH} at published widths, "
+              f"{cfg.num_layers} blocks, batch {B} x {S}, mesh (1, 1) over "
+              f"nccl: {secs:.2f}s; loss {float(got_m['loss'])} against "
+              f"{float(want_m['loss'])} unsharded (equal bits "
+              f"{torch.equal(got_m['loss'], want_m['loss'])}); {len(same)} "
+              f"of {len(want_p)} parameters bit-identical; launches "
+              f"{ {k: v for k, v in launches.items() if v} } against "
+              f"{ {k: v for k, v in want_launch.items() if v} }",
+              flush=True)
+        check(torch.equal(got_m["loss"], want_m["loss"]),
+              "the one-rank sharded step's loss differs from the unsharded")
+        check(len(same) == len(want_p),
+              f"parameters differ: {sorted(set(want_p) - set(same))[:5]}")
+        check(launches == want_launch,
+              f"sharded launches {launches} != unsharded {want_launch}")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def dryrun_check():
+    """Phase 2n (c): the dry runs as subprocesses, both at once."""
+    procs = []
+    for arch, shape, pod in DRYRUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape] + (["--multi-pod"] if pod else [])
+        procs.append((arch, shape, pod, time.perf_counter(), subprocess.Popen(
+            cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for arch, shape, pod, t0, proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        finally:
+            proc.kill()
+        rows = [ln for ln in out.splitlines() if ln.startswith(arch)]
+        split = [ln for ln in out.splitlines()
+                 if ln.startswith("  collectives by source")]
+        print(f"  (c) dry run {arch} {shape} on "
+              f"{'2x16x16' if pod else '16x16'} (meta, fake process group): "
+              f"exit {proc.returncode} in {time.perf_counter() - t0:.1f}s; "
+              f"{rows[0] if rows else out[-2000:]}", flush=True)
+        if split:
+            print(f"  {split[0]}", flush=True)
+        check(proc.returncode == 0 and rows and split and "DRY-RUN OK" in out,
+              f"dry run {arch} {shape} failed")
+
+
+def prefill_check():
+    """Phase 2n (d): the prefill hand-off on phase 2d's model. Returns the
+    launch counts."""
+    import torch
+    from repro_torch.convert import subtree
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.layers import mamba2
+
+    cfg = lm_config()
+    B, S = PREFILL["batch"], PREFILL["seq_len"]
+    half, Q = S // 2, min(cfg.ssm.chunk_size, S // 2)
+    _, _, params = lm_init("cuda", cfg, 1, 8, seed=4)
+    blocks = subtree(params, "blocks")
+    gen = torch.Generator("cuda").manual_seed(13)
+    errs = {"h vs plain": 0.0, "h vs decode": 0.0, "second half vs plain":
+            0.0}
+    gaps = []
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    layers = [(g, i) for g in range(blocks["mamba/w_in"].shape[0])
+              for i in range(blocks["mamba/w_in"].shape[1])]
+    with torch.no_grad():
+        for g, i in layers:
+            p = subtree({k: v[g, i] for k, v in blocks.items()}, "mamba")
+            x = torch.randn((B, S, cfg.d_model), generator=gen,
+                            device="cuda")
+            y1, (h1, c1) = mamba2.mamba2_apply(p, x[:, :half], cfg,
+                                               return_state=True)
+            y2, (h2, _) = mamba2.mamba2_apply(p, x[:, half:], cfg, h1, c1,
+                                              return_state=True)
+            whole = mamba2.mamba2_apply(p, x, cfg)
+            gaps.append(rel_err(y2, whole[:, half:]))
+            # the first half's scan: kernel against the plain scan
+            _, _, xh, dt, A, Bm, Cm = mamba2.scan_inputs(p, x[:, :half], cfg)
+            _, hp = ref.ssd_explicit(xh, dt, dt * A, Bm, Cm, Q)
+            errs["h vs plain"] = max(errs["h vs plain"], rel_err(h1, hp))
+            # the recurrent decode over the same tokens
+            st = mamba2.init_state(cfg, B, "cuda")
+            for t in range(half):
+                _, st = mamba2.mamba2_decode(p, x[:, t:t + 1], st, cfg)
+            errs["h vs decode"] = max(errs["h vs decode"],
+                                      rel_err(h1, st["h"]))
+            # the second half's scan from h0: kernel against plain
+            _, _, xh, dt, A, Bm, Cm = mamba2.scan_inputs(p, x[:, half:], cfg)
+            yk, hk = ops.ssd_scan(xh, dt, dt * A, Bm, Cm, chunk=Q, h0=h1,
+                                  return_state=True)
+            yp, hp = ref.ssd_explicit(xh, dt, dt * A, Bm, Cm, Q, h1)
+            errs["second half vs plain"] = max(
+                errs["second half vs plain"], rel_err(yk, yp),
+                rel_err(hk, hp), rel_err(h2, hp))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"  (d) prefill hand-off, {cfg.arch_id} at published widths, "
+          f"{len(layers)} Mamba2 blocks, {B} prompts of {S} tokens as two "
+          f"halves of {half} (chunk {Q}), {time.perf_counter() - t0:.1f}s: "
+          f"largest errors over the blocks, of the largest value, "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (tolerance 1e-4); "
+          f"two parts against one pass, the second half's outputs, "
+          f"{[f'{v:.2e}' for v in gaps]} of the largest (the reference's "
+          f"conv0 is ignored, so the second half's first "
+          f"{cfg.ssm.conv_width - 1} convolution outputs differ; printed, "
+          f"not checked); launches {launches}", flush=True)
+    check(all(v <= 1e-4 for v in errs.values()),
+          f"prefill hand-off errors {errs}")
+    return launches
+
+
+def sharding_phase():
+    """Phase 2n. Returns {path: launch counts} of (b) and (d)."""
+    t = time.perf_counter()
+    moe_local_check()
+    print(f"  (a) took {time.perf_counter() - t:.1f}s", flush=True)
+    t = time.perf_counter()
+    launches = {"sharded": sharded_step_check()}
+    print(f"  (b) took {time.perf_counter() - t:.1f}s", flush=True)
+    t = time.perf_counter()
+    dryrun_check()
+    print(f"  (c) took {time.perf_counter() - t:.1f}s", flush=True)
+    t = time.perf_counter()
+    launches["prefill"] = prefill_check()
+    print(f"  (d) took {time.perf_counter() - t:.1f}s", flush=True)
+    return launches
+
+
 def traced_codec_run(model_cfg, ssl_cfg, untraced, untraced_launches):
     """Phase 2b's int8 run traced, with metrics and the health monitor,
     held to the untraced run ``untraced`` (its history and per-round
@@ -3339,6 +3653,50 @@ def lm_kernel_checks():
         library_ms=None, bound_ms=bms, bound_by=by,
         shape=f"xh ({B}, {S}, {H}, {P}), N {N}, chunk {Q}, fp32 "
               f"(one Mamba2 block of the LM path)")
+    # the prefill hand-off: the scan from a non-zero h0, returning its
+    # final state, against the plain scan with the same h0
+    h0s = [0.5 * torch.randn((B, H, P, N), generator=gen, device=dev)
+           for _ in sets]
+
+    def with_h0(i):
+        return ops.ssd_scan(*sets[i], chunk=Q, h0=h0s[i], return_state=True)
+
+    def plain_h0(i):
+        return ref.ssd_scan_ref(*sets[i], chunk=Q, h0=h0s[i],
+                                return_state=True)
+
+    line(f"ssd_scan ({B}, {S}, {H}, {P}) N {N} chunk {Q} fp32 from a "
+         f"non-zero h0, y and the final state", rel(with_h0(0), plain_h0(0)),
+         1e-4)
+    ins = [t.clone().requires_grad_() for t in ssd_inputs(2, 256, 4, 32, 16,
+                                                          gen)]
+    h0 = (0.5 * torch.randn((2, 4, 32, 16), generator=gen, device=dev)) \
+        .requires_grad_()
+    gy = torch.randn((2, 256, 4, 32), generator=gen, device=dev)
+    gh = torch.randn((2, 4, 32, 16), generator=gen, device=dev)
+    grads = []
+    for fn in (ops.ssd_scan, ref.ssd_scan_ref):
+        y, h = fn(*ins, chunk=64, h0=h0, return_state=True)
+        grads.append(torch.autograd.grad((y * gy).sum() + (h * gh).sum(),
+                                         ins + [h0]))
+    line("ssd_scan backward from h0 (2, 256, 4, 32) N 16 chunk 64, every "
+         "input's gradient and h0's", max(rel(a, b) for a, b in
+                                          zip(*grads)), 1e-4)
+    # h0 read and the final state written, 2 x B H P N floats more
+    bms, by = bound(nbytes + 4 * 2 * B * H * P * N,
+                    3 * ssd_flops(B, S, H, P, N, Q), mesh.PEAK_FLOPS_TF32)
+    rec["ssd_scan_h0"] = dict(
+        max_abs_err=max_err(with_h0(0), plain_h0(0)), kernel="ssd_scan",
+        ms=time_ms([lambda i=i: with_h0(i) for i in range(len(sets))]),
+        plain_ms=time_ms([lambda i=i: plain_h0(i) for i in range(len(sets))]),
+        library_ms=None, bound_ms=bms, bound_by=by,
+        shape=f"xh ({B}, {S}, {H}, {P}), N {N}, chunk {Q}, fp32, from a "
+              f"non-zero h0, returning the final state (the prefill "
+              f"hand-off)")
+    r = rec["ssd_scan_h0"]
+    print(f"  ssd_scan with h0 [{r['shape']}]: kernel {r['ms']} ms, plain "
+          f"{r['plain_ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']}); "
+          f"without h0 {rec['ssd_scan']['ms']} ms", flush=True)
 
     # attention at each path's shapes, against ref.sdpa_ref: bf16 within
     # 2e-2, fp32 within 1e-5 of the largest value; beside
@@ -4073,6 +4431,14 @@ def run(profile: bool = False) -> int:
     t2m = time.perf_counter()
     launches.update(serve_phase())
     print(f"  phase 2m took {time.perf_counter() - t2m:.1f}s", flush=True)
+
+    print("[2n] sharding: deepseek-v2's MoE layer with all 160 routed "
+          "experts as 4 expert shards; the sharded train step on a "
+          "one-rank mesh; the dry runs on meta; the prefill hand-off on "
+          "phase 2d's zamba2 model", flush=True)
+    t2n = time.perf_counter()
+    launches.update(sharding_phase())
+    print(f"  phase 2n took {time.perf_counter() - t2n:.1f}s", flush=True)
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(launches[path][name] > 0,

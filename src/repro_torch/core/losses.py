@@ -13,8 +13,10 @@ that the InfoNCE kernel does not compute.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.aten import LOSS, collective_source
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -23,10 +25,23 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
                                                      keepdim=True), min=eps)
 
 
+def _replicated(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor replicated on its mesh (``t`` itself if plain), before
+    the norm: the InfoNCE op runs replicated (its sharding rule), and the
+    norm's backward on a vector split over its feature dim would write in
+    place into a partial sum, which DTensor refuses."""
+    if isinstance(t, DTensor):
+        with collective_source(LOSS):
+            return t.redistribute(t.device_mesh,
+                                  [Replicate()] * t.device_mesh.ndim)
+    return t
+
+
 def info_nce(q: torch.Tensor, k: torch.Tensor, tau: float) -> torch.Tensor:
     """InfoNCE with in-batch negatives (Eq. 2): mean over rows of
     logsumexp_j(q_i k_j / tau) - q_i k_i / tau. No 2*tau factor (see
     ``moco_contrastive``)."""
+    q, k = _replicated(q), _replicated(k)
     return torch.mean(ops.info_nce_rows(l2_normalize(q), l2_normalize(k),
                                         tau))
 

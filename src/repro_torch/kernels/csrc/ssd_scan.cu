@@ -11,7 +11,11 @@
 //   intra-chunk  y_i = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
 //   inter-chunk  y_i += exp(cum_i) C_i . h^T
 //   state        h <- exp(cum_last) h + sum_j exp(cum_last - cum_j) dt_j
-//                     x_j B_j^T            (h (P, N) fp32, zero at chunk 0)
+//                     x_j B_j^T            (h (P, N) fp32)
+// h enters chunk 0 as the optional h0 (B, H, P, N), zero without one (the
+// prefill hand-off: a prompt scanned in two parts, the first part's final
+// state entering the second), and the state after the last chunk is
+// written to hT (B, H, P, N).
 //
 // Design. The TPU grid is (B, H, S / chunk) with the chunk axis sequential
 // and h in VMEM. Here the scan is the standard SSD decomposition, four
@@ -25,8 +29,9 @@
 //      of a (B, H, nc, 64, 64) scratch, and cum itself into a (B, H, S)
 //      scratch (an inclusive scan of the chunk's a by one warp).
 //   3. ssd_state_pass_kernel: per (batch, head) the states entering each
-//      chunk, h_c = exp(cum_last(c-1)) h_{c-1} + st_{c-1}, written over st
-//      in place: the only sequential step, elementwise over (P, N).
+//      chunk, h_0 = h0 (or zero), h_c = exp(cum_last(c-1)) h_{c-1} +
+//      st_{c-1}, written over st in place, and the last carry into hT: the
+//      only sequential step, elementwise over (P, N).
 //   4. ssd_chunk_scan_kernel: per (batch, head, chunk, 64-row tile i) the
 //      output y_i = exp(cum_i) C_i . h_c^T + sum_{j tiles <= i}
 //      (CB_ij o L_ij o dt_j) x_j, the decay mask applied to the CB tile
@@ -56,7 +61,9 @@
 // peak, so 165 TFLOP/s: 0.066 ms. The bound is operations, 0.066 ms (the
 // fp32 CUDA cores' 67 TFLOP/s would give 0.162 ms). These kernels do 11.5
 // GFLOP of fp32-accurate products (whole 64 x 64 tiles on the diagonal,
-// no C.h^T in a first chunk), as 34.5 GFLOP of TF32 work, 0.070 ms.
+// no C.h^T in a first chunk), as 34.5 GFLOP of TF32 work, 0.070 ms. With
+// an h0 the first chunk's C.h^T runs too, and h0 is read and hT written
+// (2 x 5.2 MB at that shape).
 #include "common.cuh"
 
 namespace {
@@ -80,6 +87,8 @@ struct SsdArgs {
   float* cb;    // (B, nc, Qp, Qp) scratch: C_c . B_c^T
   float* st;    // (B, H, nc, 64, 64) scratch: chunk states, then h_c
   float* cum;   // (B, H, S) scratch: cumsum(a) over each chunk
+  const float* h0;  // (B, H, P, N) state entering chunk 0, or null (zero)
+  float* hT;        // (B, H, P, N) state after the last chunk
   long long x_sb, x_ss, x_sh;
   long long dt_sb, dt_ss, dt_sh;
   long long a_sb, a_ss, a_sh;
@@ -298,7 +307,10 @@ ssd_chunk_state_kernel(const SsdArgs g) {
 }
 
 // grid (B * H): the states entering each chunk, over st in place:
-// h_0 = 0, h_{c+1} = exp(cum_last(c)) h_c + st_c.
+// h_0 = h0 (zero when null), h_{c+1} = exp(cum_last(c)) h_c + st_c; the
+// last carry into hT. Thread t holds float4s t + i * PASS_THREADS of the
+// 64 x 64 state block: row p = e / 16, columns 4 (e % 16) .. + 3; entries
+// past P or N stay zero (the chunk states are zero there too).
 constexpr int PASS_THREADS = 256;
 __global__ void __launch_bounds__(PASS_THREADS)
 ssd_state_pass_kernel(const SsdArgs g) {
@@ -306,9 +318,20 @@ ssd_state_pass_kernel(const SsdArgs g) {
   float4* st = reinterpret_cast<float4*>(
       g.st + static_cast<long long>(blockIdx.x) * g.nc * DMAX * DMAX);
   const float* cum = g.cum + static_cast<long long>(blockIdx.x) * g.S;
+  const long long pn = static_cast<long long>(blockIdx.x) * g.P * g.N;
   float4 hv[PER];
 #pragma unroll
-  for (int i = 0; i < PER; ++i) hv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < PER; ++i) {
+    const int e = threadIdx.x + i * PASS_THREADS;
+    const int p = e >> 4, n0 = (e & 15) * 4;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (g.h0 != nullptr && p < g.P) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (n0 + k < g.N) v[k] = g.h0[pn + p * g.N + n0 + k];
+    }
+    hv[i] = make_float4(v[0], v[1], v[2], v[3]);
+  }
   for (int c = 0; c < g.nc; ++c) {
     const float decay = expf(cum[static_cast<long long>(c) * g.Q + g.Q - 1]);
     float4* sc = st + static_cast<long long>(c) * DMAX * DMAX / 4;
@@ -320,6 +343,16 @@ ssd_state_pass_kernel(const SsdArgs g) {
       hv[i] = make_float4(hv[i].x * decay + v.x, hv[i].y * decay + v.y,
                           hv[i].z * decay + v.z, hv[i].w * decay + v.w);
     }
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int e = threadIdx.x + i * PASS_THREADS;
+    const int p = e >> 4, n0 = (e & 15) * 4;
+    if (p >= g.P) continue;
+    const float v[4] = {hv[i].x, hv[i].y, hv[i].z, hv[i].w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (n0 + k < g.N) g.hT[pn + p * g.N + n0 + k] = v[k];
   }
 }
 
@@ -347,9 +380,11 @@ ssd_chunk_scan_kernel(const SsdArgs g) {
                                 g.Qp + static_cast<long long>(i0) * g.Qp;
   auto pair = [&](int t) { return smem + (t & 1) * (TILE_R + TILE_C); };
   // C_i and h_c into the second pair, then CB_i0 and x_0 into the first
+  // (chunk 0 has an entering state only with an h0)
+  const bool has_h = c > 0 || g.h0 != nullptr;
   {
     float* p1 = pair(1);
-    if (c > 0) {
+    if (has_h) {
       load_tile<LDR>(p1, g.cm + b * g.c_sb + s0 * g.c_ss, g.c_ss, i0, g.Q,
                      g.N, g.vec_bc);
       load_tile<LDR>(p1 + TILE_R, g.st + static_cast<long long>(bhc) *
@@ -392,7 +427,7 @@ ssd_chunk_scan_kernel(const SsdArgs g) {
   zero(acc);
   common::cp_async_wait<1>();  // C_i and h_c
   __syncthreads();
-  if (c > 0) {
+  if (has_h) {
     const float* cs = pair(1);
     const float* hs = cs + TILE_R;
     // A(i, n) = C[i][n]; B(n, p) = h[p][n]; then the rows times exp(cum_i)
@@ -505,11 +540,13 @@ const char* ssd_error_string(int code) {
 // xh, dt and a, then (batch, seq) of Bm and Cm; the last dim of xh, Bm and
 // Cm is contiguous. y is a contiguous (B, S, H, P) tensor; cb (B, nc, Qp,
 // Qp), st (B, H, nc, 64, 64) and cum (B, H, S) are float32 scratch, Qp = Q
-// rounded up to a multiple of 64, each 16-byte aligned.
+// rounded up to a multiple of 64, each 16-byte aligned. h0 (null: zero)
+// and hT are contiguous (B, H, P, N).
 int ssd_scan_launch(const void* x, const void* dt, const void* a,
-                    const void* bm, const void* cm, void* y, void* cb,
-                    void* st, void* cum, int B, int S, int H, int P, int N,
-                    int Q, const long long* strides, void* stream) {
+                    const void* bm, const void* cm, const void* h0, void* y,
+                    void* hT, void* cb, void* st, void* cum, int B, int S,
+                    int H, int P, int N, int Q, const long long* strides,
+                    void* stream) {
   if (P < 1 || P > DMAX || N < 1 || N > DMAX || Q < 1 || Q > QMAX ||
       S % Q != 0 || !common::aligned16(cb) || !common::aligned16(st))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -523,6 +560,8 @@ int ssd_scan_launch(const void* x, const void* dt, const void* a,
   g.cb = static_cast<float*>(cb);
   g.st = static_cast<float*>(st);
   g.cum = static_cast<float*>(cum);
+  g.h0 = static_cast<const float*>(h0);
+  g.hT = static_cast<float*>(hT);
   g.x_sb = strides[0]; g.x_ss = strides[1]; g.x_sh = strides[2];
   g.dt_sb = strides[3]; g.dt_ss = strides[4]; g.dt_sh = strides[5];
   g.a_sb = strides[6]; g.a_ss = strides[7]; g.a_sh = strides[8];

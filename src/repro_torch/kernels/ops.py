@@ -37,13 +37,34 @@ runs with the mode switched off, so the counter never descends into the
 kernel's plain version. Without a dispatch mode the bodies are called
 directly: the dispatcher adds host time to every call of a host-bound
 step (``chip_smoke.py`` phase 2f times both routes) and changes nothing
-else.
+else. RMSNorm is a custom op too, with no formula (the counter counts no
+elementwise work).
+
+Sharded steps. A ``DTensor`` operand also sends a kernel through its
+custom op, where ``register_sharding`` gives DTensor the op's sharding
+rule: attention over the batch and the heads (q and kv heads split
+together, replicated where the kv head count does not divide), RMSNorm
+over rows, the SSD scan over the batch and the heads, InfoNCE replicated
+(each row's positive is the row of k with its own index, so neither
+operand's rows can be split). DTensor redistributes the operands to one of those layouts
+and calls the op on each device's local tensors, so the kernels run
+unchanged on a shard. ``register_fake`` gives each op its output shapes
+on ``meta`` (the dry run); outside those fakes ``_device_kind`` refuses
+``meta``, so no ``meta`` tensor reaches a kernel or a plain version. An
+op with no rule raises in DTensor's propagation: there is no fallback.
+The backwards of RMSNorm, attention and the SSD scan run their plain
+versions on each device's local tensors, in the layout the forward's rule
+chose (a partial sum where a gradient adds over a split: RMSNorm's scale
+over rows, the scan's Bm and Cm over heads); InfoNCE's gradient kernels are
+ops with a rule of their own.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import flash_attention as fa
@@ -79,9 +100,61 @@ def _device_kind(*tensors: torch.Tensor) -> str:
     return kind
 
 
-def _counting() -> bool:
-    """True while a dispatch mode (``FlopCounterMode``) is active."""
-    return torch._C._len_torch_dispatch_stack() > 0
+def _via_op(*tensors) -> bool:
+    """True while a dispatch mode (``FlopCounterMode``) is active, or when
+    a tensor is a ``DTensor``: the kernels then go through their custom
+    ops, which carry a FLOP formula, a fake implementation and a sharding
+    rule."""
+    return torch._C._len_torch_dispatch_stack() > 0 or \
+        any(isinstance(t, DTensor) for t in tensors)
+
+
+def _divides_heads(mesh, *counts: int) -> bool:
+    """Whether sharding head counts over any set of mesh dims splits every
+    count evenly, wherever a dim's shard count does not exceed the
+    smallest count (DTensor drops those strategies itself). q heads and kv
+    heads split together keep each q head's kv head only then."""
+    sizes = [s for s in mesh.shape if s > 1]
+    for pick in range(1, 1 << len(sizes)):
+        n = 1
+        for i, s in enumerate(sizes):
+            if pick >> i & 1:
+                n *= s
+        if n <= min(counts) and any(c % n for c in counts):
+            return False
+    return True
+
+
+def _layout(out):
+    """(mesh, placements) of a forward's DTensor result, else None: the
+    layout its sharding rule chose, which the backward reuses."""
+    t = out[0] if isinstance(out, tuple) else out
+    if isinstance(t, DTensor):
+        return t.device_mesh, tuple(t.placements)
+    return None
+
+
+def _local(t, mesh, placements):
+    """The local shard of ``t`` laid out as ``placements`` (``t`` a DTensor,
+    or None)."""
+    if t is None:
+        return None
+    return t.redistribute(mesh, placements).to_local()
+
+
+def _dtensor(local, mesh, placements, like):
+    """``local`` as the shard of a DTensor of ``like``'s global shape, its
+    global strides in ``local``'s memory order."""
+    from repro_torch.sharding.aten import global_stride
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=like.shape,
+                              stride=global_stride(local, like.shape))
+
+
+def _per_dim(placements, rule):
+    """Placements derived mesh dim by mesh dim: ``rule`` maps the
+    result's placement on a dim to an operand's."""
+    return tuple(rule(p) for p in placements)
 
 
 def attention_flops(q_shape, k_shape, causal: bool, v_shape=None) -> int:
@@ -223,8 +296,8 @@ def _front(x: torch.Tensor, bdim: Optional[int], size: int) -> torch.Tensor:
 
 
 # -- RMSNorm -------------------------------------------------------------------
-def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
-                 eps: float) -> torch.Tensor:
+def _rmsnorm_impl(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float) -> torch.Tensor:
     if _device_kind(x, scale) == "cpu":
         return ref.rmsnorm_ref(x, scale, eps)
     d = x.shape[-1]
@@ -232,6 +305,33 @@ def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
                         scale.to(torch.float32).contiguous(), eps)
     LAUNCHES["rmsnorm_rows"] += 1
     return y.reshape(x.shape)
+
+
+@torch.library.custom_op("repro_torch::rmsnorm_fwd", mutates_args=())
+def _rmsnorm_op(x: torch.Tensor, scale: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    return _rmsnorm_impl(x, scale, eps)
+
+
+@_rmsnorm_op.register_fake
+def _rmsnorm_fake(x, scale, eps):
+    return torch.empty_like(x)
+
+
+@register_sharding(torch.ops.repro_torch.rmsnorm_fwd.default)
+def _rmsnorm_sharding(x, scale, eps):
+    """Over rows: any dim of x but the normalised last one, the (d,)
+    scale replicated (the (G, d) scale is ``vmap``'s, never a DTensor)."""
+    return [([Replicate()], [Replicate(), Replicate(), None])] + [
+        ([Shard(dim)], [Shard(dim), Replicate(), None])
+        for dim in range(x.ndim - 1)]
+
+
+def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    if _via_op(x, scale):
+        return _rmsnorm_op(x, scale, eps)
+    return _rmsnorm_impl(x, scale, eps)
 
 
 class RMSNormFn(torch.autograd.Function):
@@ -248,12 +348,25 @@ class RMSNormFn(torch.autograd.Function):
         x, scale, eps = inputs
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
+        ctx.layout = _layout(output)
 
     @staticmethod
     def backward(ctx, g):
         x, scale = ctx.saved_tensors
-        gx, gs = ref.rmsnorm_bwd_ref(x, scale, g, ctx.eps)
-        return gx, gs, None
+        if ctx.layout is None:
+            return (*ref.rmsnorm_bwd_ref(x, scale, g, ctx.eps), None)
+        # sharded: the plain backward on each device's rows, in the layout
+        # the forward's rule chose; the scale's gradient is a partial sum
+        # over the mesh dims that split the rows
+        mesh, pl = ctx.layout
+        whole = (Replicate(),) * len(pl)
+        gx, gs = ref.rmsnorm_bwd_ref(_local(x, mesh, pl),
+                                     _local(scale, mesh, whole),
+                                     _local(g, mesh, pl), ctx.eps)
+        gs_pl = _per_dim(pl, lambda p: Partial() if isinstance(p, Shard)
+                         else Replicate())
+        return (_dtensor(gx, mesh, pl, x), _dtensor(gs, mesh, gs_pl, scale),
+                None)
 
     @staticmethod
     def vmap(info, in_dims, x, scale, eps):
@@ -296,8 +409,25 @@ def _attention_op_flops(q, k, v, causal, *args, **kwargs) -> int:
     return attention_flops(q, k, causal, v)
 
 
+@_attention_op.register_fake
+def _attention_fake(q, k, v, causal, window, kv_len, scale):
+    return q.new_empty(q.shape[:-1] + v.shape[-1:])
+
+
+@register_sharding(torch.ops.repro_torch.attention_fwd.default)
+def _attention_sharding(q, k, v, causal, window, kv_len, scale):
+    """Over the batch, and over the heads where the q and kv head counts
+    split alike (BSHD: dim 2); otherwise replicated."""
+    rest = [None] * 4
+    out = [([Replicate()], [Replicate()] * 3 + rest),
+           ([Shard(0)], [Shard(0)] * 3 + rest)]
+    if _divides_heads(q.mesh, q.shape[2], k.shape[2]):
+        out.append(([Shard(2)], [Shard(2)] * 3 + rest))
+    return out
+
+
 def _attention_fwd(q, k, v, causal, window, kv_len, scale):
-    if _counting():
+    if _via_op(q, k, v):
         return _attention_op(q, k, v, causal, window, kv_len, scale)
     return _attention_impl(q, k, v, causal, window, kv_len, scale)
 
@@ -315,17 +445,27 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, *cfg = inputs
         ctx.save_for_backward(q, k, v)
         ctx.cfg = tuple(cfg)
+        ctx.layout = _layout(output)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         causal, window, kv_len, scale = ctx.cfg
+        tensors = (q, k, v, g)
+        if ctx.layout is not None:
+            # sharded: the plain backward on each device's batch rows and
+            # heads, in the layout the forward's rule chose (q, k, v and
+            # the gradients alike)
+            mesh, pl = ctx.layout
+            tensors = [_local(t, mesh, pl) for t in tensors]
         dq, dk, dv = ref.sdpa_bwd_ref(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            g.transpose(1, 2), causal=causal, window=window, kv_len=kv_len,
-            scale=scale)
-        return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
-                None, None, None, None)
+            *(t.transpose(1, 2) for t in tensors), causal=causal,
+            window=window, kv_len=kv_len, scale=scale)
+        grads = [d.transpose(1, 2) for d in (dq, dk, dv)]
+        if ctx.layout is not None:
+            grads = [_dtensor(d, mesh, pl, t)
+                     for d, t in zip(grads, (q, k, v))]
+        return (*grads, None, None, None, None)
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, causal, window, kv_len, scale):
@@ -375,6 +515,21 @@ def _info_nce_op_flops(q, k, *args, **kwargs) -> int:
     return info_nce_flops(q, k)
 
 
+@_info_nce_op.register_fake
+def _info_nce_fake(q, k, tau):
+    return (q.new_empty(q.shape[:-1], dtype=torch.float32),
+            q.new_empty(q.shape[:-1], dtype=torch.float32))
+
+
+@register_sharding(torch.ops.repro_torch.info_nce_fwd.default)
+def _info_nce_sharding(q, k, tau):
+    """Replicated. Not over q's rows: row i's positive is k's row i, which
+    a shard of q rows beside the whole k would pair with the wrong row.
+    The model's losses give one client (a client axis of 1), so a split
+    of the client axis has nothing to split."""
+    return [([Replicate(), Replicate()], [Replicate(), Replicate(), None])]
+
+
 @torch.library.custom_op("repro_torch::info_nce_bwd", mutates_args=())
 def _info_nce_bwd_op(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
                      g: torch.Tensor, tau: float,
@@ -387,14 +542,24 @@ def _info_nce_bwd_op_flops(q, k, *args, **kwargs) -> int:
     return info_nce_flops(q, k, products=2)
 
 
+@_info_nce_bwd_op.register_fake
+def _info_nce_bwd_fake(q, k, lse, g, tau, wrt_k):
+    return torch.empty_like(k if wrt_k else q, dtype=torch.float32)
+
+
+@register_sharding(torch.ops.repro_torch.info_nce_bwd.default)
+def _info_nce_bwd_sharding(q, k, lse, g, tau, wrt_k):
+    return [([Replicate()], [Replicate()] * 4 + [None, None])]
+
+
 def _info_nce_fwd(q, k, tau):
-    if _counting():
+    if _via_op(q, k):
         return _info_nce_op(q, k, tau)
     return _info_nce_impl(q, k, tau)
 
 
 def _info_nce_bwd(q, k, lse, g, tau, wrt_k):
-    if _counting():
+    if _via_op(q, k, lse, g):
         return _info_nce_bwd_op(q, k, lse, g, tau, wrt_k)
     return _info_nce_bwd_impl(q, k, lse, g, tau, wrt_k)
 
@@ -476,70 +641,142 @@ def info_nce_rows(q: torch.Tensor, k: torch.Tensor,
 
 
 # -- Mamba2 SSD scan -------------------------------------------------------------
-def _ssd_impl(xh, dt, a, Bm, Cm, chunk):
-    if _device_kind(xh, dt, a, Bm, Cm) == "cpu":
-        return ref.ssd_scan_ref(xh, dt, a, Bm, Cm, chunk=chunk)
-    out = ms.ssd_scan_bshpn(xh, dt, a, Bm, Cm, chunk=chunk)
+def _ssd_impl(xh, dt, a, Bm, Cm, h0, chunk):
+    tensors = (xh, dt, a, Bm, Cm) + (() if h0 is None else (h0,))
+    if _device_kind(*tensors) == "cpu":
+        y, h = ref.ssd_explicit(xh, dt, a, Bm, Cm, chunk, h0)
+        return y.to(xh.dtype), h
+    out = ms.ssd_scan_bshpn(xh, dt, a, Bm, Cm, chunk=chunk, h0=h0)
     LAUNCHES["ssd_scan"] += 1
     return out
 
 
 @torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=())
 def _ssd_op(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-            Bm: torch.Tensor, Cm: torch.Tensor, chunk: int) -> torch.Tensor:
-    return _ssd_impl(xh, dt, a, Bm, Cm, chunk)
+            Bm: torch.Tensor, Cm: torch.Tensor, h0: Optional[torch.Tensor],
+            chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _ssd_impl(xh, dt, a, Bm, Cm, h0, chunk)
 
 
 @register_flop_formula(torch.ops.repro_torch.ssd_scan_fwd)
-def _ssd_op_flops(xh, dt, a, Bm, Cm, chunk, *args, **kwargs) -> int:
+def _ssd_op_flops(xh, dt, a, Bm, Cm, *args, **kwargs) -> int:
+    chunk = kwargs["chunk"] if "chunk" in kwargs else args[1]
     return ssd_scan_flops(xh, Bm, chunk)
 
 
-def _ssd_fwd(xh, dt, a, Bm, Cm, chunk):
-    if _counting():
-        return _ssd_op(xh, dt, a, Bm, Cm, chunk)
-    return _ssd_impl(xh, dt, a, Bm, Cm, chunk)
+@_ssd_op.register_fake
+def _ssd_fake(xh, dt, a, Bm, Cm, h0, chunk):
+    B, _, H, P = xh.shape
+    return (torch.empty_like(xh),
+            xh.new_empty((B, H, P, Bm.shape[-1]), dtype=torch.float32))
+
+
+@register_sharding(torch.ops.repro_torch.ssd_scan_fwd.default)
+def _ssd_sharding(xh, dt, a, Bm, Cm, h0, chunk):
+    """Over the batch, and over the heads (xh, dt, a and y on dim 2, the
+    states on dim 1; Bm and Cm, shared by the heads, replicated)."""
+    def h(p):
+        return None if h0 is None else p
+    R = Replicate()
+    return [([R, R], [R] * 5 + [h(R), None]),
+            ([Shard(0), Shard(0)], [Shard(0)] * 5 + [h(Shard(0)), None]),
+            ([Shard(2), Shard(1)],
+             [Shard(2)] * 3 + [R, R, h(Shard(1)), None])]
+
+
+def _ssd_fwd(xh, dt, a, Bm, Cm, h0, chunk):
+    if _via_op(xh, dt, a, Bm, Cm, h0):
+        return _ssd_op(xh, dt, a, Bm, Cm, h0, chunk)
+    return _ssd_impl(xh, dt, a, Bm, Cm, h0, chunk)
 
 
 class SSDScanFn(torch.autograd.Function):
-    """The chunked SSD scan, the state starting at zero. The backward
-    recomputes the plain version from the saved inputs and returns its
-    vector-Jacobian product for xh, dt, a, Bm and Cm."""
+    """The chunked SSD scan from the state ``h0`` (zero when None).
+    Returns (y, the final state). The backward recomputes the plain
+    version from the saved inputs and returns its vector-Jacobian product
+    for xh, dt, a, Bm, Cm and h0."""
 
     @staticmethod
-    def forward(xh, dt, a, Bm, Cm, chunk):
-        return _ssd_fwd(xh, dt, a, Bm, Cm, chunk)
+    def forward(xh, dt, a, Bm, Cm, h0, chunk):
+        return _ssd_fwd(xh, dt, a, Bm, Cm, h0, chunk)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        *tensors, chunk = inputs
-        ctx.save_for_backward(*tensors)
+        *tensors, h0, chunk = inputs
+        ctx.save_for_backward(*tensors, h0)
         ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.layout = _layout(output)
 
     @staticmethod
-    def backward(ctx, g):
-        chunk = ctx.chunk
-        _, vjp = torch.func.vjp(
-            lambda *t: ref.ssd_scan_ref(*t, chunk=chunk), *ctx.saved_tensors)
-        return (*vjp(g), None)
+    def backward(ctx, gy, gh=None):
+        *tensors, h0 = ctx.saved_tensors
+        if ctx.layout is None:
+            grads = SSDScanFn._plain_backward(tensors, h0, gy, gh,
+                                              ctx.chunk)
+        else:
+            # sharded: the plain backward on each device's batch rows and
+            # heads, in the layout the forward's rule chose; Bm and Cm,
+            # shared by the heads, get partial sums over a head split
+            mesh, pl = ctx.layout
+            bc = _per_dim(pl, lambda p: Shard(0) if p == Shard(0)
+                          else Replicate())
+            st = _per_dim(pl, lambda p: Shard(1) if p == Shard(2) else p)
+            lay = (pl, pl, pl, bc, bc)
+            local = [_local(t, mesh, p) for t, p in zip(tensors, lay)]
+            grads = SSDScanFn._plain_backward(
+                local, _local(h0, mesh, st), _local(gy, mesh, pl),
+                _local(gh, mesh, st), ctx.chunk)
+            dbc = _per_dim(pl, lambda p: Shard(0) if p == Shard(0) else
+                           Partial() if p == Shard(2) else Replicate())
+            lay = (pl, pl, pl, dbc, dbc, st)
+            grads = [_dtensor(d, mesh, p, t) for d, p, t in
+                     zip(grads, lay, (*tensors, h0))]
+        if h0 is None:
+            return (*grads[:5], None, None)
+        return (*grads, None)
 
     @staticmethod
-    def vmap(info, in_dims, xh, dt, a, Bm, Cm, chunk):
+    def _plain_backward(tensors, h0, gy, gh, chunk):
+        """The vector-Jacobian product of the plain scan: xh, dt, a, Bm,
+        Cm's gradients (and h0's, with an h0); a missing cotangent (of y or
+        of the final state) counts as zeros."""
+        if gy is None:
+            gy = torch.zeros_like(tensors[0])
+        ins = tensors if h0 is None else (*tensors, h0)
+
+        def plain(*t):
+            y, h = ref.ssd_explicit(*t[:5], chunk,
+                                    None if h0 is None else t[5])
+            return y.to(tensors[0].dtype), h
+
+        (_, hT), vjp = torch.func.vjp(plain, *ins)
+        return vjp((gy, torch.zeros_like(hT) if gh is None else gh))
+
+    @staticmethod
+    def vmap(info, in_dims, xh, dt, a, Bm, Cm, h0, chunk):
         n = info.batch_size
-        out = SSDScanFn.apply(*(_front(t, d, n).flatten(0, 1) for t, d in
-                                zip((xh, dt, a, Bm, Cm), in_dims)), chunk)
-        return out.unflatten(0, (n, -1)), 0
+        ins = [_front(t, d, n).flatten(0, 1) for t, d in
+               zip((xh, dt, a, Bm, Cm), in_dims)]
+        if h0 is not None:
+            h0 = _front(h0, in_dims[5], n).flatten(0, 1)
+        y, h = SSDScanFn.apply(*ins, h0, chunk)
+        return (y.unflatten(0, (n, -1)), h.unflatten(0, (n, -1))), (0, 0)
 
 
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             Bm: torch.Tensor, Cm: torch.Tensor, *,
-             chunk: int) -> torch.Tensor:
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
+             h0: Optional[torch.Tensor] = None, return_state: bool = False):
     """Chunked SSD scan (``src/repro/kernels/ops.py::ssd_scan``): xh (B, S,
     H, P); dt, a = dt * A (B, S, H); Bm, Cm (B, S, N) -> y (B, S, H, P) in
     xh's dtype, fp32 math (the CUDA kernel takes float32 only, which is
-    what ``mamba2_apply`` passes). ``chunk`` must divide S (the caller
-    takes ``min(chunk_size, S)``, as the JAX wrapper does)."""
+    what ``mamba2_apply`` passes). ``h0`` (B, H, P, N) fp32 is the state
+    entering the first position (zero when None); ``return_state`` also
+    returns the state after the last, fp32 (B, H, P, N). ``chunk`` must
+    divide S (the caller takes ``min(chunk_size, S)``, as the JAX wrapper
+    does)."""
     if xh.shape[1] % chunk:
         raise ValueError(f"ssd_scan: chunk {chunk} does not divide "
                          f"S={xh.shape[1]}")
-    return SSDScanFn.apply(xh, dt, a, Bm, Cm, int(chunk))
+    y, h = SSDScanFn.apply(xh, dt, a, Bm, Cm, h0, int(chunk))
+    return (y, h) if return_state else y

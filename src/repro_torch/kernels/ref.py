@@ -413,12 +413,15 @@ def ssd_explicit(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 def ssd_scan_ref(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-                 Bm: torch.Tensor, Cm: torch.Tensor, *,
-                 chunk: int) -> torch.Tensor:
+                 Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
+                 h0: Optional[torch.Tensor] = None,
+                 return_state: bool = False):
     """The plain version of the SSD scan kernel
     (``src/repro/kernels/ref.py::ssd_scan_ref``): y in xh's dtype, the
-    state starting at zero."""
-    return ssd_explicit(xh, dt, a, Bm, Cm, chunk)[0].to(xh.dtype)
+    state starting at ``h0`` (zero when None); with ``return_state``, (y,
+    the final state fp32)."""
+    y, h = ssd_explicit(xh, dt, a, Bm, Cm, chunk, h0)
+    return (y.to(xh.dtype), h) if return_state else y.to(xh.dtype)
 
 
 # -- the SSD scan as the CUDA kernels decompose it ----------------------------------
@@ -481,15 +484,19 @@ def ssd_chunk_state(xh: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     return mm((x * w[..., None]).transpose(-1, -2), Bc)
 
 
-def ssd_state_pass(st: torch.Tensor, cum: torch.Tensor) -> torch.Tensor:
-    """The state entering each chunk: h_0 = 0, h_{c+1} = exp(cum_last(c))
-    h_c + st_c. (B, H, nc, P, N)."""
-    h = torch.zeros_like(st[:, :, 0])
+def ssd_state_pass(st: torch.Tensor, cum: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None,
+                   return_state: bool = False):
+    """The state entering each chunk: h_0 = ``h0`` (zero when None),
+    h_{c+1} = exp(cum_last(c)) h_c + st_c. (B, H, nc, P, N); with
+    ``return_state``, also the state after the last chunk (B, H, P, N)."""
+    h = torch.zeros_like(st[:, :, 0]) if h0 is None else h0.to(st.dtype)
     out = []
     for c in range(st.shape[2]):
         out.append(h)
         h = h * torch.exp(cum[:, :, c, -1])[..., None, None] + st[:, :, c]
-    return torch.stack(out, dim=2)
+    return (torch.stack(out, dim=2), h) if return_state \
+        else torch.stack(out, dim=2)
 
 
 def ssd_chunk_scan(xh: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
@@ -515,16 +522,20 @@ def ssd_chunk_scan(xh: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
 
 def ssd_decomposed(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                    Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
-                   mm=torch.matmul) -> torch.Tensor:
-    """The SSD scan (state starting at zero) as the CUDA kernels compute
-    it: C.B^T once per (batch, chunk), every chunk's state in parallel, a
-    pass that forms the state entering each chunk, then every chunk's
-    output in parallel. ``mm=matmul_3xtf32`` does the products as the
-    card's tensor cores do. fp32 (B, S, H, P)."""
+                   mm=torch.matmul, h0: Optional[torch.Tensor] = None,
+                   return_state: bool = False):
+    """The SSD scan (state starting at ``h0``, zero when None) as the CUDA
+    kernels compute it: C.B^T once per (batch, chunk), every chunk's state
+    in parallel, a pass that forms the state entering each chunk (and the
+    final state), then every chunk's output in parallel.
+    ``mm=matmul_3xtf32`` does the products as the card's tensor cores do.
+    fp32 (B, S, H, P); with ``return_state``, (y, the final state)."""
     if xh.shape[1] % chunk:
         raise ValueError(f"ssd scan: chunk {chunk} does not divide "
                          f"S={xh.shape[1]}")
     cum = ssd_chunk_cumsum(a, chunk)
     st = ssd_chunk_state(xh, dt, cum, Bm, chunk, mm)
-    return ssd_chunk_scan(xh, dt, cum, Cm, ssd_chunk_cb(Bm, Cm, chunk, mm),
-                          ssd_state_pass(st, cum), chunk, mm)
+    h_in, h = ssd_state_pass(st, cum, h0, return_state=True)
+    y = ssd_chunk_scan(xh, dt, cum, Cm, ssd_chunk_cb(Bm, Cm, chunk, mm),
+                       h_in, chunk, mm)
+    return (y, h) if return_state else y

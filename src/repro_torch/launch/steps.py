@@ -12,6 +12,20 @@ Modes
   decode     one token a sequence against the decode caches
              (``make_decode_step``).
 
+Sharded steps (``make_sharded_train_step``, ``make_sharded_prefill_step``,
+``make_sharded_decode_step``) are the same steps on DTensors: parameters,
+optimizer state, batch and caches laid out on a ``DeviceMesh`` by
+``sharding.rules`` (``launch.inputs`` builds them). DTensor propagates the
+layouts op by op and inserts the collectives; the kernels run on each
+device's shards through their sharding rules (``kernels.ops``); the
+tensors the model makes (RoPE tables, masks, positions) count as
+replicated (``implicit_replication``); ``sharding.aten.AlignedLayouts``
+keeps DTensor's strides in step with the local shards. Each gradient is
+laid out as its parameter and each microbatch slice as its batch before
+use, so the update keeps the rules' layouts. The loss and the update are
+the unsharded step's: on a one-device mesh the same ops run on the same
+tensors.
+
 ``make_train_step`` is one client's step under autograd; gradient
 accumulation (``train_cfg.microbatch``) runs the microbatch slices one
 after another, so one microbatch's activations are live at a time, and
@@ -32,10 +46,13 @@ of ``dec_blocks`` too (a stacked leaf), although every decoder block runs.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.func import grad_and_value, vmap
 
 from repro_torch.core import losses
@@ -47,6 +64,7 @@ from repro_torch.federated.masks import stage_update_mask
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.optim import make_optimizer
+from repro_torch.sharding.aten import AlignedLayouts
 
 ALIGN_WEIGHT = 0.01
 TAU = 0.2
@@ -104,6 +122,15 @@ def _loss_for(cfg, params, batch, *, sub_layers, active_from, global_params,
     return loss, metrics
 
 
+def _like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t`` laid out as ``ref`` when both are DTensors (a gradient as its
+    parameter, a microbatch slice as its batch); ``t`` itself otherwise."""
+    if isinstance(t, DTensor) and isinstance(ref, DTensor) and \
+            tuple(t.placements) != tuple(ref.placements):
+        return t.redistribute(ref.device_mesh, ref.placements)
+    return t
+
+
 def make_train_step(cfg, train_cfg, *, mode: str = "train",
                     lr: float = 1e-4):
     """Returns (step, opt); ``step(params, opt_state, batch[,
@@ -128,19 +155,18 @@ def make_train_step(cfg, train_cfg, *, mode: str = "train",
                                     allow_unused=True)
         # leaves the loss does not reach (a frozen embedding) get zeros
         return loss.detach(), metrics, {
-            k: torch.zeros_like(v) if g is None else g
+            k: torch.zeros_like(v) if g is None else _like(g, v)
             for (k, v), g in zip(params.items(), grads)}
 
     def step(params, opt_state, batch, global_params=None):
         if micro and micro > 1:
             n = next(iter(batch.values())).shape[0] // micro
-            grads = {k: torch.zeros(v.shape, dtype=torch.float32,
-                                    device=v.device)
+            grads = {k: torch.zeros_like(v, dtype=torch.float32)
                      for k, v in params.items()}
             losses = []
             for i in range(micro):
                 loss, _, g = grads_of(
-                    params, {k: v[i * n:(i + 1) * n]
+                    params, {k: _like(v[i * n:(i + 1) * n], v)
                              for k, v in batch.items()}, global_params)
                 grads = {k: a + g[k].to(a.dtype) for k, a in grads.items()}
                 losses.append(loss)
@@ -156,6 +182,80 @@ def make_train_step(cfg, train_cfg, *, mode: str = "train",
         return new_params, new_opt, metrics
 
     return step, opt
+
+
+def _like_tree(tree, ref):
+    if isinstance(tree, dict):
+        return {k: _like_tree(v, ref[k]) for k, v in tree.items()}
+    return _like(tree, ref)
+
+
+def _on_mesh(mesh, tree) -> None:
+    for t in tree.values():
+        if isinstance(t, DTensor) and t.device_mesh != mesh:
+            raise ValueError("a sharded step's DTensors must lie on its "
+                             "mesh")
+
+
+def _full(v):
+    return v.full_tensor() if isinstance(v, DTensor) else v
+
+
+@contextlib.contextmanager
+def _on_dtensors():
+    with implicit_replication(), AlignedLayouts():
+        yield
+
+
+def make_sharded_train_step(cfg, train_cfg, mesh, mode: str = "train",
+                            lr: float = 1e-4):
+    """``make_train_step`` on DTensors laid out on ``mesh`` (the module
+    docstring). Returns (step, opt); ``step(params, opt_state, batch[,
+    global_params]) -> (params, opt_state, metrics)``, the parameters and
+    state in their layouts, the metrics replicated plain tensors."""
+    step, opt = make_train_step(cfg, train_cfg, mode=mode, lr=lr)
+
+    def sharded(params, opt_state, batch, global_params=None):
+        _on_mesh(mesh, params)
+        with _on_dtensors():
+            new_p, new_o, metrics = step(params, opt_state, batch,
+                                         global_params)
+            metrics = {k: _full(v) for k, v in metrics.items()}
+            # the update keeps the inputs' layouts (DTensor may lay out an
+            # elementwise result as it likes)
+            new_p, new_o = _like_tree(new_p, params), \
+                _like_tree(new_o, opt_state)
+        return new_p, new_o, metrics
+
+    return sharded, opt
+
+
+def make_sharded_prefill_step(cfg, mesh):
+    """``make_prefill_step`` on DTensors laid out on ``mesh``; the logits
+    come back replicated."""
+    step = make_prefill_step(cfg)
+
+    def sharded(params, *inputs):
+        _on_mesh(mesh, params)
+        with _on_dtensors():
+            return _full(step(params, *inputs))
+
+    return sharded
+
+
+def make_sharded_decode_step(cfg, mesh):
+    """``make_decode_step`` on DTensors laid out on ``mesh``: the caches
+    are written in place in their layouts; the logits come back
+    replicated."""
+    step = make_decode_step(cfg)
+
+    def sharded(params, caches, *inputs):
+        _on_mesh(mesh, params)
+        with _on_dtensors():
+            logits, caches = step(params, caches, *inputs)
+            return _full(logits), caches
+
+    return sharded
 
 
 def make_prefill_step(cfg):

@@ -41,6 +41,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers.rope import apply_rope
+from repro_torch.sharding.aten import (CACHE_READ, CACHE_WRITE,
+                                       collective_source)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -113,11 +115,13 @@ def attn_decode(p, x: torch.Tensor, cache: Cache, pos: int,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     slot = pos % W
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-    cache["pos"][slot] = pos
-    out = ops.flash_attention(q, cache["k"].to(cdt), cache["v"].to(cdt),
-                              causal=False, window=0,
-                              kv_len=min(pos + 1, W))
+    with collective_source(CACHE_WRITE):
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        cache["pos"][slot] = pos
+    with collective_source(CACHE_READ):
+        out = ops.flash_attention(q, cache["k"].to(cdt), cache["v"].to(cdt),
+                                  causal=False, window=0,
+                                  kv_len=min(pos + 1, W))
     y = out.reshape(B, 1, cfg.num_heads * hd) @ p["wo"].to(cdt)
     return y.to(x.dtype), cache

@@ -11,6 +11,15 @@ gated norm is the RMSNorm kernel at width ``d_inner``.
 ``ssd_chunked`` is the layer's plain scan (dt and A separately, an
 optional incoming state, the final state).
 
+The prefill hand-off (the reference's ``mamba2_apply(..., h0, conv0,
+return_state=True)``): the scan starts from ``h0`` and the layer returns
+(out, (the final SSM state, the last K - 1 convolution inputs)), the
+state ``mamba2_decode`` steps on. As in the reference, ``conv0`` is
+accepted and not read: the convolution always pads the sequence's start
+with zeros, so a prompt prefilled in two parts differs from one pass in
+the second part's first K - 1 convolution outputs, and, through the scan,
+by a decaying amount in every later output and the final state.
+
 Serving: ``init_state`` is the recurrent state, the SSM's ``h`` (B, H, P,
 N) and the convolution's last K - 1 inputs ``conv`` (B, K - 1, C), both
 fp32 and zero; ``mamba2_decode`` is the O(1) single-token update (no scan
@@ -82,9 +91,9 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, h0=None):
     return ref.ssd_explicit(xh, dt, dt * A, Bm, Cm, chunk, h0)
 
 
-def mamba2_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Full-sequence Mamba2 block. p: the block's ``mamba`` leaves; x:
-    (B, S, d)."""
+def scan_inputs(p, x: torch.Tensor, cfg):
+    """The block up to its scan: (z, the convolution's inputs (B, S, C),
+    xh (B, S, H, P), dt (B, S, H), A (H,), Bm, Cm (B, S, N)), fp32."""
     s = cfg.ssm
     B, S, _ = x.shape
     di, H, N = d_inner(cfg), n_heads(cfg), s.state_dim
@@ -97,12 +106,31 @@ def mamba2_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
     xr, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
     dt = F.softplus(dt + p["dt_bias"])
     A = -torch.exp(p["a_log"])
-    xh = xr.reshape(B, S, H, s.head_dim)
-    y = ops.ssd_scan(xh, dt, dt * A, Bm, Cm, chunk=min(s.chunk_size, S))
+    return z, conv_in, xr.reshape(B, S, H, s.head_dim), dt, A, Bm, Cm
+
+
+def mamba2_apply(p, x: torch.Tensor, cfg, h0=None, conv0=None, *,
+                 return_state: bool = False):
+    """Full-sequence Mamba2 block. p: the block's ``mamba`` leaves; x:
+    (B, S, d); h0: the SSM state entering the first position (B, H, P, N)
+    fp32, zero when None; conv0: ignored, as in the reference (see the
+    module docstring). Returns out (B, S, d), or with ``return_state``
+    (out, (h_final (B, H, P, N), the last K - 1 convolution inputs (B,
+    K - 1, C)))."""
+    s = cfg.ssm
+    B, S, _ = x.shape
+    cdt = getattr(torch, cfg.compute_dtype)
+    z, conv_in, xh, dt, A, Bm, Cm = scan_inputs(p, x, cfg)
+    y, h_final = ops.ssd_scan(xh, dt, dt * A, Bm, Cm,
+                              chunk=min(s.chunk_size, S), h0=h0,
+                              return_state=True)
     y = y + xh * p["D"][None, None, :, None]
-    y = rmsnorm(y.reshape(B, S, di) * F.silu(z), p["norm/scale"],
+    y = rmsnorm(y.reshape(B, S, d_inner(cfg)) * F.silu(z), p["norm/scale"],
                 cfg.norm_eps)
-    return (y.to(cdt) @ p["w_out"].to(cdt)).to(x.dtype)
+    out = (y.to(cdt) @ p["w_out"].to(cdt)).to(x.dtype)
+    if return_state:
+        return out, (h_final, conv_in[:, -(s.conv_width - 1):, :])
+    return out
 
 
 def init_state(cfg, batch: int, device=None) -> Dict[str, torch.Tensor]:

@@ -29,6 +29,8 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.layers.attention import cache_size
 from repro_torch.models.layers.rope import apply_rope
+from repro_torch.sharding.aten import (CACHE_READ, CACHE_WRITE,
+                                       collective_source)
 
 NEG_INF = -1e30
 
@@ -120,24 +122,28 @@ def mla_decode(p, x: torch.Tensor, cache, pos: int,
     c_kv_new = xc @ p["w_dkv"].to(cdt)                         # (B, 1, r)
     k_rope_new = apply_rope((xc @ p["w_kr"].to(cdt))[:, :, None, :],
                             positions, cfg.rope_theta)[:, :, 0]
-    slot = pos % W
-    cache["c_kv"][:, slot] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
-    cache["k_rope"][:, slot] = k_rope_new[:, 0].to(cache["k_rope"].dtype)
-    cache["pos"][slot] = pos
-    c_kv, k_rope, cpos = cache["c_kv"].to(cdt), cache["k_rope"].to(cdt), \
-        cache["pos"]
     q_nope, q_rope = _split_q(_q_proj(p, xc, cfg, cdt), cfg)   # (B,1,H,*)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     q_lat = torch.einsum("bshn,hrn->bshr", q_nope, p["w_uk"].to(cdt))
-    logits = (torch.einsum("bshr,btr->bhst", q_lat, c_kv)
-              + torch.einsum("bshr,btr->bhst", q_rope, k_rope))
-    logits = logits.to(torch.float32) * (1.0 / math.sqrt(qk_head_dim(cfg)))
-    valid = (cpos >= 0) & (cpos <= pos)
-    if cfg.window:
-        valid = valid & (cpos > pos - cfg.window)
-    logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(cdt)
-    out_lat = torch.einsum("bhst,btr->bshr", probs, c_kv)     # (B,1,H,r)
+    slot = pos % W
+    with collective_source(CACHE_WRITE):
+        cache["c_kv"][:, slot] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
+        cache["k_rope"][:, slot] = k_rope_new[:, 0].to(
+            cache["k_rope"].dtype)
+        cache["pos"][slot] = pos
+    with collective_source(CACHE_READ):
+        c_kv, k_rope, cpos = cache["c_kv"].to(cdt), \
+            cache["k_rope"].to(cdt), cache["pos"]
+        logits = (torch.einsum("bshr,btr->bhst", q_lat, c_kv)
+                  + torch.einsum("bshr,btr->bhst", q_rope, k_rope))
+        logits = logits.to(torch.float32) * \
+            (1.0 / math.sqrt(qk_head_dim(cfg)))
+        valid = (cpos >= 0) & (cpos <= pos)
+        if cfg.window:
+            valid = valid & (cpos > pos - cfg.window)
+        logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(cdt)
+        out_lat = torch.einsum("bhst,btr->bshr", probs, c_kv)  # (B,1,H,r)
     out = torch.einsum("bshr,hrv->bshv", out_lat, p["w_uv"].to(cdt))
     y = out.reshape(B, 1, H * m.v_head_dim) @ p["wo"].to(cdt)
     return y.to(x.dtype), cache

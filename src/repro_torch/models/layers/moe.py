@@ -27,8 +27,16 @@ Parity with the JAX package:
 The per-expert products are batched ``torch.einsum``s, as the reference's
 are plain jnp products outside any Pallas kernel.
 
-The reference's expert-parallel ``moe_ffn_local`` (called by no code of the
-JAX package) waits for sharding; ``capacity`` is kept for it.
+Expert parallelism: ``moe_ffn_local`` is the reference's one shard of an
+expert layer (``repro/models/layers/moe.py:52``, called by no code of the
+JAX package): the shard holds ``e_local`` experts from ``e_first`` on and
+the weights' expert dim is that slice; it routes all T tokens of its data
+shard over the full router, takes each local expert's top-``cap`` tokens
+(``capacity``) and returns its partial output, which the caller sums over
+the expert shards, with the load-balance loss over the full router output
+(the same on every shard) and the count of routed slots it dropped. Its
+combine is a scatter of distinct rows per expert, summed in order, as in
+``moe_ffn``.
 """
 from __future__ import annotations
 
@@ -144,3 +152,43 @@ def moe_ffn(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     if m.num_shared_experts:
         out = out + shared_expert_ffn(p, x, cfg).to(cdt)
     return out.to(x.dtype), aux * m.router_aux_loss
+
+
+def moe_ffn_local(p, x: torch.Tensor, cfg, e_first: int, e_local: int,
+                  cap: int):
+    """One expert shard's share of an MoE layer. p: the router (d, E) and
+    the shard's expert weights (e_local, d, f) and (e_local, f, d); x: (T,
+    d) the shard's tokens (replicated over the expert shards by the
+    caller). Returns (partial_out (T, d) in x's dtype, {"aux": the
+    load-balance loss over the full router output, unweighted, fp32 0-d;
+    "dropped": the routed (token, local expert) slots past the capacity,
+    int 0-d}); the caller sums partial_out (and dropped) over the shards.
+    """
+    m = cfg.moe
+    T, d = x.shape
+    E, k = m.num_experts, m.experts_per_token
+    cdt = getattr(torch, cfg.compute_dtype)
+    xc = x.to(cdt)
+    logits = (xc @ p["router"].to(cdt)).to(torch.float32)       # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = top_k(probs, k)                                # (T, k)
+    topv = topv / torch.sum(topv, dim=-1, keepdim=True)
+    # each token's weight for each local expert: (E_local, T)
+    rel = topi - e_first
+    ok = (rel >= 0) & (rel < e_local)
+    hot = _one_hot(torch.clamp(rel, 0, e_local - 1), e_local)   # (T,k,El)
+    w_e = torch.zeros((e_local, T), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        w_e = w_e + (hot[:, j] * torch.where(ok[:, j], topv[:, j],
+                                             0.0)[:, None]).T
+    selv, seli = top_k(w_e, cap)                                # (El, C)
+    xin = xc[seli.reshape(-1)].reshape(e_local, cap, d)
+    wg, wu, wd = (p[n].to(cdt) for n in ("w_gate", "w_up", "w_down"))
+    h = F.silu(torch.einsum("ecd,edf->ecf", xin, wg)) * \
+        torch.einsum("ecd,edf->ecf", xin, wu)
+    y = torch.einsum("ecf,efd->ecd", h, wd) * selv[..., None].to(cdt)
+    out = _combine(y[None], seli[None], T)[0]
+    frac = torch.mean(_one_hot(topi, E), dim=(0, 1))
+    aux = E * torch.sum(frac * torch.mean(probs, dim=0))
+    dropped = torch.sum(w_e > 0) - torch.sum(selv > 0)
+    return out.to(x.dtype), {"aux": aux, "dropped": dropped}

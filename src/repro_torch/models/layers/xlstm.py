@@ -23,8 +23,14 @@ gradients through ``exp(dmat - m)`` match.
 Serving: ``mlstm_decode`` and ``slstm_decode`` are the O(1) single-token
 steps on the states of ``mlstm_init_state`` (C, n zero, the stabiliser m
 at -1e30) and ``slstm_init_state`` (c, h, m zero, the normaliser n at
-one). The full-sequence layers do not return their final state (the
-reference's ``return_state`` prefill hand-off is not ported).
+one). The full-sequence layers hand their final state on when asked
+(``return_state``, the reference's prefill hand-off) and take an entering
+``state``, with the reference's semantics: the chunkwise mLSTM carries
+``state`` through its chunks and returns the carried state; the quadratic
+mLSTM ignores ``state`` and builds its final state by replaying the
+recurrence from zero (C and n weighted by exp(F_S - F_j + i_j), the
+stabiliser m their largest log weight); the sLSTM starts its loop from
+``state`` and returns the loop's last state.
 """
 from __future__ import annotations
 
@@ -101,9 +107,13 @@ def _key_divisor(P: int, cdt) -> float:
     return float(torch.sqrt(torch.tensor(float(P))).to(cdt))
 
 
-def mlstm_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    """p: the ``mlstm`` subtree of one layer; x: (B, S, d) -> (B, S, d).
-    The gates are fp32; q, k and v are in the compute dtype."""
+def mlstm_apply(p, x: torch.Tensor, cfg, *, return_state: bool = False,
+                state=None):
+    """p: the ``mlstm`` subtree of one layer; x: (B, S, d) -> (B, S, d),
+    or with ``return_state`` (out, the final (C, n, m) state). The gates
+    are fp32; q, k and v are in the compute dtype. ``state`` enters the
+    chunkwise form only (the quadratic form ignores it, as the
+    reference's does)."""
     di, H = d_inner(cfg), cfg.num_heads
     P = di // H
     B, S, _ = x.shape
@@ -116,15 +126,32 @@ def mlstm_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
     k = (xi @ p["w_k"].to(cdt)).reshape(B, S, H, P) / _key_divisor(P, cdt)
     v = (xi @ p["w_v"].to(cdt)).reshape(B, S, H, P)
     logi, logf = _mlstm_gates(p, xf)                  # (B, S, H)
+    if state is None:
+        state = mlstm_init_state(cfg, B, x.device)
     if S >= MLSTM_CHUNK and S % MLSTM_CHUNK == 0:
-        y = _mlstm_chunked_core(q.to(f32), k.to(f32), v.to(f32), logi, logf,
-                                mlstm_init_state(cfg, B, x.device),
-                                MLSTM_CHUNK)
+        y, st = _mlstm_chunked_core(q.to(f32), k.to(f32), v.to(f32), logi,
+                                    logf, state, MLSTM_CHUNK)
     else:
         y = _mlstm_quadratic(q.to(f32), k.to(f32), v.to(f32), logi, logf)
+        st = _mlstm_replayed_state(k.to(f32), v.to(f32), logi, logf) \
+            if return_state else None
     y = y.reshape(B, S, di).to(cdt)
     y = rmsnorm(y, p["norm/scale"], cfg.norm_eps) * F.silu(z)
-    return (y @ p["w_down"].to(cdt)).to(x.dtype)
+    out = (y @ p["w_down"].to(cdt)).to(x.dtype)
+    return (out, st) if return_state else out
+
+
+def _mlstm_replayed_state(k, v, logi, logf):
+    """The quadratic form's final state, replayed from zero as the
+    reference builds it: C = sum_j w_j v_j k_j^T and n = sum_j w_j k_j with
+    w_j = exp(F_S - F_j + i_j), and m = max_j(F_S - F_j + i_j) (a crude
+    stabiliser: C and n are not scaled by exp(-m))."""
+    Fc = torch.cumsum(logf, dim=1)
+    lw = Fc[:, -1:, :] - Fc + logi                   # (B, S, H)
+    w = torch.exp(lw)
+    return {"C": torch.einsum("bjh,bjhp,bjhq->bhpq", w, v, k),
+            "n": torch.einsum("bjh,bjhp->bhp", w, k),
+            "m": torch.amax(lw, dim=1)}
 
 
 def _mlstm_quadratic(q, k, v, logi, logf):
@@ -148,7 +175,7 @@ def _mlstm_quadratic(q, k, v, logi, logf):
 def _mlstm_chunked_core(q, k, v, logi, logf, state, chunk: int):
     """The chunkwise-parallel stabilised mLSTM. q, k, v: (B, S, H, P) fp32;
     logi, logf: (B, S, H); one chunk after another, carrying the (C, n, m)
-    matrix-memory state. Returns y (B, S, H, P)."""
+    matrix-memory state. Returns (y (B, S, H, P), the final state)."""
     S = q.shape[1]
     assert S % chunk == 0, (S, chunk)
     idx = torch.arange(chunk, device=q.device)
@@ -185,7 +212,7 @@ def _mlstm_chunked_core(q, k, v, logi, logf, state, chunk: int):
             torch.einsum("bjh,bjhp,bjhq->bhpq", w_st, vc, kc)
         n = n * carry_w[..., None] + torch.einsum("bjh,bjhp->bhp", w_st, kc)
         m = m_out
-    return torch.cat(ys, dim=1)
+    return torch.cat(ys, dim=1), {"C": C, "n": n, "m": m}
 
 
 def slstm_init_state(cfg, batch: int, device=None):
@@ -221,21 +248,24 @@ def _slstm_cell(R: torch.Tensor, b: torch.Tensor, xt: torch.Tensor, st):
     return {"c": c, "n": n, "h": h, "m": m_new}
 
 
-def slstm_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
+def slstm_apply(p, x: torch.Tensor, cfg, *, return_state: bool = False,
+                state=None):
     """p: the ``slstm`` subtree of one layer; x: (B, S, d) -> (B, S, d),
-    one recurrence step a position."""
+    one recurrence step a position from ``state`` (the initial state when
+    None); with ``return_state``, (out, the last step's (c, n, h, m))."""
     B, S, _ = x.shape
     cdt = getattr(torch, cfg.compute_dtype)
     xs = (x.to(cdt) @ p["w"].to(cdt)).to(torch.float32)
     R = _recurrent_matrix(p[SLSTM_RECURRENT].to(torch.float32))
-    st = slstm_init_state(cfg, B, x.device)
+    st = slstm_init_state(cfg, B, x.device) if state is None else state
     hs = []
     for t in range(S):
         st = _slstm_cell(R, p["b"], xs[:, t], st)
         hs.append(st["h"])
     y = torch.stack(hs, dim=1).to(cdt)                # (B, S, d)
     y = layernorm(y, p["norm/scale"], p["norm/bias"], cfg.norm_eps)
-    return (y @ p["w_down"].to(cdt)).to(x.dtype)
+    out = (y @ p["w_down"].to(cdt)).to(x.dtype)
+    return (out, st) if return_state else out
 
 
 

@@ -54,6 +54,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.func import vjp
 
 from repro_torch.convert import subtree
@@ -61,9 +62,27 @@ from repro_torch.federated.leaves import tree_sorted
 from repro_torch.models import blocks as B
 from repro_torch.models.layers.init import embed_init_
 from repro_torch.models.layers.norms import rmsnorm
+from repro_torch.sharding.aten import LOOKUP, collective_source, replicating
 
 LOSS_CHUNK = 512
 Tree = Dict[str, torch.Tensor]
+
+# The reference's sequence-parallel residual stream (Korthikanti et al.),
+# off by default as there: on a sharded step each block's output is laid
+# out over ("data", "model") on (batch, seq), so that tensor-parallel
+# output all-reduces become reduce-scatter + all-gather pairs.
+SEQ_SHARD = False
+
+
+def _maybe_seq_shard(x: torch.Tensor) -> torch.Tensor:
+    """``x`` redistributed to the spec ("data", "model", None) when
+    ``SEQ_SHARD`` is on and ``x`` is a DTensor (the reference's
+    ``with_sharding_constraint``); ``x`` itself otherwise."""
+    if not SEQ_SHARD or not isinstance(x, DTensor):
+        return x
+    from repro_torch.sharding.rules import to_placements
+    return x.redistribute(x.device_mesh, to_placements(
+        ("data", "model", None), x.device_mesh))
 
 
 def topology(cfg) -> str:
@@ -169,11 +188,62 @@ def embed(params: Tree, tokens: torch.Tensor, cfg,
           frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens (B, S) -> (B, S, d) in the parameter dtype, times sqrt(d);
     with ``frontend`` (B, P, d), (B, P + S, d), the frontend first."""
-    x = params["embed"][tokens]
+    table = params["embed"]
+    if isinstance(table, DTensor):
+        x = _ShardedLookup.apply(table, tokens)
+    else:
+        x = table[tokens]
     x = x * math.sqrt(cfg.d_model)
     if frontend is not None:
         x = torch.cat([frontend.to(x.dtype), x], dim=1)
     return x
+
+
+class _ShardedLookup(torch.autograd.Function):
+    """The token lookup of a sharded step, as data parallelism does it:
+    the table gathered whole (replicated), each device's rows looked up
+    from its own tokens (the result laid out as the tokens, the model dim
+    whole), and in the backward each device's gradient rows added into a
+    whole-table gradient that is a partial sum over the mesh dims that
+    split the tokens. DTensor's own index strategies are left out: their
+    backward's layouts differ between torch versions and fail on some. The
+    table's gather (the whole table on every device, in decode too) is the
+    port's choice, not the rules': its collectives are filed under
+    ``LOOKUP``."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        mesh = table.device_mesh
+        if not isinstance(tokens, DTensor):
+            tokens = DTensor.from_local(tokens, mesh,
+                                        [Replicate()] * mesh.ndim)
+        with collective_source(LOOKUP):
+            whole = table.redistribute(mesh, [Replicate()] * mesh.ndim)
+        tok = tokens.to_local()
+        pl = tuple(p if isinstance(p, Shard) and p.dim < tokens.ndim
+                   else Replicate() for p in tokens.placements)
+        ctx.save_for_backward(tok)
+        ctx.meta = (mesh, pl, tuple(table.shape), table.stride(),
+                    tuple(p if p == Replicate() else Partial()
+                          for p in pl))
+        out = whole.to_local()[tok]
+        shape = tuple(tokens.shape) + out.shape[-1:]
+        return DTensor.from_local(out, mesh, pl, run_check=False,
+                                  shape=shape,
+                                  stride=torch.empty(shape,
+                                                     device="meta").stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        (tok,) = ctx.saved_tensors
+        mesh, pl, shape, stride, gpl = ctx.meta
+        with collective_source(LOOKUP):
+            local = g.redistribute(mesh, pl).to_local()
+        grad = torch.zeros(shape, dtype=local.dtype, device=local.device)
+        grad.index_put_((tok,), local, accumulate=True)
+        return DTensor.from_local(grad, mesh, gpl, run_check=False,
+                                  shape=shape, stride=stride), None
 
 
 def _head_matrix(params: Tree, cfg) -> torch.Tensor:
@@ -204,8 +274,9 @@ class _Remat(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        _, pull = vjp(ctx.fn, *ctx.saved_tensors)
-        return (None, *pull(grads if len(grads) > 1 else grads[0]))
+        with replicating(*ctx.saved_tensors):
+            _, pull = vjp(ctx.fn, *ctx.saved_tensors)
+            return (None, *pull(grads if len(grads) > 1 else grads[0]))
 
 
 def remat_block(p: Tree, x: torch.Tensor, cfg, kind: str, remat: bool,
@@ -247,6 +318,7 @@ def forward_hidden(params: Tree, x: torch.Tensor, cfg, *,
         for i in idx:
             x, a = remat_block({k: t[i] for k, t in st.items()}, x, cfg,
                                kind, remat)
+            x = _maybe_seq_shard(x)
             if kind in B.MOE_KINDS:
                 aux = aux + a
         return x, aux
@@ -313,8 +385,16 @@ def xent_loss(params: Tree, hidden: torch.Tensor, labels: torch.Tensor,
             mask[:, s0:s0 + c]
         logits = (hc.to(cdt) @ Wc).to(torch.float32)
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.take_along_dim(logits, yc[..., None].long(),
-                                    dim=-1)[..., 0]
+        if isinstance(logits, DTensor):
+            # the reference's XENT_GOLD_MODE "mask": the same value (one
+            # logit plus zeros), and the logits stay sharded over the
+            # vocabulary, where an index would gather them
+            hot = yc[..., None].long() == torch.arange(
+                logits.shape[-1], device=logits.device)
+            gold = torch.sum(logits * hot, dim=-1)
+        else:
+            gold = torch.take_along_dim(logits, yc[..., None].long(),
+                                        dim=-1)[..., 0]
         tot = tot + torch.sum((logz - gold) * mc)
         cnt = cnt + torch.sum(mc)
     return tot / torch.clamp(cnt, min=1.0)

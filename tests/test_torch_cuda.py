@@ -924,3 +924,131 @@ def test_secure_sum_bit_identical_on_card_at_stage12_payload(dev):
     assert torch.equal(masked.cpu(), cpu)
     exact = sum(f.double() * wi for f, wi in zip(flats, w))
     assert float((masked.double() - exact).abs().max()) < 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the prefill hand-off, expert parallelism, the sharded step (slice 15)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 256, 4, 32, 16, 64),        # four chunks
+    (1, 200, 2, 20, 7, 40),         # ragged P, N and tiles
+    (2, 256, 3, 64, 64, 256),       # one chunk: h0 enters chunk 0 only
+])
+def test_ssd_scan_kernel_from_h0(dev, B, S, H, P, N, chunk):
+    """A non-zero h0: y and the final state against the plain version
+    within 1e-4 of the largest value; then the gradients of every input
+    and of h0 (the backward is the plain version's, fed the same h0)."""
+    args = [t.clone().requires_grad_() for t in
+            _ssd_inputs(B, S, H, P, N, dev, seed=4)]
+    h0 = (0.5 * _rand((B, H, P, N), torch.float32, dev, 5)).requires_grad_()
+    before = ops.launch_counts()["ssd_scan"]
+    y, h = ops.ssd_scan(*args, chunk=chunk, h0=h0, return_state=True)
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    wy, wh = ref.ssd_scan_ref(*args, chunk=chunk, h0=h0, return_state=True)
+    for got, want in ((y, wy), (h, wh)):
+        assert (got - want).abs().max().item() <= \
+            1e-4 * max(want.abs().max().item(), 1.0)
+    gy = _rand(tuple(y.shape), torch.float32, dev, 6)
+    gh = _rand(tuple(h.shape), torch.float32, dev, 7)
+    gk = torch.autograd.grad((y * gy).sum() + (h * gh).sum(), args + [h0])
+    gr = torch.autograd.grad((wy * gy).sum() + (wh * gh).sum(), args + [h0])
+    for x, w in zip(gk, gr):
+        assert (x - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+def test_ssd_scan_kernel_in_two_parts(dev):
+    """A sequence scanned as two parts, the first part's final state
+    entering the second, equals one pass (the chunks align)."""
+    args = _ssd_inputs(2, 512, 4, 64, 64, dev, seed=8)
+    y, h = ops.ssd_scan(*args, chunk=128, return_state=True)
+    y1, h1 = ops.ssd_scan(*(t[:, :256] for t in args), chunk=128,
+                          return_state=True)
+    y2, h2 = ops.ssd_scan(*(t[:, 256:] for t in args), chunk=128, h0=h1,
+                          return_state=True)
+    assert (torch.cat([y1, y2], 1) - y).abs().max().item() <= \
+        1e-4 * y.abs().max().item()
+    assert (h2 - h).abs().max().item() <= 1e-4 * h.abs().max().item()
+
+
+def test_moe_ffn_local_card_against_cpu(dev):
+    """deepseek-v2's MoE layer at ``reduced()``, its 4 experts as 2 shards:
+    the partial outputs card against CPU within 1e-5 of the largest, aux
+    and the drops equal."""
+    from repro_torch.configs.base import load_arch, reduced
+    from repro_torch.models.layers import moe
+    cfg = reduced(load_arch("deepseek-v2-236b"))
+    m, d = cfg.moe, cfg.d_model
+    f = m.d_ff_expert
+    p = {"router": 0.1 * _rand((d, m.num_experts), torch.float32, "cpu", 1),
+         "w_gate": _rand((m.num_experts, d, f), torch.float32, "cpu", 2)
+         / d ** 0.5,
+         "w_up": _rand((m.num_experts, d, f), torch.float32, "cpu", 3)
+         / d ** 0.5,
+         "w_down": _rand((m.num_experts, f, d), torch.float32, "cpu", 4)
+         / f ** 0.5}
+    x = _rand((96, d), torch.float32, "cpu", 5)
+    cap, half = moe.capacity(96, cfg), m.num_experts // 2
+    for e in (0, half):
+        shard = {k: v if k == "router" else v[e:e + half]
+                 for k, v in p.items()}
+        want, wa = moe.moe_ffn_local(shard, x, cfg, e, half, cap)
+        got, ga = moe.moe_ffn_local({k: v.to(dev) for k, v in shard.items()},
+                                    x.to(dev), cfg, e, half, cap)
+        assert (got.cpu() - want).abs().max().item() <= \
+            1e-5 * want.abs().max().item()
+        assert abs(float(ga["aux"]) - float(wa["aux"])) <= 1e-6
+        assert int(ga["dropped"]) == int(wa["dropped"])
+
+
+def test_one_rank_sharded_step_equals_unsharded_on_card(dev):
+    """``make_sharded_train_step`` on a one-rank ``nccl`` mesh: internlm2
+    at ``reduced()``, batch 4 x 64; its loss and updated parameters equal
+    the unsharded step's to the bit, with the same kernel launches."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.base import load_arch, load_train, reduced
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.sharding import rules
+    cfg, tc = reduced(load_arch("internlm2-1.8b")), load_train(
+        "internlm2-1.8b")
+    g = torch.Generator(dev).manual_seed(0)
+    params = lm.init_lm(cfg, g, dev)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 64), generator=g,
+                              device=dev) for k in ("tokens", "labels")}
+    step, opt = steps.make_train_step(cfg, tc)
+    before = ops.launch_counts()
+    want_p, _, want_m = step(params, opt.init(params), batch)
+    want_launch = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh("cuda")
+
+        def put(tree, specs):
+            return {k: distribute_tensor(v, mesh, rules.to_placements(
+                specs[k], mesh)) for k, v in tree.items()}
+
+        p_specs = rules.param_pspecs(params, mesh)
+        st = opt.init(params)
+        o_specs = rules.opt_state_specs(st, p_specs, tc.optimizer, mesh)
+        dst = {k: (put(v, o_specs[k]) if isinstance(v, dict) else v)
+               for k, v in st.items()}
+        sstep, _ = steps.make_sharded_train_step(cfg, tc, mesh)
+        before = ops.launch_counts()
+        got_p, _, got_m = sstep(put(params, p_specs), dst,
+                                put(batch, rules.batch_specs(batch, mesh)))
+        got_launch = {k: v - before[k]
+                      for k, v in ops.launch_counts().items()}
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got_m["loss"], want_m["loss"])
+    for k, v in want_p.items():
+        assert torch.equal(got_p[k].to_local(), v), k
+    assert got_launch == want_launch

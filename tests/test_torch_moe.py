@@ -571,3 +571,82 @@ def test_launcher_matches_reference(engine, monkeypatch):
     for k, v in want.items():
         np.testing.assert_allclose(params[k].numpy(), v, rtol=0,
                                    atol=PARAM_ATOL, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# moe_ffn_local: one expert shard (the reference's expert-parallel path)
+# ---------------------------------------------------------------------------
+LOCAL_E, LOCAL_K, LOCAL_T = 8, 2, 48
+LOCAL_JCFG = dataclasses.replace(JCFG, moe=dataclasses.replace(
+    JCFG.moe, num_experts=LOCAL_E, experts_per_token=LOCAL_K))
+LOCAL_TCFG = dataclasses.replace(TCFG, moe=dataclasses.replace(
+    TCFG.moe, num_experts=LOCAL_E, experts_per_token=LOCAL_K))
+
+
+def _local_weights(seed):
+    """Router (d, E) and expert weights (E, d, f), (E, f, d) drawn with
+    numpy at the fan-in scale."""
+    d, f = LOCAL_JCFG.d_model, LOCAL_JCFG.moe.d_ff_expert
+    rng = np.random.default_rng(seed)
+    w = {"router": 0.1 * rng.standard_normal((d, LOCAL_E)) / np.sqrt(d),
+         "w_gate": rng.standard_normal((LOCAL_E, d, f)) / np.sqrt(d),
+         "w_up": rng.standard_normal((LOCAL_E, d, f)) / np.sqrt(d),
+         "w_down": rng.standard_normal((LOCAL_E, f, d)) / np.sqrt(f)}
+    return {k: v.astype(np.float32) for k, v in w.items()}
+
+
+def _local_shard(w, e_first, e_local):
+    """The router whole and the expert dim sliced to the shard, as under
+    the reference's ``shard_map``."""
+    return {k: v if k == "router" else v[e_first:e_first + e_local]
+            for k, v in w.items()}
+
+
+@pytest.mark.parametrize("e_first", [0, 4, 6])
+@pytest.mark.parametrize("forced", [None, "router", "capacity"])
+def test_moe_ffn_local_matches_reference(e_first, forced):
+    """``moe_ffn_local`` against the reference's for the first, a middle
+    and the last shard of 8 experts (2 a shard, 4 for the middle one),
+    top-2: the partial output within RTOL of its largest value, ``aux``
+    within 1e-6, ``dropped`` exactly. "router" ties two experts' router
+    columns (the lowest index wins the token); "capacity" crowds the
+    shard's first expert and repeats rows of x, so that equal weights
+    straddle the capacity's edge (the lowest token index is kept)."""
+    e_local = 4 if e_first == 4 else 2
+    w = _local_weights(e_first)
+    x = _x((LOCAL_T, LOCAL_JCFG.d_model), seed=e_first + 1)
+    if forced == "router":
+        w["router"][:, e_first + 1] = w["router"][:, e_first]
+    elif forced == "capacity":
+        w["router"][:, e_first] *= 40.0
+        x = x[np.arange(LOCAL_T) % 7]
+    cap = moe.capacity(LOCAL_T, LOCAL_TCFG)
+    assert cap == jmoe.capacity(LOCAL_T, LOCAL_JCFG)
+    sw = _local_shard(w, e_first, e_local)
+    want, jaux = jmoe.moe_ffn_local({k: jnp.asarray(v) for k, v in
+                                     sw.items()}, jnp.asarray(x),
+                                    LOCAL_JCFG, e_first, e_local, cap)
+    got, aux = moe.moe_ffn_local({k: torch.from_numpy(v) for k, v in
+                                  sw.items()}, torch.from_numpy(x),
+                                 LOCAL_TCFG, e_first, e_local, cap)
+    _close(got, want, msg="partial out")
+    _close(aux["aux"], jaux["aux"], 1e-6, msg="aux")
+    assert int(aux["dropped"]) == int(jaux["dropped"])
+    if forced == "capacity":
+        assert int(aux["dropped"]) > 0      # the capacity's edge was hit
+
+
+def test_moe_ffn_local_shards_sum_to_one_call():
+    """Four shards of 2 experts, their partial outputs summed, against one
+    call over all 8: the same output (within RTOL), the same ``aux`` to
+    the bit, and the shards' drops summing to the whole call's."""
+    w = {k: torch.from_numpy(v) for k, v in _local_weights(3).items()}
+    x = torch.from_numpy(_x((LOCAL_T, LOCAL_JCFG.d_model), seed=5))
+    cap = moe.capacity(LOCAL_T, LOCAL_TCFG)
+    whole, wa = moe.moe_ffn_local(w, x, LOCAL_TCFG, 0, LOCAL_E, cap)
+    parts = [moe.moe_ffn_local(
+        {k: v if k == "router" else v[e:e + 2] for k, v in w.items()}, x,
+        LOCAL_TCFG, e, 2, cap) for e in range(0, LOCAL_E, 2)]
+    _close(sum(p[0] for p in parts), whole.numpy(), msg="summed")
+    assert all(torch.equal(p[1]["aux"], wa["aux"]) for p in parts)
+    assert sum(int(p[1]["dropped"]) for p in parts) == int(wa["dropped"])

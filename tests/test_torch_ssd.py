@@ -213,3 +213,138 @@ def test_tf32_round_is_round_to_nearest_ties_away():
                       1.0 + 3 * 2 ** -11, 3.0, 0.0])
     want = [1.0 + 2 ** -10, 1.0, -(1.0 + 2 ** -10), 1.0 + 2 ** -9, 3.0, 0.0]
     assert ref.tf32_round(x).tolist() == want
+
+
+# ---------------------------------------------------------------------------
+# the prefill hand-off: an entering state and the final state
+# ---------------------------------------------------------------------------
+def test_scan_with_state_matches_reference_and_its_gradients():
+    """``ops.ssd_scan(h0=..., return_state=True)`` against the layer's
+    ``ssd_chunked`` with an incoming state: y and the final state, then
+    the gradients of <y, gy> + <h, gh> w.r.t. xh, dt, A, Bm, Cm and h0
+    against ``jax.grad``."""
+    rng = np.random.default_rng(21)
+    B, S, H, P, N, chunk = 2, 128, 3, 16, 8, 32
+    xh, dt, A, Bm, Cm = _inputs(rng, B, S, H, P, N)
+    h0 = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    gy = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    gh = rng.standard_normal((B, H, P, N)).astype(np.float32)
+
+    def jloss(xh, dt, A, Bm, Cm, h0):
+        y, h = jmamba.ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0)
+        return jnp.sum(y * gy) + jnp.sum(h * gh)
+
+    want_y, want_h = jmamba.ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0)
+    want = jax.grad(jloss, argnums=tuple(range(6)))(xh, dt, A, Bm, Cm, h0)
+    args = [t.requires_grad_() for t in _t(xh, dt, A, Bm, Cm, h0)]
+    y, h = ops.ssd_scan(args[0], args[1], args[1] * args[2], args[3],
+                        args[4], chunk=chunk, h0=args[5], return_state=True)
+    _close(y.detach(), want_y)
+    _close(h.detach(), want_h)
+    got = torch.autograd.grad((y * torch.from_numpy(gy)).sum()
+                              + (h * torch.from_numpy(gh)).sum(), args)
+    for gg, ww in zip(got, want):
+        _close(gg, ww, rtol=5e-5)
+
+
+@pytest.mark.parametrize("mm", ["fp32", "3xtf32"])
+def test_decomposed_scan_with_state_matches_reference(mm):
+    """The kernels' decomposition (``ref.ssd_decomposed``) from an
+    ``h0``: y and the final state against the layer's scan."""
+    rng = np.random.default_rng(23)
+    B, S, H, P, N, chunk = 2, 192, 3, 16, 8, 64
+    xh, dt, A, Bm, Cm = _inputs(rng, B, S, H, P, N)
+    h0 = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    want_y, want_h = jmamba.ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0)
+    txh, tdt, tA, tBm, tCm, th0 = _t(xh, dt, A, Bm, Cm, h0)
+    y, h = ref.ssd_decomposed(
+        txh, tdt, tdt * tA, tBm, tCm, chunk=chunk, h0=th0,
+        return_state=True,
+        mm=ref.matmul_3xtf32 if mm == "3xtf32" else torch.matmul)
+    _close(y, want_y)
+    _close(h, want_h)
+
+
+def test_vmap_rule_with_state_matches_client_loop():
+    """The ``vmap`` rule with an ``h0`` per client and both outputs."""
+    rng = np.random.default_rng(4)
+    C, B, S, H, P, N, chunk = 2, 2, 32, 2, 8, 4, 16
+    xh, dt, A, Bm, Cm = _inputs(rng, C * B, S, H, P, N)
+    h0 = rng.standard_normal((C, B, H, P, N)).astype(np.float32)
+    args = [torch.from_numpy(v.reshape(C, B, *v.shape[1:]))
+            for v in (xh, dt, dt * A, Bm, Cm)] + [torch.from_numpy(h0)]
+
+    def run(*t):
+        return ops.ssd_scan(*t[:5], chunk=chunk, h0=t[5], return_state=True)
+
+    ys, hs = torch.func.vmap(run)(*args)
+    for c in range(C):
+        y, h = run(*(t[c] for t in args))
+        torch.testing.assert_close(ys[c], y, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(hs[c], h, rtol=1e-6, atol=1e-6)
+
+
+def _mamba_layer(seed=0):
+    """One Mamba2 block of zamba2 at the arch smoke test's reduction: the
+    reference's initialiser, converted through numpy."""
+    from repro.configs import base as jbase
+    from repro_torch import convert
+    from repro_torch.configs import base as tbase
+    jcfg = jbase.reduced(jbase.load_arch("zamba2-2.7b"), num_layers=4,
+                         attn_every=2)
+    tcfg = tbase.reduced(tbase.load_arch("zamba2-2.7b"), num_layers=4,
+                         attn_every=2)
+    jp = jax.device_get(jmamba.mamba2_init(jax.random.PRNGKey(seed), jcfg,
+                                           jnp.float32))
+    return jp, convert.from_numpy_tree(jp), jcfg, tcfg
+
+
+def test_mamba2_apply_state_hand_off_matches_reference():
+    """``mamba2_apply(..., h0, conv0, return_state=True)`` against the
+    reference's: a 128-token prompt as two 64-token parts, the first
+    part's (h_final, conv) handed to the second as ``h0`` / ``conv0``;
+    the outputs and both states of both parts."""
+    jp, tp, jcfg, tcfg = _mamba_layer()
+    x = np.random.default_rng(8).standard_normal(
+        (2, 128, jcfg.d_model)).astype(np.float32)
+    jy1, (jh1, jc1) = jmamba.mamba2_apply(jp, jnp.asarray(x[:, :64]), jcfg,
+                                          return_state=True)
+    jy2, (jh2, jc2) = jmamba.mamba2_apply(jp, jnp.asarray(x[:, 64:]), jcfg,
+                                          jh1, jc1, return_state=True)
+    ty1, (th1, tc1) = mamba2.mamba2_apply(tp, torch.from_numpy(x[:, :64]),
+                                          tcfg, return_state=True)
+    ty2, (th2, tc2) = mamba2.mamba2_apply(tp, torch.from_numpy(x[:, 64:]),
+                                          tcfg, th1, tc1, return_state=True)
+    for got, want in ((ty1, jy1), (th1, jh1), (tc1, jc1), (ty2, jy2),
+                      (th2, jh2), (tc2, jc2)):
+        _close(got.detach(), want, rtol=5e-5)
+
+
+def test_reference_ignores_conv0_and_the_port_matches():
+    """The reference's fault, kept: ``conv0`` is never read (the causal
+    convolution pads the sequence's start with zeros), so the second part
+    of a two-part prefill is the same with or without it, and it differs
+    from one pass over the whole prompt in its first K - 1 positions (and,
+    through the scan, by a decaying amount after them). The port gives the
+    same numbers as the reference both ways."""
+    jp, tp, jcfg, tcfg = _mamba_layer(1)
+    K = jcfg.ssm.conv_width
+    x = np.random.default_rng(9).standard_normal(
+        (2, 128, jcfg.d_model)).astype(np.float32)
+    _, (jh1, jc1) = jmamba.mamba2_apply(jp, jnp.asarray(x[:, :64]), jcfg,
+                                        return_state=True)
+    with_conv = jmamba.mamba2_apply(jp, jnp.asarray(x[:, 64:]), jcfg, jh1,
+                                    jc1)
+    no_conv = jmamba.mamba2_apply(jp, jnp.asarray(x[:, 64:]), jcfg, jh1,
+                                  None)
+    assert np.array_equal(np.asarray(with_conv), np.asarray(no_conv))
+    whole = np.asarray(jmamba.mamba2_apply(jp, jnp.asarray(x), jcfg))[:, 64:]
+    head = np.abs(np.asarray(with_conv)[:, :K - 1] - whole[:, :K - 1]).max()
+    assert head > 1e-3 * np.abs(whole).max(), head
+    _, (th1, tc1) = mamba2.mamba2_apply(tp, torch.from_numpy(x[:, :64]),
+                                        tcfg, return_state=True)
+    got = mamba2.mamba2_apply(tp, torch.from_numpy(x[:, 64:]), tcfg, th1,
+                              tc1)
+    _close(got.detach(), with_conv, rtol=5e-5)
+    twhole = mamba2.mamba2_apply(tp, torch.from_numpy(x), tcfg)[:, 64:]
+    _close(twhole.detach(), whole, rtol=5e-5)

@@ -486,3 +486,71 @@ def test_launcher_matches_reference(engine, monkeypatch):
     for k, v in want.items():
         np.testing.assert_allclose(params[k].numpy(), v, rtol=0,
                                    atol=PARAM_ATOL[engine], err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the prefill hand-off: return_state and an entering state
+# ---------------------------------------------------------------------------
+def _state_close(got, want, msg):
+    for k in want:
+        _close(got[k], want[k], msg=f"{msg} {k}")
+
+
+@pytest.mark.parametrize("S", [32, 512])
+def test_mlstm_return_state_matches_reference(jparams, tparams, S):
+    """``return_state`` at S = 32 (the quadratic form, its final state
+    replayed from zero) and S = 512 (the chunkwise form's carried state),
+    against the reference's output and (C, n, m); each within RTOL of its
+    largest value."""
+    jp = jax.tree.map(lambda a: a[1, 0], jparams["mlstm"]["mlstm"])
+    tp = convert.subtree(_layer(tparams, "mlstm"), "mlstm")
+    x = _x((2, S, JCFG.d_model), seed=S + 7)
+    want, jst = jxlstm.mlstm_apply(jp, jnp.asarray(x), JCFG,
+                                   return_state=True)
+    got, st = xlstm.mlstm_apply(tp, torch.from_numpy(x), TCFG,
+                                return_state=True)
+    _close(got, want, msg="out")
+    _state_close(st, jax.device_get(jst), "state")
+
+
+def test_mlstm_chunkwise_hand_off_matches_reference(jparams, tparams):
+    """A 512-token prompt run as two 256-token parts, the first part's
+    state entering the second (the chunkwise form carries it); both
+    packages, output and state. The two parts equal one pass: the
+    chunkwise form's hand-off is exact up to rounding."""
+    jp = jax.tree.map(lambda a: a[1, 0], jparams["mlstm"]["mlstm"])
+    tp = convert.subtree(_layer(tparams, "mlstm"), "mlstm")
+    x = _x((2, 512, JCFG.d_model), seed=11)
+    _, j1 = jxlstm.mlstm_apply(jp, jnp.asarray(x[:, :256]), JCFG,
+                               return_state=True)
+    jy2, j2 = jxlstm.mlstm_apply(jp, jnp.asarray(x[:, 256:]), JCFG,
+                                 return_state=True, state=j1)
+    _, t1 = xlstm.mlstm_apply(tp, torch.from_numpy(x[:, :256]), TCFG,
+                              return_state=True)
+    ty2, t2 = xlstm.mlstm_apply(tp, torch.from_numpy(x[:, 256:]), TCFG,
+                                return_state=True, state=t1)
+    _close(ty2, jy2, msg="second part")
+    _state_close(t2, jax.device_get(j2), "state")
+    whole = xlstm.mlstm_apply(tp, torch.from_numpy(x), TCFG)
+    _close(ty2, whole[:, 256:].detach().numpy(), msg="against one pass")
+
+
+def test_slstm_state_hand_off_matches_reference(jparams, tparams):
+    """The sLSTM's last state, and a second part started from it, against
+    the reference's; the two parts equal one pass."""
+    jp = jax.tree.map(lambda a: a[1], jparams["slstm"]["slstm"])
+    tp = convert.subtree(_layer(tparams, "slstm"), "slstm")
+    x = _x((2, 48, JCFG.d_model), seed=13)
+    _, j1 = jxlstm.slstm_apply(jp, jnp.asarray(x[:, :24]), JCFG,
+                               return_state=True)
+    jy2, j2 = jxlstm.slstm_apply(jp, jnp.asarray(x[:, 24:]), JCFG,
+                                 return_state=True, state=j1)
+    _, t1 = xlstm.slstm_apply(tp, torch.from_numpy(x[:, :24]), TCFG,
+                              return_state=True)
+    _state_close(t1, jax.device_get(j1), "first state")
+    ty2, t2 = xlstm.slstm_apply(tp, torch.from_numpy(x[:, 24:]), TCFG,
+                                return_state=True, state=t1)
+    _close(ty2, jy2, msg="second part")
+    _state_close(t2, jax.device_get(j2), "state")
+    whole = xlstm.slstm_apply(tp, torch.from_numpy(x), TCFG)
+    _close(ty2, whole[:, 24:].detach().numpy(), msg="against one pass")
