@@ -31,7 +31,11 @@ Phases, each of which must pass (any failure exits non-zero):
    two engines from one seed at fp32 compute (full width, depth cut to 2
    blocks, 2 rounds of one local step): the first round's losses, and the
    per-client losses of three batched steps against the sequential step
-   from the same states, within 1e-4 (their gradients are printed).
+   from the same states, within 1e-4 (their gradients are printed). Then
+   the vmap engine's memory: one e2e step at full width, batch 256, on
+   ``train_step`` and on ``stacked_train_step`` at C = 1 and 4, each
+   step's peak above its state within 1.25 x C x the sequential step's;
+   the MiB a client and the clients the card holds at that slope.
 2d. LM path: LW-FedSSL on the zamba2-2.7b LM at its published widths
    (d 2560, 32 heads of 80, SwiGLU d_ff 10240, vocab 32000, Mamba2 state 64,
    head dim 64, expand 2, chunk 256, bf16 compute, fp32 params), depth cut
@@ -525,7 +529,8 @@ def engine_comparison(model_cfg, ssl_cfg, layers=2, steps=3):
     row at stage 2 (alignment on, block 1 frozen): ``stacked_train_step``
     for the four clients against ``train_step`` for each client, on the
     same views, continuing from the batched step's result. The gradients
-    there, ``vmap`` of ``grad`` against each client's ``grad``, are
+    there, the vmap engine's (``stacked_loss_and_grads``) against each
+    client's on the sequential engine's route (``loss_and_grads``), are
     printed and not checked: a ReLU input that lands within rounding of 0
     takes the other subgradient under another summation order, which
     changes a whole client's gradient by far more than rounding (the CPU
@@ -535,7 +540,9 @@ def engine_comparison(model_cfg, ssl_cfg, layers=2, steps=3):
     from repro_torch.convert import subtree
     from repro_torch.core import ssl as ssl_mod
     from repro_torch.data.augment import draw_params, two_views
-    from repro_torch.federated.client import stacked_train_step, train_step
+    from repro_torch.federated.client import (
+        loss_and_grads, stacked_loss_and_grads, stacked_train_step,
+        train_step)
     from repro_torch.optim import make_optimizer
 
     cfg = dataclasses.replace(model_cfg, num_layers=layers,
@@ -561,21 +568,14 @@ def engine_comparison(model_cfg, ssl_cfg, layers=2, steps=3):
               active_from=layers - 1,
               global_enc=subtree(vm["online"], "enc"),
               align_weight=ssl_cfg.align_weight)
-    def grads(st, x1, x2):
-        def loss(online):
-            return ssl_mod.ssl_loss(
-                {**st, "online": online}, x1, x2, enc, ssl_cfg,
-                sub_layers=layers, active_from=layers - 1,
-                global_enc=kw["global_enc"],
-                align_weight=ssl_cfg.align_weight)[0]
-        return torch.func.grad(loss)(st["online"])
+    grad_kw = {k: v for k, v in kw.items() if k != "opt"}
 
     lock = gerr = gl2 = 0.0
     for _ in range(steps):
         x1, x2 = two_views(images[:C * B], draw_params(gen, C * B, 32, 32),
                            draw_params(gen, C * B, 32, 32))
-        gv = torch.func.vmap(grads)(st, x1.unflatten(0, (C, B)),
-                                    x2.unflatten(0, (C, B)))
+        _, gv = stacked_loss_and_grads(st, x1.unflatten(0, (C, B)),
+                                       x2.unflatten(0, (C, B)), **grad_kw)
         new_st, new_opt, losses = stacked_train_step(
             st, opt_state, x1.unflatten(0, (C, B)), x2.unflatten(0, (C, B)),
             1e-4, **kw)
@@ -587,7 +587,8 @@ def engine_comparison(model_cfg, ssl_cfg, layers=2, steps=3):
             _, _, m = train_step(one, one_opt, x1[c * B:(c + 1) * B],
                                  x2[c * B:(c + 1) * B], 1e-4, **kw)
             lock = max(lock, abs(float(m["loss"]) - float(losses[c])))
-            gs = grads(one, x1[c * B:(c + 1) * B], x2[c * B:(c + 1) * B])
+            _, _, gs = loss_and_grads(one, x1[c * B:(c + 1) * B],
+                                      x2[c * B:(c + 1) * B], **grad_kw)
             gerr = max(gerr, max(float((gv[k][c] - g).abs().max())
                                  for k, g in gs.items())
                        / max(float(g.abs().max()) for g in gs.values()))
@@ -3856,14 +3857,82 @@ KERNEL_NAMES = {"gather_pack": ("gather_pack_kernel",),
                              "ssd_chunk_scan_kernel")}
 
 
+def vmap_memory_check(model_cfg, ssl_cfg, batch=256, clients=(1, 4)):
+    """One e2e local step at full width, batch 256, on each engine's step
+    function: the sequential engine's ``train_step``, then the vmap
+    engine's ``stacked_train_step`` at each C of ``clients`` from one
+    expanded state, as the engine's first local step of a round. Each step
+    runs once to warm up, then once measured: the allocator's peak during
+    it above what was allocated just before it (the state, moments and
+    views). Returns {0 (sequential) or C: (peak MiB above the state, MiB
+    the state, moments and views hold, ms of the measured step)}."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import ssl as ssl_mod
+    from repro_torch.data import augment
+    from repro_torch.federated import client as client_mod
+    from repro_torch.optim import make_optimizer
+
+    dev = torch.device("cuda")
+    enc = ssl_mod.make_vit_encoder(model_cfg)
+    opt = make_optimizer(TrainConfig(batch_size=batch))
+    kw = dict(encoder=enc, ssl_cfg=ssl_cfg, opt=opt,
+              sub_layers=enc.num_stages, active_from=0)
+    out = {}
+    for C in (0, *clients):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        gen = torch.Generator(dev).manual_seed(0)
+        state = ssl_mod.ssl_init(enc, ssl_cfg, gen, dev)
+        img = torch.rand(max(C, 1), batch, 32, 32, 3, generator=gen,
+                         device=dev)
+        views = [augment.two_views(x, augment.draw_params(gen, batch, 32, 32),
+                                   augment.draw_params(gen, batch, 32, 32))
+                 for x in img]
+        if C == 0:
+            opt_state = opt.init(state["online"])
+
+            def step():
+                return client_mod.train_step(state, opt_state, *views[0],
+                                             1e-4, **kw)
+        else:
+            cstate = {br: {k: v.expand(C, *v.shape) for k, v in t.items()}
+                      for br, t in state.items()}
+            opt_state = client_mod.stacked_opt_init(opt, cstate["online"])
+            x1 = torch.stack([v[0] for v in views])
+            x2 = torch.stack([v[1] for v in views])
+
+            def step():
+                return client_mod.stacked_train_step(cstate, opt_state, x1,
+                                                     x2, 1e-4, **kw)
+        del img
+        step()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        result = step()
+        torch.cuda.synchronize()
+        out[C] = ((torch.cuda.max_memory_allocated() - base) / 2**20,
+                  (base - before) / 2**20, (time.perf_counter() - t) * 1e3)
+        del result, step, state, views, opt_state
+        if C:
+            del cstate, x1, x2
+    return out
+
+
 def grad_memory_split(model_cfg, ssl_cfg, batch=256):
-    """Where the vmap engine's extra step memory goes: one e2e local step's
+    """What each way of taking a gradient holds: one e2e local step's
     loss and gradient at full width, batch 256, taken four ways: plain
     autograd (the sequential engine's ``torch.autograd.grad``), a
-    ``torch.func.vmap`` of one client with autograd outside it,
-    ``torch.func.grad_and_value`` under ``vmap`` (the vmap engine's), and
-    ``grad_and_value`` alone. Returns {way: (MiB allocated at the end of the
-    forward, MiB peak), both above the bytes held before it}."""
+    ``torch.func.vmap`` of one client with autograd outside it (the vmap
+    engine's, ``client.stacked_loss_and_grads``),
+    ``torch.func.grad_and_value`` under ``vmap``, and ``grad_and_value``
+    alone (both keep the backward's intermediates to the end). Returns
+    {way: (MiB allocated at the end of the forward, MiB peak, both above
+    the bytes held before it; ms of the call, host clock to a
+    synchronise)}."""
     import torch
     from torch.func import grad_and_value, vmap
     from repro_torch.core import ssl as ssl_mod
@@ -3921,10 +3990,12 @@ def grad_memory_split(model_cfg, ssl_cfg, batch=256):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
         out[way] = ((fwd_end[way] - base) / 2**20,
-                    (torch.cuda.max_memory_allocated() - base) / 2**20)
+                    (torch.cuda.max_memory_allocated() - base) / 2**20, ms)
         del result
     return out
 
@@ -4117,11 +4188,11 @@ def lm_step_split(cfg, params, opt, batch, reps=3):
     # call, by wrapping the Function's backward for one more run
     plain_backward, marks = ops.SSDScanFn.backward, []
 
-    def marked_backward(ctx, gy):
+    def marked_backward(ctx, *grads):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = plain_backward(ctx, gy)
+        out = plain_backward(ctx, *grads)
         end.record()
         marks.append((start, end))
         return out
@@ -4137,7 +4208,8 @@ def lm_step_split(cfg, params, opt, batch, reps=3):
           f"calls)"] = in_step
     gen = torch.Generator("cuda").manual_seed(9)
     ins = ssd_inputs(4, 1024, 80, 64, 64, gen)
-    ctx = types.SimpleNamespace(saved_tensors=ins, chunk=256)
+    ctx = types.SimpleNamespace(saved_tensors=(*ins, None), chunk=256,
+                                layout=None)
     gy = torch.randn((4, 1024, 80, 64), generator=gen, device="cuda")
     bwd = timed(lambda: ops.SSDScanFn.backward(ctx, gy))
     print(f"  LM step split by source (CUDA events, median of {reps}):")
@@ -4299,6 +4371,30 @@ def run(profile: bool = False) -> int:
           f"{gl2:.3e} (not checked)", flush=True)
     check(first <= 1e-4 and lock <= 1e-4,
           f"engines disagree: {seq_loss} vs {vm_loss}, lockstep {lock}")
+    t_mem = time.perf_counter()
+    mem = vmap_memory_check(model_cfg, ssl_cfg)
+    seq_mib = mem[0][0]
+    slope = ((mem[4][0] + mem[4][1]) - (mem[1][0] + mem[1][1])) / 3
+    fixed = mem[1][0] + mem[1][1] - slope
+    total = torch.cuda.get_device_properties(0).total_memory / 2**20
+    print(f"  one e2e step's peak above its state, full width, batch 256: "
+          f"sequential {seq_mib:.1f} MiB; vmap "
+          + ", ".join(f"C={c} {mem[c][0]:.1f} MiB ({mem[c][0] / c:.1f} a "
+                      f"client, {mem[c][0] / (c * seq_mib):.3f}x C x "
+                      f"sequential)" for c in (1, 4))
+          + "; ms of the measured step: " + ", ".join(
+              f"{'sequential' if c == 0 else f'C={c}'} {m[2]:.1f}"
+              for c, m in mem.items())
+          + f"; state, moments and views held: sequential "
+          f"{mem[0][1]:.1f}, C=1 {mem[1][1]:.1f}, C=4 {mem[4][1]:.1f} MiB; "
+          f"{slope:.1f} MiB a client over {fixed:.1f} MiB, so "
+          f"{total:.0f} MiB holds {int((total - fixed) // slope)} clients "
+          f"({time.perf_counter() - t_mem:.1f}s) on {card}", flush=True)
+    for c in (1, 4):
+        check(mem[c][0] <= 1.25 * c * seq_mib,
+              f"vmap step at C={c} holds {mem[c][0]:.1f} MiB above its "
+              f"state, over 1.25 x {c} x the sequential step's "
+              f"{seq_mib:.1f}")
 
     print(f"[2d] LM path: LW-FedSSL on {LM_ARCH} at full width, "
           f"{LM_GROUPS} stage groups, {LM_RUN['clients']} clients, "
@@ -4508,9 +4604,10 @@ def run(profile: bool = False) -> int:
         profile_lm_step()
         split = grad_memory_split(model_cfg, ssl_cfg)
         print("  one e2e step's memory above what it starts from, MiB (end "
-              "of the forward, peak): " + "; ".join(
-                  f"{k} {a:.1f}, {b:.1f}" for k, (a, b) in split.items()),
-              flush=True)
+              "of the forward, peak; vmap_autograd is the vmap engine's "
+              "route) and ms of the call: " + "; ".join(
+                  f"{k} {a:.1f}, {b:.1f}, {ms:.1f} ms"
+                  for k, (a, b, ms) in split.items()), flush=True)
         print("  host us a call to enqueue, direct and through the custom "
               "op (two runs each of 2000 calls): " + "; ".join(
                   f"{k} direct {[round(x, 2) for x in v['direct']]}, "

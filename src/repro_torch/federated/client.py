@@ -6,7 +6,9 @@ a client's batch plan over its shard. The online branch, target branch and
 optimizer state are local to the client for the round; the target branch
 starts from the downloaded global model (Algorithm 2, lines 2-3).
 ``stacked_train_step`` is the same step for a stack of clients at once (the
-vectorised engine's): ``torch.func.vmap`` over ``torch.func.grad_and_value``.
+vectorised engine's): the clients' forwards under ``torch.func.vmap``, then
+one ``torch.autograd.grad`` of their summed losses, which frees the
+backward's intermediates as it goes, as ``train_step``'s does.
 ``lm_train_step`` is the LM family's step (``lm_ssl_loss``; no target
 branch).
 """
@@ -16,7 +18,7 @@ import contextlib
 from typing import Dict, Optional
 
 import torch
-from torch.func import grad_and_value, vmap
+from torch.func import vmap
 
 from repro_torch.core import schedule as sched
 from repro_torch.core import ssl as ssl_mod
@@ -26,11 +28,22 @@ from repro_torch.federated.masks import stage_update_mask
 Tree = Dict[str, torch.Tensor]
 
 
-def train_step(state, opt_state, x1, x2, lr: float, *, encoder, ssl_cfg,
-               opt, sub_layers: int, active_from: int, layer_gates=None,
-               global_enc: Optional[Tree] = None, align_weight: float = 0.0):
-    """One masked optimizer step of ``ssl_loss`` on the views (x1, x2),
-    then the target EMA. Returns (state, opt_state, metrics)."""
+def grads_of(loss: torch.Tensor, leaves: Tree) -> Tree:
+    """``torch.autograd.grad`` of ``loss`` for each autograd leaf of
+    ``leaves``; a leaf the loss does not reach (the frozen embedding) has a
+    zero gradient."""
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    return {k: torch.zeros_like(v) if g is None else g
+            for (k, v), g in zip(leaves.items(), grads)}
+
+
+def loss_and_grads(state, x1, x2, *, encoder, ssl_cfg, sub_layers: int,
+                   active_from: int, layer_gates=None,
+                   global_enc: Optional[Tree] = None,
+                   align_weight: float = 0.0):
+    """``ssl_loss`` on the views (x1, x2) and its gradient for each leaf of
+    the online branch. Returns (loss, metrics, grads)."""
     online = {k: v.detach().requires_grad_() for k, v in
               state["online"].items()}
     loss, metrics = ssl_mod.ssl_loss(
@@ -38,11 +51,19 @@ def train_step(state, opt_state, x1, x2, lr: float, *, encoder, ssl_cfg,
         sub_layers=sub_layers, active_from=active_from,
         layer_gates=layer_gates, global_enc=global_enc,
         align_weight=align_weight)
-    grads = torch.autograd.grad(loss, list(online.values()),
-                                allow_unused=True)
-    # a leaf the loss does not reach (frozen embedding) has a zero gradient
-    grads = {k: torch.zeros_like(v) if g is None else g
-             for (k, v), g in zip(state["online"].items(), grads)}
+    return loss.detach(), metrics, grads_of(loss, online)
+
+
+def train_step(state, opt_state, x1, x2, lr: float, *, encoder, ssl_cfg,
+               opt, sub_layers: int, active_from: int, layer_gates=None,
+               global_enc: Optional[Tree] = None, align_weight: float = 0.0):
+    """One masked optimizer step of ``ssl_loss`` on the views (x1, x2),
+    then the target EMA. Returns (state, opt_state, metrics)."""
+    _, metrics, grads = loss_and_grads(
+        state, x1, x2, encoder=encoder, ssl_cfg=ssl_cfg,
+        sub_layers=sub_layers, active_from=active_from,
+        layer_gates=layer_gates, global_enc=global_enc,
+        align_weight=align_weight)
     state, opt_state = _apply_update(state, opt_state, grads, lr,
                                      ssl_cfg=ssl_cfg, opt=opt,
                                      sub_layers=sub_layers,
@@ -84,39 +105,63 @@ def stacked_opt_init(opt, params: Tree) -> dict:
     return {**vmap(one)(params), **shared}
 
 
+def stacked_loss_and_grads(state, x1, x2, *, encoder, ssl_cfg,
+                           sub_layers: int, active_from: int,
+                           layer_gates=None,
+                           global_enc: Optional[Tree] = None,
+                           align_weight: float = 0.0):
+    """``loss_and_grads`` for C clients in one call: the losses' forward
+    under ``torch.func.vmap`` over the clients, then one
+    ``torch.autograd.grad`` of their sum, which frees the backward's
+    intermediates as it goes. Client c's loss reads only row c of each
+    stacked leaf, so row c of the sum's gradient is the gradient of loss
+    c. ``state``, the views and ``layer_gates`` carry a leading client
+    axis; ``global_enc`` is shared. Returns (losses (C,), grads)."""
+    online = {k: v.detach().requires_grad_() for k, v in
+              state["online"].items()}
+    rest = {br: t for br, t in state.items() if br != "online"}
+
+    def loss_fn(online, rest, x1, x2, gates):
+        return ssl_mod.ssl_loss(
+            {**rest, "online": online}, x1, x2, encoder, ssl_cfg,
+            sub_layers=sub_layers, active_from=active_from,
+            layer_gates=gates, global_enc=global_enc,
+            align_weight=align_weight)[0]
+
+    gates_dim = None if layer_gates is None else 0
+    losses = vmap(loss_fn, in_dims=(0, 0, 0, 0, gates_dim))(
+        online, rest, x1, x2, layer_gates)
+    return losses.detach(), grads_of(losses.sum(), online)
+
+
 def stacked_train_step(state, opt_state, x1, x2, lr: float, *, encoder,
                        ssl_cfg, opt, sub_layers: int, active_from: int,
                        layer_gates=None, global_enc: Optional[Tree] = None,
                        align_weight: float = 0.0):
-    """``train_step`` for C clients in one call: one ``torch.func.vmap``
-    over ``torch.func.grad_and_value``. Every tensor of ``state`` and
+    """``train_step`` for C clients in one call: ``stacked_loss_and_grads``,
+    then the masked update and the target EMA under ``torch.func.vmap``
+    (per-client shapes, for Adafactor). Every tensor of ``state`` and
     ``opt_state`` (``stacked_opt_init``), the views (C, B, H, W, 3) and
     ``layer_gates`` (C, L) carry a leading client axis; ``global_enc``,
     ``lr`` and the optimizer's step count are shared. Returns (state,
     opt_state, losses (C,))."""
+    losses, grads = stacked_loss_and_grads(
+        state, x1, x2, encoder=encoder, ssl_cfg=ssl_cfg,
+        sub_layers=sub_layers, active_from=active_from,
+        layer_gates=layer_gates, global_enc=global_enc,
+        align_weight=align_weight)
     per_leaf, shared = shared_opt_state(opt_state)
     new_shared = {}
 
-    def one(state, per_leaf, x1, x2, gates):
-        def loss_fn(online):
-            return ssl_mod.ssl_loss(
-                {**state, "online": online}, x1, x2, encoder, ssl_cfg,
-                sub_layers=sub_layers, active_from=active_from,
-                layer_gates=gates, global_enc=global_enc,
-                align_weight=align_weight)
-
-        grads, (loss, _) = grad_and_value(loss_fn, has_aux=True)(
-            state["online"])
+    def update(state, per_leaf, grads):
         state, new_opt = _apply_update(
             state, {**per_leaf, **shared}, grads, lr, ssl_cfg=ssl_cfg,
             opt=opt, sub_layers=sub_layers, active_from=active_from)
         new_leaf, s = shared_opt_state(new_opt)
         new_shared.update(s)
-        return state, new_leaf, loss
+        return state, new_leaf
 
-    gates_dim = None if layer_gates is None else 0
-    state, per_leaf, losses = vmap(one, in_dims=(0, 0, 0, 0, gates_dim))(
-        state, per_leaf, x1, x2, layer_gates)
+    state, per_leaf = vmap(update)(state, per_leaf, grads)
     return state, {**per_leaf, **new_shared}, losses
 
 
@@ -131,10 +176,7 @@ def lm_train_step(params: Tree, opt_state, batch, lr: float, *, cfg, opt,
     loss, metrics = ssl_mod.lm_ssl_loss(
         p, batch, cfg, sub_layers=sub_layers, active_from=active_from,
         global_params=global_params, align_weight=align_weight)
-    grads = torch.autograd.grad(loss, list(p.values()), allow_unused=True)
-    # leaves the loss does not reach (the frozen embedding) get zeros
-    grads = {k: torch.zeros_like(v) if g is None else g
-             for (k, v), g in zip(params.items(), grads)}
+    grads = grads_of(loss, p)
     mask = stage_update_mask(params, sub_layers, active_from)
     params, opt_state = opt.update(grads, opt_state, params, lr, mask)
     return params, opt_state, {k: v.detach() for k, v in metrics.items()}

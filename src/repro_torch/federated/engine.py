@@ -8,7 +8,8 @@ accounting around them.
   vmap        the vectorised engine: the participants' online, target and
               optimizer trees are stacked on a leading client axis and each
               local step is one ``client.stacked_train_step`` call for all
-              of them (``torch.func.vmap`` over ``grad_and_value``). The
+              of them (their forwards under ``torch.func.vmap``, one
+              ``torch.autograd.grad`` of the summed losses). The
               reference compiles the round into one XLA program
               (``build_round_program``); here a Python loop over local
               steps drives the batched step.

@@ -14,12 +14,17 @@ inputs, the same code on every device; InfoNCE's backward is a kernel too
 (``InfoNCEGradFn``); the SSD scan's is the vector-Jacobian product of its
 plain version, recomputed from the saved inputs (the JAX package has no
 backward kernel for it either). Every Function has the ``setup_context``
-form and a ``vmap`` rule, so the vectorised engine can run them under
-``torch.func.vmap`` / ``grad``: the rule moves the vmapped (client) axis to
+form and a ``vmap`` rule, so the vectorised engines can run them under
+``torch.func.vmap``: the rule moves the vmapped (client) axis to
 the front and hands it to the kernel in one launch, folded into the rows
 (RMSNorm, with a per-client scale), into the batch (attention, the SSD
 scan), or as the kernel's own client axis (InfoNCE, whose negatives must
-stay per client).
+stay per client). The engines differentiate outside the ``vmap`` (one
+``torch.autograd.grad`` of the clients' summed losses), so the backward
+that runs is the node each rule's ``.apply`` records on the folded
+tensors: it returns every client's gradient at once, and a per-client
+operand's gradient stays per client (RMSNorm's (G, d) scale, InfoNCE's
+client axis). ``torch.func.grad`` under ``vmap`` works too.
 
 ``wire_cast_encode`` / ``wire_cast_decode`` and ``wire_topk_decode`` are
 plain PyTorch on every device: in the reference they are not Pallas

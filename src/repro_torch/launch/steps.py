@@ -31,7 +31,8 @@ accumulation (``train_cfg.microbatch``) runs the microbatch slices one
 after another, so one microbatch's activations are live at a time, and
 ``train_cfg.remat`` recomputes each trained block in the backward.
 ``make_fl_round_program`` is a whole LM FL round: every client's local
-steps batched through ``torch.func.vmap`` (the LM counterpart of
+steps batched, the losses' forward under ``torch.func.vmap`` and one
+``torch.autograd.grad`` of their sum (the LM counterpart of
 ``federated.client.stacked_train_step``), then FedAvg, through the wire
 transport when one is given. The reference compiles that round into one
 XLA program; here a Python loop over local steps drives the batched step.
@@ -53,12 +54,13 @@ from typing import Optional
 import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
-from torch.func import grad_and_value, vmap
+from torch.func import vmap
 
 from repro_torch.core import losses
 from repro_torch.core.ssl import lm_ssl_loss
 from repro_torch.federated import aggregate
-from repro_torch.federated.client import shared_opt_state, stacked_opt_init
+from repro_torch.federated.client import (grads_of, shared_opt_state,
+                                          stacked_opt_init)
 from repro_torch.federated.engine import keep_rows
 from repro_torch.federated.masks import stage_update_mask
 from repro_torch.models import encdec as encdec_mod
@@ -145,7 +147,7 @@ def make_train_step(cfg, train_cfg, *, mode: str = "train",
     align_weight = ALIGN_WEIGHT if lw else 0.0
     micro = train_cfg.microbatch
 
-    def grads_of(params, batch, global_params):
+    def loss_and_grads(params, batch, global_params):
         p = {k: v.detach().requires_grad_() for k, v in params.items()}
         loss, metrics = _loss_for(
             cfg, p, batch, sub_layers=sub_layers, active_from=active_from,
@@ -165,7 +167,7 @@ def make_train_step(cfg, train_cfg, *, mode: str = "train",
                      for k, v in params.items()}
             losses = []
             for i in range(micro):
-                loss, _, g = grads_of(
+                loss, _, g = loss_and_grads(
                     params, {k: _like(v[i * n:(i + 1) * n], v)
                              for k, v in batch.items()}, global_params)
                 grads = {k: a + g[k].to(a.dtype) for k, a in grads.items()}
@@ -173,7 +175,7 @@ def make_train_step(cfg, train_cfg, *, mode: str = "train",
             grads = {k: g / micro for k, g in grads.items()}
             metrics = {"loss": sum(losses) / micro}
         else:
-            loss, m, grads = grads_of(params, batch, global_params)
+            loss, m, grads = loss_and_grads(params, batch, global_params)
             metrics = {**{k: v.detach() for k, v in m.items()},
                        "loss": loss}
         mask = (stage_update_mask(params, sub_layers, active_from)
@@ -305,12 +307,15 @@ def make_fl_round_program(cfg, train_cfg, *, mode: str = "train",
     each local step's batch and ``valid`` (C, T) marks the steps that
     count: a step with ``valid`` False runs but its update is discarded
     (a client's valid steps must come first, since the step count is
-    shared). Each local step is one ``torch.func.vmap`` over the clients
-    of ``grad_and_value`` of the local loss (``lm_ssl_loss``, or the
-    encoder-decoder's) and the optimizer's update,
-    from ``opt.init`` of the broadcast, per client. Returns (FedAvg of the
-    clients' trees with ``weights``, or with ``fedavg=False`` the list of
-    their trees; the (C,) losses of each client's last valid step).
+    shared). Each local step runs the clients' local losses
+    (``lm_ssl_loss``, or the encoder-decoder's) under one
+    ``torch.func.vmap``, takes every client's gradient with one
+    ``torch.autograd.grad`` of their sum (client c's loss reads only row c
+    of the stacked leaves), and applies the optimizer's update under
+    ``vmap``, from ``opt.init`` of the broadcast, per client. Returns
+    (FedAvg of the clients' trees with ``weights``, or with
+    ``fedavg=False`` the list of their trees; the (C,) losses of each
+    client's last valid step).
 
     With ``transport`` (a ``federated.transport.Transport``) and the
     round's ``plan``, the clients' trees go through the wire first:
@@ -329,19 +334,11 @@ def make_fl_round_program(cfg, train_cfg, *, mode: str = "train",
     align_weight = ALIGN_WEIGHT if align else 0.0
     masked = active_from > 0 or sub_layers < S
 
-    def client_step(params, per_leaf, shared, batch, global_params, lr):
-        def loss_fn(p):
-            return _loss_for(
-                cfg, p, batch, sub_layers=sub_layers,
-                active_from=active_from,
-                global_params=global_params if align else None,
-                align_weight=align_weight, remat=train_cfg.remat)
-
-        grads, (loss, _) = grad_and_value(loss_fn, has_aux=True)(params)
-        mask = (stage_update_mask(params, sub_layers, active_from)
-                if masked else None)
-        return opt.update(grads, {**per_leaf, **shared}, params, lr,
-                          mask), loss
+    def client_loss(p, batch, global_params):
+        return _loss_for(
+            cfg, p, batch, sub_layers=sub_layers, active_from=active_from,
+            global_params=global_params if align else None,
+            align_weight=align_weight, remat=train_cfg.remat)[0]
 
     def run_clients(broadcast, shards, batch_idx, valid, lr):
         g = broadcast["params"]
@@ -353,15 +350,22 @@ def make_fl_round_program(cfg, train_cfg, *, mode: str = "train",
         last = torch.zeros(C, dtype=torch.float32, device=valid.device)
         for t in range(T):
             batch = {k: v[rows, batch_idx[:, t]] for k, v in shards.items()}
+            leaves = {k: v.detach().requires_grad_()
+                      for k, v in params.items()}
+            loss = vmap(client_loss, in_dims=(0, 0, None))(leaves, batch, gp)
+            grads = grads_of(loss.sum(), leaves)
             new_shared = {}
 
-            def one(p, o, b):
-                (p, new_opt), loss = client_step(p, o, shared, b, gp, lr)
+            def one(p, o, d):
+                mask = (stage_update_mask(p, sub_layers, active_from)
+                        if masked else None)
+                p, new_opt = opt.update(d, {**o, **shared}, p, lr, mask)
                 o, s = shared_opt_state(new_opt)
                 new_shared.update(s)
-                return p, o, loss
+                return p, o
 
-            new_p, new_o, loss = vmap(one)(params, per_leaf, batch)
+            new_p, new_o = vmap(one)(params, per_leaf, grads)
+            loss = loss.detach()
             keep = valid[:, t]
             if bool(keep.all()):
                 params, per_leaf = new_p, new_o

@@ -255,9 +255,11 @@ def _head_matrix(params: Tree, cfg) -> torch.Tensor:
 class _Remat(torch.autograd.Function):
     """Rematerialisation of one block: the forward keeps only its inputs,
     and the backward recomputes the block inside ``torch.func.vjp``. It
-    works under autograd and under ``torch.func.grad`` / ``vmap`` alike;
-    ``torch.utils.checkpoint`` does not, since the ``torch.func``
-    transforms refuse its saved-tensor hooks. ``fn`` returns a tensor, or
+    works under autograd, under the LM vmap engine's vmapped forward with
+    its backward outside (the generated ``vmap`` rule vmaps this backward)
+    and under ``torch.func.grad`` alike; ``torch.utils.checkpoint`` does
+    not, since the ``torch.func`` transforms refuse its saved-tensor
+    hooks. ``fn`` returns a tensor, or
     a tuple of tensors (a MoE block's output and load-balance loss)."""
     generate_vmap_rule = True
 

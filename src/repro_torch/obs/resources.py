@@ -199,24 +199,18 @@ def program_memory_analytic(cfg, ssl, train, plan, engine_name: str, *,
                   encoder run under ``no_grad``: one block's working set
                   (with the plain attention backward's fp32 probabilities)
                   is transient.
-      backward    the vmap engine only: ``torch.func.grad`` differentiates
-                  with ``create_graph``, so the intermediates of every
-                  trained block's backward stay alive until the step ends
-                  (per sample and view: the attention backward's fp32
-                  logits, probabilities, dp, ds and the rescaled ds, its
-                  fp32 q, k, v, dO, o, dv, dq, dk; six fp32 (t, d) terms
-                  of each RMSNorm backward; the MLP backward's three
-                  hidden-width and two model-width terms at the compute
-                  dtype). The sequential engine's ``torch.autograd.grad``
-                  frees them as it goes.
       update      after the backward: the gradients of the online tree,
                   and the new online tree, moments and target written
                   while the old ones are held.
 
-    peak = held + max(activations + backward + transient, update), per
-    client on the vmap engine. The reference's model instead keeps XLA's
-    full resident state (arguments + outputs) and a schedule-flat
-    program."""
+    Both engines take the gradient with one ``torch.autograd.grad``, which
+    frees each node's intermediates as it goes (the vmap engine's over the
+    clients' summed losses, ``client.stacked_loss_and_grads``), so the
+    backward adds no term of its own.
+
+    peak = held + max(activations + transient, update), per client on the
+    vmap engine. The reference's model instead keeps XLA's full resident
+    state (arguments + outputs) and a schedule-flat program."""
     from repro_torch.federated import comm
     from repro_torch.optim import make_optimizer
     from repro_torch.roofline import client_costs as cc
@@ -234,21 +228,17 @@ def program_memory_analytic(cfg, ssl, train, plan, engine_name: str, *,
     t, d, H = c.tokens, c.d, c.heads
     trained = plan.sub_layers - plan.active_from
     block_b = t * d * 2 * 4 + (t * d * 6 + 2 * t * c.d_ff) * cbytes
-    bwd_block_b = ((5 * H * t * t + 8 * t * d) * 4 + 2 * 6 * t * d * 4
-                   + (3 * t * c.d_ff + 2 * t * d) * cbytes)
     bs = train.batch_size
     batch_b = bs * 32 * 32 * 3 * 4
     acts = 2 * bs * (c.a_stem * 4 + trained * block_b + c.a_heads * 4)
     vmap = engine_name == "vmap"
-    bwd = 2 * bs * trained * bwd_block_b if vmap else 0
     transient = bs * (block_b + 3 * H * t * t * 4)
     update = 2 * online_b + opt_b + target_b
     C = clients if vmap else 1
     held = (state_b + C * opt_b if vmap else state_b + opt_b) \
         + C * 3 * batch_b
-    peak = held + C * max(acts + bwd + transient, update)
+    peak = held + C * max(acts + transient, update)
     return {"held_bytes": float(held), "activation_bytes": float(C * acts),
-            "backward_bytes": float(C * bwd),
             "update_bytes": float(C * update), "peak_bytes": float(peak)}
 
 

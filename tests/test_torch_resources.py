@@ -360,8 +360,9 @@ def test_structure_ignores_mem_attrs():
 def test_memory_model_follows_the_plan():
     """The eager engines' model: at full width and batch 256 the
     activations dominate, so one trained block holds far less than
-    twelve; the vmap engine's clients each hold their own, and its
-    backward's intermediates besides."""
+    twelve. Neither engine's backward keeps a term of its own (both take
+    one ``torch.autograd.grad``): the vmap engine's peak is the shared
+    held bytes plus C times the sequential engine's per-client term."""
     cfg, ssl, train_cfg = tres.full_width_config()
     plans = {p.stage: p for p in tsched.build_schedule(
         tbase.FLConfig(rounds=12, schedule="layerwise"), 12)}
@@ -373,14 +374,18 @@ def test_memory_model_follows_the_plan():
                                         "sequential")
     assert one["peak_bytes"] < 0.5 * full["peak_bytes"]
     assert one["activation_bytes"] * 5 < full["activation_bytes"]
-    assert full["backward_bytes"] == 0
+    per_client = full["peak_bytes"] - full["held_bytes"]
+    for C in (1, 2, 4):
+        v = tres.program_memory_analytic(cfg, ssl, train_cfg, e2e, "vmap",
+                                         clients=C)
+        # no backward term: the model holds what it held before one
+        assert set(v) == set(full) == {"held_bytes", "activation_bytes",
+                                       "update_bytes", "peak_bytes"}
+        assert v["activation_bytes"] == C * full["activation_bytes"]
+        assert v["update_bytes"] == C * full["update_bytes"]
+        assert v["peak_bytes"] == v["held_bytes"] + C * per_client
     v1 = tres.program_memory_analytic(cfg, ssl, train_cfg, e2e, "vmap")
-    v2 = tres.program_memory_analytic(cfg, ssl, train_cfg, e2e, "vmap",
-                                      clients=2)
-    assert v2["activation_bytes"] == 2 * full["activation_bytes"]
-    # torch.func.grad keeps the backward's intermediates (create_graph)
-    assert v1["backward_bytes"] > 2 * v1["activation_bytes"]
-    assert v2["backward_bytes"] == 2 * v1["backward_bytes"]
+    assert v1["peak_bytes"] == full["peak_bytes"]
 
 
 # ---------------------------------------------------------------------------
