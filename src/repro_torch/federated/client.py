@@ -11,6 +11,14 @@ one ``torch.autograd.grad`` of their summed losses, which frees the
 backward's intermediates as it goes, as ``train_step``'s does.
 ``lm_train_step`` is the LM family's step (``lm_ssl_loss``; no target
 branch).
+
+``tracer=`` (a ``repro_torch.obs`` tracer; the no-op by default) records
+a step's phases as the spans ``step.forward`` (the loss), ``step.backward``
+(its gradient) and ``step.update`` (the masked optimizer step and the
+target EMA); ``local_train`` records each step as a ``local_step`` (its
+``t``) holding ``step.views`` (the batch's draws and augmentation) and
+those three. The spans wrap the ``torch.func.vmap`` calls of the stacked
+step, never open inside them.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from repro_torch.core import schedule as sched
 from repro_torch.core import ssl as ssl_mod
 from repro_torch.data.augment import two_views
 from repro_torch.federated.masks import stage_update_mask
+from repro_torch.obs.trace import NOOP_TRACER
 
 Tree = Dict[str, torch.Tensor]
 
@@ -41,33 +50,38 @@ def grads_of(loss: torch.Tensor, leaves: Tree) -> Tree:
 def loss_and_grads(state, x1, x2, *, encoder, ssl_cfg, sub_layers: int,
                    active_from: int, layer_gates=None,
                    global_enc: Optional[Tree] = None,
-                   align_weight: float = 0.0):
+                   align_weight: float = 0.0, tracer=NOOP_TRACER):
     """``ssl_loss`` on the views (x1, x2) and its gradient for each leaf of
     the online branch. Returns (loss, metrics, grads)."""
     online = {k: v.detach().requires_grad_() for k, v in
               state["online"].items()}
-    loss, metrics = ssl_mod.ssl_loss(
-        {**state, "online": online}, x1, x2, encoder, ssl_cfg,
-        sub_layers=sub_layers, active_from=active_from,
-        layer_gates=layer_gates, global_enc=global_enc,
-        align_weight=align_weight)
-    return loss.detach(), metrics, grads_of(loss, online)
+    with tracer.span("step.forward", cat="step"):
+        loss, metrics = ssl_mod.ssl_loss(
+            {**state, "online": online}, x1, x2, encoder, ssl_cfg,
+            sub_layers=sub_layers, active_from=active_from,
+            layer_gates=layer_gates, global_enc=global_enc,
+            align_weight=align_weight)
+    with tracer.span("step.backward", cat="step"):
+        grads = grads_of(loss, online)
+    return loss.detach(), metrics, grads
 
 
 def train_step(state, opt_state, x1, x2, lr: float, *, encoder, ssl_cfg,
                opt, sub_layers: int, active_from: int, layer_gates=None,
-               global_enc: Optional[Tree] = None, align_weight: float = 0.0):
+               global_enc: Optional[Tree] = None, align_weight: float = 0.0,
+               tracer=NOOP_TRACER):
     """One masked optimizer step of ``ssl_loss`` on the views (x1, x2),
     then the target EMA. Returns (state, opt_state, metrics)."""
     _, metrics, grads = loss_and_grads(
         state, x1, x2, encoder=encoder, ssl_cfg=ssl_cfg,
         sub_layers=sub_layers, active_from=active_from,
         layer_gates=layer_gates, global_enc=global_enc,
-        align_weight=align_weight)
-    state, opt_state = _apply_update(state, opt_state, grads, lr,
-                                     ssl_cfg=ssl_cfg, opt=opt,
-                                     sub_layers=sub_layers,
-                                     active_from=active_from)
+        align_weight=align_weight, tracer=tracer)
+    with tracer.span("step.update", cat="step"):
+        state, opt_state = _apply_update(state, opt_state, grads, lr,
+                                         ssl_cfg=ssl_cfg, opt=opt,
+                                         sub_layers=sub_layers,
+                                         active_from=active_from)
     return state, opt_state, {k: v.detach() for k, v in metrics.items()}
 
 
@@ -109,7 +123,7 @@ def stacked_loss_and_grads(state, x1, x2, *, encoder, ssl_cfg,
                            sub_layers: int, active_from: int,
                            layer_gates=None,
                            global_enc: Optional[Tree] = None,
-                           align_weight: float = 0.0):
+                           align_weight: float = 0.0, tracer=NOOP_TRACER):
     """``loss_and_grads`` for C clients in one call: the losses' forward
     under ``torch.func.vmap`` over the clients, then one
     ``torch.autograd.grad`` of their sum, which frees the backward's
@@ -129,15 +143,18 @@ def stacked_loss_and_grads(state, x1, x2, *, encoder, ssl_cfg,
             align_weight=align_weight)[0]
 
     gates_dim = None if layer_gates is None else 0
-    losses = vmap(loss_fn, in_dims=(0, 0, 0, 0, gates_dim))(
-        online, rest, x1, x2, layer_gates)
-    return losses.detach(), grads_of(losses.sum(), online)
+    with tracer.span("step.forward", cat="step"):
+        losses = vmap(loss_fn, in_dims=(0, 0, 0, 0, gates_dim))(
+            online, rest, x1, x2, layer_gates)
+    with tracer.span("step.backward", cat="step"):
+        grads = grads_of(losses.sum(), online)
+    return losses.detach(), grads
 
 
 def stacked_train_step(state, opt_state, x1, x2, lr: float, *, encoder,
                        ssl_cfg, opt, sub_layers: int, active_from: int,
                        layer_gates=None, global_enc: Optional[Tree] = None,
-                       align_weight: float = 0.0):
+                       align_weight: float = 0.0, tracer=NOOP_TRACER):
     """``train_step`` for C clients in one call: ``stacked_loss_and_grads``,
     then the masked update and the target EMA under ``torch.func.vmap``
     (per-client shapes, for Adafactor). Every tensor of ``state`` and
@@ -149,7 +166,7 @@ def stacked_train_step(state, opt_state, x1, x2, lr: float, *, encoder,
         state, x1, x2, encoder=encoder, ssl_cfg=ssl_cfg,
         sub_layers=sub_layers, active_from=active_from,
         layer_gates=layer_gates, global_enc=global_enc,
-        align_weight=align_weight)
+        align_weight=align_weight, tracer=tracer)
     per_leaf, shared = shared_opt_state(opt_state)
     new_shared = {}
 
@@ -161,7 +178,8 @@ def stacked_train_step(state, opt_state, x1, x2, lr: float, *, encoder,
         new_shared.update(s)
         return state, new_leaf
 
-    state, per_leaf = vmap(update)(state, per_leaf, grads)
+    with tracer.span("step.update", cat="step"):
+        state, per_leaf = vmap(update)(state, per_leaf, grads)
     return state, {**per_leaf, **new_shared}, losses
 
 
@@ -185,7 +203,8 @@ def lm_train_step(params: Tree, opt_state, batch, lr: float, *, cfg, opt,
 def local_train(global_state, images: torch.Tensor, plan, draws, opt, *,
                 encoder, ssl_cfg, lr: float, sub_layers: int,
                 active_from: int, align: bool, depth_dropout: float,
-                global_enc: Optional[Tree] = None, probe=None):
+                global_enc: Optional[Tree] = None, probe=None,
+                tracer=NOOP_TRACER):
     """Run one client's batch plan (from ``draws.batch_plan``) over its
     shard ``images`` (n_i, H, W, 3). Returns (online params, last metrics
     with the step count). ``probe`` (resource measurement) is held around
@@ -200,20 +219,24 @@ def local_train(global_state, images: torch.Tensor, plan, draws, opt, *,
     _, H, W, _ = images.shape
     last = {}
     for n, (idx, handle) in enumerate(plan):
-        batch = images[idx]
-        x1, x2 = two_views(batch, *draws.views(handle, batch.shape[0], H, W))
-        gates = None
-        if depth_dropout > 0.0:
-            gates = sched.depth_dropout_gates(
-                draws.gate_uniforms(handle, encoder.num_stages),
-                active_from, depth_dropout)
-        counted = probe if probe is not None and n == 0 else None
-        with counted if counted is not None else contextlib.nullcontext():
-            state, opt_state, last = train_step(
-                state, opt_state, x1, x2, lr, encoder=encoder,
-                ssl_cfg=ssl_cfg, opt=opt, sub_layers=sub_layers,
-                active_from=active_from, layer_gates=gates,
-                global_enc=global_enc, align_weight=align_w)
+        with tracer.span("local_step", cat="step", t=n):
+            with tracer.span("step.views", cat="step"):
+                batch = images[idx]
+                x1, x2 = two_views(batch, *draws.views(handle, batch.shape[0],
+                                                       H, W))
+            gates = None
+            if depth_dropout > 0.0:
+                gates = sched.depth_dropout_gates(
+                    draws.gate_uniforms(handle, encoder.num_stages),
+                    active_from, depth_dropout)
+            counted = probe if probe is not None and n == 0 else None
+            with counted if counted is not None else contextlib.nullcontext():
+                state, opt_state, last = train_step(
+                    state, opt_state, x1, x2, lr, encoder=encoder,
+                    ssl_cfg=ssl_cfg, opt=opt, sub_layers=sub_layers,
+                    active_from=active_from, layer_gates=gates,
+                    global_enc=global_enc, align_weight=align_w,
+                    tracer=tracer)
         if counted is not None:
             counted.samples = batch.shape[0]
     return state["online"], {**last, "steps": len(plan)}

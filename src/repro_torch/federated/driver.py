@@ -35,7 +35,9 @@ policy over a uniform fleet training is bit-identical to ``sim=None``.
 
 Observability (``obs=``, ``repro_torch.obs``; ``NOOP_OBS`` by default) as
 in the reference: the spans ``run > round > {stage_transition, download,
-local_train, calibrate}`` with the round's bytes, loss and rate on its
+local_train, calibrate}`` (and the port's own inside them, as
+``repro_torch.obs.trace`` draws the tree: ``calibrate.step`` and the
+steps' phases) with the round's bytes, loss and rate on its
 ``round`` span, the counters ``fl.rounds``, ``comm.*_bytes`` and
 ``wire.*_bytes``, the histograms ``round.loss`` and ``round.host_seconds``
 and the gauge ``wire.compression_ratio`` (and with a simulator the
@@ -380,7 +382,8 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                                 encoder=encoder, ssl_cfg=ssl_cfg,
                                 sub_layers=plan.sub_layers,
                                 epochs=fl.server_epochs,
-                                batch_size=train_cfg.batch_size, lr=lr)
+                                batch_size=train_cfg.batch_size, lr=lr,
+                                tracer=tracer)
                     cb = comm.round_comm_bytes(
                         state["online"], plan,
                         include_heads=fl.include_heads)

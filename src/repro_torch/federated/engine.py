@@ -35,7 +35,13 @@ sequential engine's ``client.train`` (client, loss) per participant and
 ``aggregate`` (engine, clients); the vmap engine's ``engine.dispatch``
 (engine, participants) around the whole round. The reference's vmap round
 is one XLA program with the wire inside it; here the transport's
-``wire.upload`` spans run inside ``engine.dispatch``.
+``wire.upload`` spans run inside ``engine.dispatch``. The port's own
+spans inside a round: each local step as a ``local_step`` (its ``t``)
+holding ``step.views``, ``step.forward``, ``step.backward`` and
+``step.update``, under ``client.train`` on the sequential engine and
+``engine.dispatch`` on the vmap engine; the vmap engine's
+``engine.inputs`` (every draw of the round, stacked); the transport's
+``fedavg``.
 """
 from __future__ import annotations
 
@@ -86,7 +92,7 @@ class SequentialEngine:
                     ssl_cfg=self.ssl_cfg, lr=lr, sub_layers=plan.sub_layers,
                     active_from=plan.active_from, align=plan.align,
                     depth_dropout=plan.depth_dropout, global_enc=global_enc,
-                    probe=probe if n == 0 else None)
+                    probe=probe if n == 0 else None, tracer=tracer)
                 outs.append(online_i)
                 losses.append(m["loss"])
                 if is_tracing(tracer):
@@ -197,8 +203,10 @@ class VmapEngine:
                global_enc, server_online, collect, probe):
         C = len(participants)
         steps = [len(b) for b in batch_plans]
-        pool_idx, v1, v2, gates, T = self._round_inputs(plan, participants,
-                                                        batch_plans)
+        tracer = self.obs.tracer
+        with tracer.span("engine.inputs", cat="engine"):
+            pool_idx, v1, v2, gates, T = self._round_inputs(
+                plan, participants, batch_plans)
         g = state["online"]
         cstate = {"online": {k: v.expand(C, *v.shape) for k, v in g.items()}}
         if "target" in state:
@@ -209,19 +217,22 @@ class VmapEngine:
         align_w = self.ssl_cfg.align_weight if plan.align else 0.0
         losses = None
         for t in range(T):
-            x1, x2 = two_views(self.images[pool_idx[t]],
-                               {f: v[t] for f, v in v1.items()},
-                               {f: v[t] for f, v in v2.items()})
-            with (probe if probe is not None and t == 0
-                  else contextlib.nullcontext()):
-                new_state, new_opt, loss = client_mod.stacked_train_step(
-                    cstate, opt_state, x1.unflatten(0, (C, -1)),
-                    x2.unflatten(0, (C, -1)), lr, encoder=self.encoder,
-                    ssl_cfg=self.ssl_cfg, opt=self.opt,
-                    sub_layers=plan.sub_layers,
-                    active_from=plan.active_from,
-                    layer_gates=None if gates is None else gates[t],
-                    global_enc=global_enc, align_weight=align_w)
+            with tracer.span("local_step", cat="step", t=t):
+                with tracer.span("step.views", cat="step"):
+                    x1, x2 = two_views(self.images[pool_idx[t]],
+                                       {f: v[t] for f, v in v1.items()},
+                                       {f: v[t] for f, v in v2.items()})
+                with (probe if probe is not None and t == 0
+                      else contextlib.nullcontext()):
+                    new_state, new_opt, loss = client_mod.stacked_train_step(
+                        cstate, opt_state, x1.unflatten(0, (C, -1)),
+                        x2.unflatten(0, (C, -1)), lr, encoder=self.encoder,
+                        ssl_cfg=self.ssl_cfg, opt=self.opt,
+                        sub_layers=plan.sub_layers,
+                        active_from=plan.active_from,
+                        layer_gates=None if gates is None else gates[t],
+                        global_enc=global_enc, align_weight=align_w,
+                        tracer=tracer)
             if probe is not None and t == 0:
                 probe.samples = x1.shape[0]
             if all(t < s for s in steps):

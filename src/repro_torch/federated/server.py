@@ -10,22 +10,29 @@ import torch
 from repro_torch.core import schedule as sched
 from repro_torch.data.augment import two_views
 from repro_torch.federated.client import train_step
+from repro_torch.obs.trace import NOOP_TRACER
 
 
 def server_calibrate(state, aux_images: torch.Tensor, draws, opt, *,
                      encoder, ssl_cfg, sub_layers: int, epochs: int,
-                     batch_size: int, lr: float):
+                     batch_size: int, lr: float, tracer=NOOP_TRACER):
     """Train the aggregated sub-model end to end (``active_from=0``) on D_g,
-    with a fresh optimizer state, as the clients have."""
+    with a fresh optimizer state, as the clients have. ``tracer`` records
+    each step as a ``calibrate.step`` (its ``t``) holding ``step.views``
+    and ``train_step``'s spans."""
     opt_state = opt.init(state["online"])
     n, H, W, _ = aux_images.shape
-    for idx, handle in draws.batch_plan(n, epochs, min(batch_size, n),
-                                        calibration=True):
-        batch = aux_images[idx]
-        x1, x2 = two_views(batch, *draws.views(handle, batch.shape[0], H, W))
-        state, opt_state, _ = train_step(
-            state, opt_state, x1, x2, lr, encoder=encoder, ssl_cfg=ssl_cfg,
-            opt=opt, sub_layers=sub_layers, active_from=0)
+    for t, (idx, handle) in enumerate(draws.batch_plan(
+            n, epochs, min(batch_size, n), calibration=True)):
+        with tracer.span("calibrate.step", cat="step", t=t):
+            with tracer.span("step.views", cat="step"):
+                batch = aux_images[idx]
+                x1, x2 = two_views(batch, *draws.views(handle, batch.shape[0],
+                                                       H, W))
+            state, opt_state, _ = train_step(
+                state, opt_state, x1, x2, lr, encoder=encoder,
+                ssl_cfg=ssl_cfg, opt=opt, sub_layers=sub_layers,
+                active_from=0, tracer=tracer)
     return state
 
 

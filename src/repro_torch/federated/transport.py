@@ -43,7 +43,8 @@ the reference's ``_upload_one``), and the upload stats carry the round's
 Observability (``obs=``, off by default): the reference's spans
 ``wire.download`` (codec, kernels, wire and payload bytes, ``dense_sync``
 in a top-k re-sync round), ``wire.upload`` (codec, kernels, clients, wire
-and payload bytes) and one ``wire.upload.client`` per upload.
+and payload bytes) and one ``wire.upload.client`` per upload; and the
+port's own ``fedavg`` (clients) around ``aggregate_uploads``' mean.
 """
 from __future__ import annotations
 
@@ -463,4 +464,6 @@ class Transport:
         (aggregated tree, per-client upload stats)."""
         trees, stats = self.decode_uploads(server_online, outs, client_ids,
                                            plan, ref_online=ref_online)
-        return aggregate.fedavg(trees, weights), stats
+        with self.obs.tracer.span("fedavg", cat="transport",
+                                  clients=len(trees)):
+            return aggregate.fedavg(trees, weights), stats

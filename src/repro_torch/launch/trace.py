@@ -7,7 +7,9 @@ traces have the same format) and regenerates, from the spans alone:
 
   round-time breakdown   wall-clock per phase (download / local_train /
                          calibrate, engine and transport child spans)
-                         aggregated across rounds, per trace.
+                         aggregated across rounds, per trace, with each
+                         name's self time (its spans less their child
+                         spans) and process CPU time (``cpu_us``).
   comm table             per-schedule analytic + measured wire bytes
                          summed over the ``round`` spans, with ratios
                          against the e2e trace when one is among the
@@ -98,15 +100,26 @@ def comm_table(traces: Sequence[Tuple[Dict, List[Dict]]]
 
 def round_breakdown(events: Sequence[Dict[str, Any]]
                     ) -> Dict[str, Dict[str, float]]:
-    """Aggregate span durations by name: {name: {count, total_s, mean_s}}
-    for every completed wall-clock span (virtual sim tracks excluded)."""
+    """Aggregate span durations by name: {name: {count, total_s, mean_s,
+    self_s, cpu_s}} for every completed wall-clock span (virtual sim
+    tracks excluded). ``self_s`` is ``total_s`` less the durations of the
+    spans' child spans; ``cpu_s`` the summed process CPU time of the
+    spans (their ``cpu_us``), None where no span of the name has one (a
+    trace of the reference's)."""
+    spans = [e for e in events if e["ph"] == "X" and e["cat"] != "sim"]
+    child_us: Dict[int, float] = {}
+    for e in spans:
+        if e["parent"] is not None:
+            child_us[e["parent"]] = child_us.get(e["parent"], 0.0) + e["dur"]
     out: Dict[str, Dict[str, float]] = {}
-    for e in events:
-        if e["ph"] != "X" or e["cat"] == "sim":
-            continue
-        d = out.setdefault(e["name"], {"count": 0, "total_s": 0.0})
+    for e in spans:
+        d = out.setdefault(e["name"], {"count": 0, "total_s": 0.0,
+                                       "self_s": 0.0, "cpu_s": None})
         d["count"] += 1
         d["total_s"] += e["dur"] / 1e6
+        d["self_s"] += (e["dur"] - child_us.get(e["seq"], 0.0)) / 1e6
+        if "cpu_us" in e["args"]:
+            d["cpu_s"] = (d["cpu_s"] or 0.0) + e["args"]["cpu_us"] / 1e6
     for d in out.values():
         d["mean_s"] = d["total_s"] / d["count"]
     return out
@@ -119,11 +132,13 @@ def print_breakdown(path, events):
     print(f"\n-- {path}: {label}")
     br = round_breakdown(events)
     order = sorted(br, key=lambda n: -br[n]["total_s"])
-    print(f"   {'span':24s} {'count':>6s} {'total':>10s} {'mean':>10s}")
+    print(f"   {'span':24s} {'count':>6s} {'total':>10s} {'mean':>10s}"
+          f" {'self':>10s} {'cpu':>10s}")
     for name in order:
         d = br[name]
+        cpu = "-" if d["cpu_s"] is None else f"{d['cpu_s']:.3f}s"
         print(f"   {name:24s} {d['count']:6d} {d['total_s']:9.3f}s "
-              f"{d['mean_s'] * 1e3:8.2f}ms")
+              f"{d['mean_s'] * 1e3:8.2f}ms {d['self_s']:9.3f}s {cpu:>10s}")
 
 
 def print_comm_table(rows):

@@ -14,7 +14,10 @@ bundle; ``obs.export(...)`` writes whichever artifacts were requested
 and CUDA activity where the process sees a card; ``stop_profiler`` writes
 its Chrome trace to ``<profile_dir>/torch_profile.json``. A profiler that
 fails to start raises: the reference's "continuing untraced" is not
-copied.
+copied. While it runs, each span of a recording tracer also opens a
+``torch.profiler.record_function`` range of its name, so the profiler's
+trace holds the program's spans on its own clock (and, on the card, the
+device time under each as ``gpu_user_annotation`` rows).
 """
 from __future__ import annotations
 
@@ -62,6 +65,8 @@ class Observability:
         prof = profile(activities=activities)
         prof.start()
         self._profiler = prof
+        if is_tracing(self.tracer):
+            self.tracer.ranges = torch.profiler.record_function
 
     def stop_profiler(self):
         """Stop the profiler and write its Chrome trace; returns the path
@@ -69,6 +74,8 @@ class Observability:
         if self._profiler is None:
             return None
         prof, self._profiler = self._profiler, None
+        if is_tracing(self.tracer):
+            self.tracer.ranges = None
         prof.stop()
         path = pathlib.Path(self.profile_dir) / PROFILE_TRACE
         path.parent.mkdir(parents=True, exist_ok=True)

@@ -2,9 +2,28 @@
 standard library only).
 
 One ``Tracer`` records one run as a flat, append-only event list. Spans
-nest (``run > round > {download, local_train, upload, aggregate,
-calibrate}`` with per-client / per-codec children); each completed span
-becomes one Chrome ``trace_event``-shaped record::
+nest; a traced ViT run records (``*`` repeated, ``|`` one of)::
+
+    run > round > download > wire.download
+                  local_train > client.train* > local_step*      (sequential)
+                                aggregate > wire.upload > wire.upload.client*
+                                            fedavg
+                              | engine.dispatch > engine.inputs  (vmap)
+                                                  local_step*
+                                                  wire.upload > ...
+                                                  fedavg
+                  calibrate > calibrate.step*
+                  resources.measure
+
+    local_step, calibrate.step > step.views, step.forward,
+                                 step.backward, step.update
+
+``step.views`` is the batch's augmentation on the device (on the
+sequential engine with its draws; the vmap engine draws the whole round
+in ``engine.inputs``), ``step.forward`` the loss, ``step.backward`` its
+``torch.autograd.grad``, ``step.update`` the masked optimizer step and
+the target EMA, ``fedavg`` the weighted mean of the decoded uploads.
+Each completed span becomes one Chrome ``trace_event``-shaped record::
 
     {"ph": "X", "name", "cat", "ts", "dur", "pid", "tid",
      "seq", "parent", "depth", "args"}
@@ -14,13 +33,24 @@ span *open* order and ``parent`` the enclosing span's ``seq``, so the
 nesting structure is reconstructible from the flat list and — unlike the
 timestamps — fully deterministic for a seeded run (the determinism tests
 compare ``structure()`` across runs). ``args`` carries the attached
-attributes (stage, wire bytes, codec, participants, ...).
+attributes (stage, wire bytes, codec, participants, ...) and, on every
+completed span, ``cpu_us``: the process's CPU time over the span
+(``time.process_time_ns``, every thread, so autograd's device thread
+too). A span whose ``cpu_us`` is far below its ``dur`` is a host that
+slept; the two are close for a host at work, and also for one that waits
+on the card by spinning, as CUDA's default synchronise and a full launch
+queue do (the device trace tells those apart).
 
 Besides wall-clock spans the tracer holds named *virtual tracks*
 (``virtual_span``): spans with caller-supplied timestamps on their own
 ``tid``, used by the fleet simulator to lay each client's simulated round
 out on the simulated timeline. Exporters render tracks as threads, so a
 simulated 1000-client round reads like a real profile in Perfetto.
+
+While ``ranges`` is set (``Observability.start_profiler`` sets it to
+``torch.profiler.record_function`` for as long as its profiler runs),
+each span also opens a profiler range of its name, so the profiler's
+trace holds the spans on its own clock.
 
 ``NOOP_TRACER`` implements the same surface as no-ops; instrumented code
 holds an unconditional reference and pays only an attribute lookup and an
@@ -41,7 +71,7 @@ class Span:
     attributes any time before exit."""
 
     __slots__ = ("tracer", "name", "cat", "args", "seq", "parent",
-                 "depth", "_t0")
+                 "depth", "_t0", "_cpu0", "_range")
 
     def __init__(self, tracer, name, cat, args, seq, parent, depth, t0):
         self.tracer = tracer
@@ -52,6 +82,8 @@ class Span:
         self.parent = parent
         self.depth = depth
         self._t0 = t0
+        self._range = None
+        self._cpu0 = time.process_time_ns()
 
     def set(self, **attrs):
         self.args.update(attrs)
@@ -76,6 +108,9 @@ class Tracer:
         self._seq = 0
         self._tracks: Dict[str, int] = {MAIN_TRACK: 0}
         self.meta: Dict[str, Any] = {}
+        # a context-manager factory called with each span's name (the
+        # profiler's ranges), or None
+        self.ranges = None
 
     # -- clock ---------------------------------------------------------------
     def _now_us(self) -> float:
@@ -88,12 +123,19 @@ class Tracer:
                  len(self._stack), self._now_us())
         self._seq += 1
         self._stack.append(s)
+        if self.ranges is not None:
+            s._range = self.ranges(name)
+            s._range.__enter__()
         return s
 
     def _close(self, span: Span):
+        cpu1 = time.process_time_ns()
         top = self._stack.pop()
         assert top is span, (top.name, span.name)
         t1 = self._now_us()
+        if span._range is not None:
+            span._range.__exit__(None, None, None)
+        span.args["cpu_us"] = (cpu1 - span._cpu0) / 1e3
         self.events.append({
             "ph": "X", "name": span.name, "cat": span.cat,
             "ts": span._t0, "dur": t1 - span._t0, "pid": 0, "tid": 0,
@@ -134,12 +176,12 @@ class Tracer:
         """The timestamp-free view the determinism tests compare: one
         ``(seq, parent, depth, name, cat, tid, args)`` tuple per event.
         ``mem.``-prefixed args (the live device-memory watermarks the
-        driver attaches to round spans) are environment noise, not
-        structure, and are dropped here."""
+        driver attaches to round spans) and ``cpu_us`` are environment
+        noise, not structure, and are dropped here."""
         return [(e["seq"], e["parent"], e["depth"], e["name"], e["cat"],
                  e["tid"], tuple(sorted(
                      (k, v) for k, v in e["args"].items()
-                     if not k.startswith("mem."))))
+                     if not k.startswith("mem.") and k != "cpu_us")))
                 for e in self.events]
 
 

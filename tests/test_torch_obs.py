@@ -12,9 +12,14 @@ package's (``repro.obs``).
   within the loss tolerance of ``tests/test_torch_fl.py``. What the port
   has no counterpart of is left out by name: the ``programs`` attribute of
   ``engine.dispatch`` and the ``jit.*`` metrics (XLA programs), the
-  ``mem.*`` round attributes (each machine's own memory watermarks), and
-  on the vmap engine the transport's ``wire.upload`` spans,
-  which the reference's vmap round runs inside one XLA program.
+  ``mem.*`` round attributes (each machine's own memory watermarks) and
+  every span's ``cpu_us`` (its process CPU time), the port's spans inside
+  a step, a calibration step and a round's inputs and FedAvg
+  (``PORT_ONLY``), and on the vmap engine the transport's ``wire.upload``
+  spans, which the reference's vmap round runs inside one XLA program.
+- The port's own spans: each local step and calibration step holds its
+  views, forward, backward and update; one ``engine.inputs`` and one
+  ``fedavg`` a round; ``cpu_us`` on every completed span.
 - The launcher: every artifact on the CPU, read by the reference's trace
   analyser; the profiler trace; halting on a fatal alert.
 """
@@ -43,6 +48,7 @@ from repro_torch import convert
 from repro_torch import obs as tobs
 from repro_torch.configs import base as tbase
 from repro_torch.federated import client as client_mod
+from repro_torch.federated.draws import TorchDraws
 from repro_torch.federated.driver import run_fedssl, run_lm_fedssl
 from repro_torch.launch import train
 from repro_torch.obs import health as thealth
@@ -63,6 +69,10 @@ LOSS_RTOL = 1e-4
 # no counterpart in the port (module docstring)
 SKIP_ATTRS = {"engine.dispatch": {"programs"}}
 VMAP_PORT_ONLY = {"wire.upload", "wire.upload.client"}
+# the port's spans inside the reference's (leaves, with their children)
+STEP_PHASES = ["step.views", "step.forward", "step.backward", "step.update"]
+PORT_ONLY = {"engine.inputs", "local_step", "calibrate.step", "fedavg",
+             *STEP_PHASES}
 
 
 def _configs(mod, schedule="lw_fedssl", rounds=ROUNDS):
@@ -137,6 +147,11 @@ def _script(pkg):
 
 def test_copied_exports_match_reference(tmp_path):
     port, ref = _script(tobs), _script(jobs)
+    # the port's spans carry their process CPU time, which varies from run
+    # to run; everything else is the reference's
+    spans = [e for e in port.tracer.events if e["ph"] == "X"
+             and e["tid"] == 0]
+    assert spans and all(e["args"].pop("cpu_us") >= 0 for e in spans)
     assert port.tracer.events == ref.tracer.events
     assert port.tracer.structure() == ref.tracer.structure()
     assert tobs.chrome_trace_doc(port.tracer, x=1) == \
@@ -280,7 +295,8 @@ def _normalise(events, drop=()):
             continue
         skip = SKIP_ATTRS.get(e["name"], set())
         args = {k: v for k, v in e["args"].items()
-                if k not in skip and not k.startswith("mem.")}
+                if k not in skip and not k.startswith("mem.")
+                and k != "cpu_us"}
         parent = by_seq[e["parent"]]["name"] if e["parent"] is not None \
             else None
         out.append((e["name"], e["ph"], e["cat"], e["depth"], parent, args))
@@ -289,7 +305,7 @@ def _normalise(events, drop=()):
 
 def test_span_structure_matches_reference(traced_pair):
     engine, jo, _, to, _ = traced_pair
-    drop = VMAP_PORT_ONLY if engine == "vmap" else ()
+    drop = PORT_ONLY | (VMAP_PORT_ONLY if engine == "vmap" else set())
     got = _normalise(to.tracer.events, drop)
     want = _normalise(jo.tracer.events)
     assert [g[:5] for g in got] == [w[:5] for w in want]
@@ -348,6 +364,148 @@ def test_metrics_agree_with_history_and_reference(traced_pair):
 
 
 # ---------------------------------------------------------------------------
+# the port's own spans: a step's phases, the round's inputs and FedAvg
+# ---------------------------------------------------------------------------
+class _CountingDraws(TorchDraws):
+    """The port's draws, keeping the length of every batch plan."""
+
+    def __init__(self, *a):
+        super().__init__(*a)
+        self.plans = []
+
+    def batch_plan(self, n, epochs, batch_size, calibration=False):
+        plan = super().batch_plan(n, epochs, batch_size,
+                                  calibration=calibration)
+        self.plans.append((calibration, len(plan)))
+        return plan
+
+
+@pytest.fixture(scope="module", params=["sequential", "vmap"])
+def own_spans(request):
+    """A traced run with two calibration steps a round (32 auxiliary
+    images at batch 16) and the plans its draws handed out."""
+    key, imgs, idx = _data()
+    draws = _CountingDraws(0, "cpu")
+    obs = tobs.make_obs(trace=True)
+    _, hist = run_fedssl(*_configs(tbase), images=imgs, client_indices=idx,
+                         aux_images=imgs[:32], draws=draws, device="cpu",
+                         engine=request.param, obs=obs)
+    events = sorted(obs.tracer.events, key=lambda e: e["seq"])
+    return request.param, events, draws.plans, hist
+
+
+def _children(events, parent):
+    return [e["name"] for e in events if e["parent"] == parent["seq"]]
+
+
+def test_every_step_holds_its_phases_in_order(own_spans):
+    engine, events, plans, _ = own_spans
+    steps = [e for e in events
+             if e["name"] in ("local_step", "calibrate.step")]
+    assert steps
+    for e in steps:
+        assert _children(events, e) == STEP_PHASES, e["name"]
+        assert e["cat"] == "step" and isinstance(e["args"]["t"], int)
+    # the phases open nowhere else
+    by_seq = {e["seq"]: e for e in events}
+    for e in events:
+        if e["name"] in STEP_PHASES:
+            assert by_seq[e["parent"]]["name"] in ("local_step",
+                                                   "calibrate.step")
+
+
+def test_one_local_step_per_step_and_the_rounds_inputs(own_spans):
+    engine, events, plans, _ = own_spans
+    local = [n for cal, n in plans if not cal]
+    assert len(local) == ROUNDS * CLIENTS
+    by_seq = {e["seq"]: e for e in events}
+    if engine == "sequential":
+        trains = [e for e in events if e["name"] == "client.train"]
+        assert [len(_children(events, e)) for e in trains] == local
+        assert all(set(_children(events, e)) == {"local_step"}
+                   for e in trains)
+    else:
+        dispatches = [e for e in events if e["name"] == "engine.dispatch"]
+        assert len(dispatches) == ROUNDS
+        for r, e in enumerate(dispatches):
+            kids = _children(events, e)
+            mine = local[r * CLIENTS:(r + 1) * CLIENTS]
+            assert kids[0] == "engine.inputs"
+            assert kids.count("engine.inputs") == 1
+            assert kids.count("local_step") == max(mine)
+        steps = [e for e in events if e["name"] == "local_step"]
+        assert all(by_seq[e["parent"]]["name"] == "engine.dispatch"
+                   for e in steps)
+        assert [e["args"]["t"] for e in steps] == \
+            [t for r in range(ROUNDS) for t in range(max(local[:CLIENTS]))]
+    fedavg = [e for e in events if e["name"] == "fedavg"]
+    assert len(fedavg) == ROUNDS
+    assert all(e["args"]["clients"] == CLIENTS for e in fedavg)
+    assert {by_seq[e["parent"]]["name"] for e in fedavg} == \
+        {"aggregate" if engine == "sequential" else "engine.dispatch"}
+
+
+def test_calibration_steps_follow_the_draws_plan(own_spans):
+    _, events, plans, _ = own_spans
+    cal = [n for c, n in plans if c]
+    assert len(cal) == ROUNDS and all(n == 2 for n in cal)
+    calibrates = [e for e in events if e["name"] == "calibrate"]
+    assert [len(_children(events, e)) for e in calibrates] == cal
+    assert all(set(_children(events, e)) == {"calibrate.step"}
+               for e in calibrates)
+    steps = [e for e in events if e["name"] == "calibrate.step"]
+    assert [e["args"]["t"] for e in steps] == [0, 1] * ROUNDS
+
+
+def test_every_completed_span_has_its_cpu_time(own_spans):
+    _, events, _, _ = own_spans
+    spans = [e for e in events if e["ph"] == "X"]
+    assert spans and all(e["args"]["cpu_us"] >= 0 for e in spans)
+    assert all("cpu_us" not in e["args"] for e in events if e["ph"] == "i")
+    # the CPU time of a span is no less than its steps'
+    run = next(e for e in spans if e["name"] == "run")
+    steps = sum(e["args"]["cpu_us"] for e in spans
+                if e["name"] in ("local_step", "calibrate.step"))
+    assert 0 < steps <= run["args"]["cpu_us"]
+
+
+def test_cpu_time_is_left_out_of_the_structure():
+    tracers = []
+    for burn in (0, 200_000):
+        t = tobs.Tracer()
+        with t.span("round", cat="fl", round=0):
+            sum(range(burn))
+        tracers.append(t)
+    assert tracers[0].structure() == tracers[1].structure()
+    assert all(e["args"]["cpu_us"] >= 0 for t in tracers for e in t.events)
+
+
+def test_spans_open_profiler_ranges_only_while_the_profiler_runs(tmp_path):
+    obs = tobs.make_obs(trace=True, profile_dir=str(tmp_path))
+    t = obs.tracer
+    with t.span("before.profiler"):
+        pass
+    assert t.ranges is None
+    obs.start_profiler()
+    assert t.ranges is not None
+    with t.span("local_step", cat="step", t=0):
+        with t.span("step.update", cat="step"):
+            torch.ones(8).add_(1)
+    path = obs.stop_profiler()
+    assert t.ranges is None
+    names = {e.get("name") for e in json.loads(path.read_text())[
+        "traceEvents"]}
+    assert {"local_step", "step.update"} <= names
+    assert "before.profiler" not in names
+    # the no-op tracer stays the allocation-free singleton
+    off = tobs.make_obs(profile_dir=str(tmp_path / "off"))
+    off.start_profiler()
+    assert off.tracer is tobs.NOOP_TRACER
+    assert not hasattr(tobs.NOOP_TRACER, "ranges")
+    off.stop_profiler()
+
+
+# ---------------------------------------------------------------------------
 # the LM loop
 # ---------------------------------------------------------------------------
 LM_ARCH, LM_ROUNDS, LM_CLIENTS, LM_BATCH, LM_SAMPLES, LM_SEQ = \
@@ -387,7 +545,7 @@ def test_lm_trace_matches_reference_span_names(tmp_path):
         tokens=np.asarray(toks), labels=np.asarray(labs),
         shards=iid_partition(LM_SAMPLES, LM_CLIENTS, seed=0), params=init,
         device="cpu", obs=obs)
-    got = _normalise(obs.tracer.events)
+    got = _normalise(obs.tracer.events, PORT_ONLY)
     want = _normalise(want)
     assert [g[:5] for g in got] == [w[:5] for w in want]
     for g, w in zip(got, want):

@@ -157,15 +157,52 @@ def test_breakdown_and_comm_table_print_the_reference_output(capsys):
     traces = [trace("e2e", 10_000_000, 10_000_000),
               trace("layerwise", 1_000_000, 1_000_000)]
     outs = []
+    want = jtrace.round_breakdown(events)
     for mod in (ttrace, jtrace):
         mod.print_breakdown("run.jsonl", events)
-        assert mod.round_breakdown(events) == jtrace.round_breakdown(events)
+        got = mod.round_breakdown(events)
+        # the port adds each name's self and CPU time to the reference's
+        assert {n: {k: d[k] for k in want[n]} for n, d in got.items()} \
+            == want
         rows = mod.comm_table(traces)
         assert rows == jtrace.comm_table(traces)
         mod.print_comm_table(rows)
         outs.append(capsys.readouterr().out)
-    assert outs[0] == outs[1]
+    port, ref = (o.splitlines() for o in outs)
+    assert len(port) == len(ref)
+    assert all(p.startswith(r) for p, r in zip(port, ref))
     assert "local_train                   2     3.000s  1500.00ms" in outs[0]
+    # no span here has children or a CPU time
+    assert "1500.00ms     3.000s          -" in outs[0]
+
+
+def test_breakdown_adds_self_and_cpu_time(capsys):
+    """Self time is a span's duration less its child spans' (a virtual
+    track's spans are no children); CPU time sums the spans' ``cpu_us``."""
+    def span(seq, parent, name, dur, cat="step", **args):
+        return {**_span(name, cat, dur, **args), "seq": seq,
+                "parent": parent}
+    events = [span(0, None, "local_step", 1_000_000, cpu_us=900_000.0),
+              span(1, 0, "step.forward", 300_000, cpu_us=250_000.0),
+              span(2, 0, "step.update", 500_000, cpu_us=480_000.0),
+              span(3, 0, "client", 9_000_000, cat="sim"),
+              span(4, None, "local_step", 2_000_000, cpu_us=100_000.0),
+              span(5, 4, "step.update", 1_500_000, cpu_us=90_000.0),
+              {"ph": "i", "name": "mark", "cat": "fl", "ts": 0, "dur": 0.0,
+               "pid": 0, "tid": 0, "seq": 6, "parent": 4, "depth": 1,
+               "args": {}}]
+    br = ttrace.round_breakdown(events)
+    assert br["local_step"]["count"] == 2
+    assert br["local_step"]["self_s"] == pytest.approx(0.2 + 0.5)
+    assert br["local_step"]["cpu_s"] == pytest.approx(1.0)
+    assert br["step.update"]["self_s"] == pytest.approx(2.0)
+    assert br["step.update"]["cpu_s"] == pytest.approx(0.57)
+    assert "client" not in br and "mark" not in br
+    ttrace.print_breakdown("run.jsonl", events)
+    out = capsys.readouterr().out
+    assert "self" in out and "cpu" in out
+    assert ("local_step                    2     3.000s  1500.00ms     "
+            "0.700s     1.000s") in out
 
 
 def test_both_clis_read_each_others_traces(tmp_path, capsys):
