@@ -69,9 +69,13 @@ def loss_and_grads(state, x1, x2, *, encoder, ssl_cfg, sub_layers: int,
 def train_step(state, opt_state, x1, x2, lr: float, *, encoder, ssl_cfg,
                opt, sub_layers: int, active_from: int, layer_gates=None,
                global_enc: Optional[Tree] = None, align_weight: float = 0.0,
-               tracer=NOOP_TRACER):
+               tracer=NOOP_TRACER, mask: Optional[Tree] = None,
+               scalars=None):
     """One masked optimizer step of ``ssl_loss`` on the views (x1, x2),
-    then the target EMA. Returns (state, opt_state, metrics)."""
+    then the target EMA. Returns (state, opt_state, metrics). ``mask``
+    (``stage_update_mask``'s, built here when None) and ``scalars`` (the
+    optimizer's per-step scalars as device tensors, ``Optimizer.update``)
+    let a step captured as a CUDA graph take them from outside."""
     _, metrics, grads = loss_and_grads(
         state, x1, x2, encoder=encoder, ssl_cfg=ssl_cfg,
         sub_layers=sub_layers, active_from=active_from,
@@ -81,17 +85,20 @@ def train_step(state, opt_state, x1, x2, lr: float, *, encoder, ssl_cfg,
         state, opt_state = _apply_update(state, opt_state, grads, lr,
                                          ssl_cfg=ssl_cfg, opt=opt,
                                          sub_layers=sub_layers,
-                                         active_from=active_from)
+                                         active_from=active_from, mask=mask,
+                                         scalars=scalars)
     return state, opt_state, {k: v.detach() for k, v in metrics.items()}
 
 
 def _apply_update(state, opt_state, grads, lr, *, ssl_cfg, opt,
-                  sub_layers: int, active_from: int):
+                  sub_layers: int, active_from: int, mask=None,
+                  scalars=None):
     """The masked optimizer step on the online branch, then the target
     EMA (Algorithm 2, lines 14-15)."""
-    mask = stage_update_mask(state["online"], sub_layers, active_from)
+    if mask is None:
+        mask = stage_update_mask(state["online"], sub_layers, active_from)
     new_online, opt_state = opt.update(grads, opt_state, state["online"], lr,
-                                       mask)
+                                       mask, scalars=scalars)
     state = ssl_mod.momentum_update({**state, "online": new_online},
                                     ssl_cfg.momentum)
     return state, opt_state

@@ -375,15 +375,12 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                                                   eng.counts)))
                     state = {**state, "online": new_online}
                     if plan.server_calibrate and aux_images is not None:
-                        with tracer.span("calibrate", cat="fl",
-                                         sub_layers=plan.sub_layers):
-                            state = server.server_calibrate(
-                                state, aux_images, draws, opt,
-                                encoder=encoder, ssl_cfg=ssl_cfg,
-                                sub_layers=plan.sub_layers,
-                                epochs=fl.server_epochs,
-                                batch_size=train_cfg.batch_size, lr=lr,
-                                tracer=tracer)
+                        state = server.server_calibrate(
+                            state, aux_images, draws, opt, encoder=encoder,
+                            ssl_cfg=ssl_cfg, sub_layers=plan.sub_layers,
+                            epochs=fl.server_epochs,
+                            batch_size=train_cfg.batch_size, lr=lr,
+                            tracer=tracer)
                     cb = comm.round_comm_bytes(
                         state["online"], plan,
                         include_heads=fl.include_heads)

@@ -4,7 +4,8 @@ Each wrapper looks at the device of the tensors it is given: CPU tensors go
 to the plain version in ``ref.py``; CUDA tensors go to the hand-written
 kernel, which either launches or raises (there is no fallback). Every
 kernel launch adds one to ``LAUNCHES[name]``, so a run can show that its
-main path went through the kernels.
+main path went through the kernels; ``GraphLaunches`` keeps the count for
+kernels replayed in a CUDA graph.
 
 ``rmsnorm``, ``flash_attention``, ``info_nce_rows`` and ``ssd_scan`` are
 ``torch.autograd.Function``s whose forward is the kernel (or the plain
@@ -65,6 +66,7 @@ ops with a rule of their own.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -93,6 +95,33 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+class GraphLaunches:
+    """Keeps ``LAUNCHES`` a count of the kernels that ran where they run
+    inside a CUDA graph. The counters count on the host, at each call: a
+    capture calls every kernel of the graph and runs none, and a replay
+    runs them all and calls none. ``capture()`` wraps the capture, records
+    the launches it counted (``delta``) and takes them back out;
+    ``replayed()`` adds them once for each replay."""
+
+    def __init__(self):
+        self.delta: Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def capture(self):
+        before = dict(LAUNCHES)
+        try:
+            yield self
+        finally:
+            self.delta = {k: LAUNCHES[k] - before[k] for k in KERNELS
+                          if LAUNCHES[k] != before[k]}
+            for k, n in self.delta.items():
+                LAUNCHES[k] -= n
+
+    def replayed(self) -> None:
+        for k, n in self.delta.items():
+            LAUNCHES[k] += n
 
 
 def _device_kind(*tensors: torch.Tensor) -> str:

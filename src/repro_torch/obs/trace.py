@@ -22,7 +22,12 @@ nest; a traced ViT run records (``*`` repeated, ``|`` one of)::
 sequential engine with its draws; the vmap engine draws the whole round
 in ``engine.inputs``), ``step.forward`` the loss, ``step.backward`` its
 ``torch.autograd.grad``, ``step.update`` the masked optimizer step and
-the target EMA, ``fedavg`` the weighted mean of the decoded uploads.
+the target EMA, ``fedavg`` the weighted mean of the decoded uploads. On a
+CUDA device calibration's second step is captured as a CUDA graph and
+every later one replays it (``server.server_calibrate``): each
+``calibrate.step`` carries its ``mode`` (``eager``, ``capture`` or
+``replay``), a replayed step holds ``step.views`` alone, and the
+``calibrate`` span counts the replays in ``replays``.
 Each completed span becomes one Chrome ``trace_event``-shaped record::
 
     {"ph": "X", "name", "cat", "ts", "dur", "pid", "tid",

@@ -15,6 +15,13 @@ States keep the reference's layouts and key paths: AdamW ``{"mu", "nu",
 count. The step count is a Python int; the scalars the reference computes
 from it in fp32 (bias corrections, Adafactor's decay) are rounded to fp32
 here too, so each is then an exact Python scalar.
+
+``scalars(count, lr)`` gives an update's per-step scalars (the learning
+rate and those of its step count) as such floats. ``update(...,
+scalars=)`` takes them instead as 0-dim fp32 tensors on the parameters'
+device, holding the same values, and gives the same bits: a step captured
+as a CUDA graph reads them from the tensors at each replay, where a Python
+float would stay baked in at its captured value.
 """
 from __future__ import annotations
 
@@ -30,7 +37,22 @@ Tree = Dict[str, torch.Tensor]
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Tree], dict]
-    update: Callable[..., tuple]  # (grads, state, params, lr, mask=None)
+    # (grads, state, params, lr, mask=None, scalars=None)
+    update: Callable[..., tuple]
+    # (count, lr) -> the scalars of the update that makes the step count
+    # ``count`` (SGDM, which counts no steps, takes any)
+    scalars: Callable[[int, float], Dict[str, float]]
+
+
+def _divide_by(s):
+    """``x -> x / s``, with the bits of a division by the float that ``s``
+    holds. CUDA divides a tensor by a host scalar as a product with the
+    scalar's fp32 reciprocal, so a CUDA tensor ``s`` takes that route too;
+    elsewhere both divide."""
+    if isinstance(s, torch.Tensor) and s.is_cuda:
+        r = torch.reciprocal(s)
+        return lambda x: x * r
+    return lambda x: x / s
 
 
 def make_adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
@@ -42,7 +64,14 @@ def make_adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
                        for k, p in params.items()},
                 "count": 0}
 
-    def update(grads: Tree, state: dict, params: Tree, lr, mask=None):
+    def step_scalars(count: int, lr: float) -> Dict[str, float]:
+        f32 = np.float32
+        return {"lr": float(f32(lr)),
+                "bc1": float(f32(1) - f32(b1) ** f32(count)),
+                "bc2": float(f32(1) - f32(b2) ** f32(count))}
+
+    def update(grads: Tree, state: dict, params: Tree, lr, mask=None,
+               scalars=None):
         if grad_clip:
             gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2)
                                    for g in grads.values()))
@@ -50,16 +79,15 @@ def make_adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
                                 max=1.0)
             grads = {k: g * scale for k, g in grads.items()}
         c = state["count"] + 1
-        f32 = np.float32
-        bc1 = float(f32(1) - f32(b1) ** f32(c))
-        bc2 = float(f32(1) - f32(b2) ** f32(c))
-        lr = float(f32(lr))
+        s = step_scalars(c, lr) if scalars is None else scalars
+        lr, over_bc1, over_bc2 = (s["lr"], _divide_by(s["bc1"]),
+                                  _divide_by(s["bc2"]))
         mu, nu, new = {}, {}, {}
         for k, p in params.items():
             g = grads[k].to(torch.float32)
             m = b1 * state["mu"][k] + (1 - b1) * g
             v = b2 * state["nu"][k] + (1 - b2) * torch.square(g)
-            u = -lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)
+            u = -lr * (over_bc1(m) / (torch.sqrt(over_bc2(v)) + eps)
                        + weight_decay * p.to(torch.float32))
             if mask is not None:
                 u = u * mask[k]
@@ -67,7 +95,7 @@ def make_adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
             new[k] = (p + u).to(p.dtype)
         return new, {"mu": mu, "nu": nu, "count": c}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, step_scalars)
 
 
 def make_adafactor(eps=1e-30, clip_threshold=1.0, decay_rate=0.8,
@@ -90,12 +118,17 @@ def make_adafactor(eps=1e-30, clip_threshold=1.0, decay_rate=0.8,
             return {"v": torch.zeros_like(p, dtype=torch.float32)}
         return {"m": {k: leaf(p) for k, p in params.items()}, "count": 0}
 
-    def update(grads: Tree, state: dict, params: Tree, lr, mask=None):
-        c = state["count"] + 1
+    def step_scalars(count: int, lr: float) -> Dict[str, float]:
         f32 = np.float32
-        beta = f32(1) - f32(c) ** f32(-decay_rate)
-        keep, beta = float(f32(1) - beta), float(beta)
-        lr = float(f32(lr))
+        beta = f32(1) - f32(count) ** f32(-decay_rate)
+        return {"lr": float(f32(lr)), "beta": float(beta),
+                "keep": float(f32(1) - beta)}
+
+    def update(grads: Tree, state: dict, params: Tree, lr, mask=None,
+               scalars=None):
+        c = state["count"] + 1
+        s = step_scalars(c, lr) if scalars is None else scalars
+        lr, beta, keep = s["lr"], s["beta"], s["keep"]
         new_m, new = {}, {}
         for k, p in params.items():
             g = grads[k].to(torch.float32)
@@ -122,7 +155,7 @@ def make_adafactor(eps=1e-30, clip_threshold=1.0, decay_rate=0.8,
             new[k] = (p + upd).to(p.dtype)
         return new, {"m": new_m, "count": c}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, step_scalars)
 
 
 def make_sgdm(momentum=0.9, weight_decay=0.0) -> Optimizer:
@@ -132,8 +165,12 @@ def make_sgdm(momentum=0.9, weight_decay=0.0) -> Optimizer:
         return {"v": {k: torch.zeros_like(p, dtype=torch.float32)
                       for k, p in params.items()}}
 
-    def update(grads: Tree, state: dict, params: Tree, lr, mask=None):
-        lr = float(np.float32(lr))
+    def step_scalars(count: int, lr: float) -> Dict[str, float]:
+        return {"lr": float(np.float32(lr))}
+
+    def update(grads: Tree, state: dict, params: Tree, lr, mask=None,
+               scalars=None):
+        lr = (step_scalars(0, lr) if scalars is None else scalars)["lr"]
         vs, new = {}, {}
         for k, p in params.items():
             v = momentum * state["v"][k] + grads[k].to(torch.float32) \
@@ -145,7 +182,7 @@ def make_sgdm(momentum=0.9, weight_decay=0.0) -> Optimizer:
             new[k] = (p + u).to(p.dtype)
         return new, {"v": vs}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, step_scalars)
 
 
 def make_optimizer(train_cfg) -> Optimizer:

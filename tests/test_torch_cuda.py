@@ -1052,3 +1052,155 @@ def test_one_rank_sharded_step_equals_unsharded_on_card(dev):
     for k, v in want_p.items():
         assert torch.equal(got_p[k].to_local(), v), k
     assert got_launch == want_launch
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor", "sgdm"])
+def test_device_scalars_give_the_float_updates_bits_on_card(dev, name):
+    """On the card a tensor divided by a Python float is a product with
+    the float's fp32 reciprocal: an update given its per-step scalars as
+    0-dim device tensors (a captured step's) still gives the bits of the
+    update that computes them as floats."""
+    from repro_torch.optim import optimizers as topt
+    opt = {"adamw": topt.make_adamw(weight_decay=0.1),
+           "adafactor": topt.make_adafactor(weight_decay=0.1),
+           "sgdm": topt.make_sgdm(weight_decay=0.1)}[name]
+    shapes = {"big": (256, 512), "vec": (40,), "stack": (3, 200, 130)}
+    params = {k: _rand(s, torch.float32, dev, i)
+              for i, (k, s) in enumerate(shapes.items())}
+    runs = []
+    for tensors in (False, True):
+        p, st = dict(params), opt.init(params)
+        for c in range(1, 5):
+            grads = {k: _rand(s, torch.float32, dev, 10 * c + i)
+                     for i, (k, s) in enumerate(shapes.items())}
+            sc = None if not tensors else {
+                k: torch.tensor(v, dtype=torch.float32, device=dev)
+                for k, v in opt.scalars(c, 3e-3).items()}
+            p, st = opt.update(grads, st, p, 3e-3, scalars=sc)
+        runs.append(p)
+    for k in shapes:
+        assert torch.equal(runs[1][k], runs[0][k]), k
+
+
+# (SSL method, optimizer): the benchmark's, and a method without a target
+# branch and optimizers whose per-step scalars differ
+CALIBRATION_CASES = [("moco_v3", "adamw"), ("byol", "adafactor"),
+                     ("simclr", "sgdm")]
+
+
+@pytest.mark.parametrize("method,optimizer", CALIBRATION_CASES)
+def test_graphed_calibration_matches_eager_steps(dev, method, optimizer):
+    """``server_calibrate`` at ViT-Tiny's widths and depth, batch 256, 4
+    steps (one eager, one captured, the rest replayed) against a loop of
+    eager ``train_step`` calls on the same draws: the same state to the
+    bit; ``LAUNCHES`` up by 4 times one eager step's calls; the spans'
+    modes and the replay count; the peak allocated over what was held
+    before no more than 1% above the eager loop's."""
+    from repro_torch import obs as tobs
+    from repro_torch.configs.base import (SSLConfig, TrainConfig,
+                                          load_arch)
+    from repro_torch.core import ssl as ssl_mod
+    from repro_torch.data.augment import two_views
+    from repro_torch.data.synthetic import synthetic_images
+    from repro_torch.federated import server
+    from repro_torch.federated.client import train_step
+    from repro_torch.federated.draws import TorchDraws
+    from repro_torch.optim import make_optimizer
+
+    cfg = load_arch("vit-tiny")
+    ssl_cfg = SSLConfig(method=method)
+    encoder = ssl_mod.make_vit_encoder(cfg)
+    opt = make_optimizer(TrainConfig(batch_size=256, optimizer=optimizer))
+    images, _ = synthetic_images(torch.Generator(dev).manual_seed(0), 512,
+                                 10, 32)
+    state = TorchDraws(0, dev).init_state(encoder, ssl_cfg)
+    L, epochs, batch, lr, steps = cfg.num_layers, 2, 256, 3e-4, 4
+
+    def measured(fn):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = ops.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        return (out, torch.cuda.max_memory_allocated() - held,
+                {k: after[k] - before[k] for k in after})
+
+    def eager_loop():
+        draws = TorchDraws(1, dev)
+        st, opt_state = state, opt.init(state["online"])
+        for idx, handle in draws.batch_plan(512, epochs, batch,
+                                            calibration=True):
+            x1, x2 = two_views(images[idx],
+                               *draws.views(handle, batch, 32, 32))
+            st, opt_state, _ = train_step(
+                st, opt_state, x1, x2, lr, encoder=encoder, ssl_cfg=ssl_cfg,
+                opt=opt, sub_layers=L, active_from=0)
+        return st
+
+    obs = tobs.make_obs(trace=True)
+
+    def graphed():
+        return server.server_calibrate(
+            state, images, TorchDraws(1, dev), opt, encoder=encoder,
+            ssl_cfg=ssl_cfg, sub_layers=L, epochs=epochs, batch_size=batch,
+            lr=lr, tracer=obs.tracer)
+
+    eager_loop()                                 # builds, warms the cache
+    want, eager_peak, eager_calls = measured(eager_loop)
+    got, graph_peak, graph_calls = measured(graphed)
+    assert set(got) == set(want)
+    for br in want:
+        assert set(got[br]) == set(want[br])
+        for k in want[br]:
+            assert torch.equal(got[br][k], want[br][k]), (br, k)
+    branches = 1 if method == "simclr" else 2     # online (and target)
+    assert eager_calls["flash_attention"] == steps * 2 * branches * L
+    assert graph_calls == eager_calls
+    events = obs.tracer.events
+    modes = [e["args"]["mode"] for e in events
+             if e["name"] == "calibrate.step"]
+    assert modes == ["eager", "capture"] + ["replay"] * (steps - 2)
+    (cal,) = [e for e in events if e["name"] == "calibrate"]
+    assert cal["args"]["replays"] == steps - 1
+    assert graph_peak <= 1.01 * eager_peak, (graph_peak, eager_peak)
+
+
+def test_graphed_step_capture_error_and_one_open_step(dev):
+    """``GraphedStep``: a step that raises during its capture raises its
+    own error and leaves the launch counters and the device's pool as
+    they were; a second step cannot open while one is open; after close
+    the next capture reuses the pool and replays right."""
+    from repro_torch.federated.graphed import GraphedStep
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    y = torch.zeros_like(x)
+
+    def failing():
+        ops.LAUNCHES["rmsnorm_rows"] += 3
+        raise ValueError("in the step")
+
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="in the step"):
+        GraphedStep(failing, dev)
+    assert ops.launch_counts() == before
+
+    def double():
+        y.copy_(x * 2)
+
+    g = GraphedStep(double, dev)
+    with pytest.raises(RuntimeError, match="already open"):
+        GraphedStep(double, dev)
+    for k in range(3):
+        x.fill_(k)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, torch.full_like(x, 2 * k))
+    assert g.replays == 3
+    g.close()
+    h = GraphedStep(lambda: y.copy_(x + 1), dev)
+    x.fill_(5)
+    h.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.full_like(x, 6))
+    h.close()

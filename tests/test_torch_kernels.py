@@ -224,6 +224,32 @@ def test_wrappers_count_only_kernel_launches():
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
+@pytest.mark.parametrize("replays", [0, 1, 3])
+def test_graph_launches_count_replays_not_the_capture(replays):
+    """``GraphLaunches``: the calls a capture counts (bumped here as a
+    kernel wrapper bumps them: the CPU launches nothing) are taken back
+    out; each replay adds them once; kernels the capture did not call are
+    left alone; a capture that raises takes its calls out too."""
+    ops.reset_launch_counts()
+    ops.LAUNCHES["rmsnorm_rows"] = 5
+    start = ops.launch_counts()
+    calls = {"flash_attention": 48, "rmsnorm_rows": 100, "info_nce_rows": 2}
+    graph = ops.GraphLaunches()
+    with graph.capture():
+        for k, n in calls.items():
+            ops.LAUNCHES[k] += n
+    assert ops.launch_counts() == start and graph.delta == calls
+    for _ in range(replays):
+        graph.replayed()
+    assert ops.launch_counts() == {k: start[k] + replays * calls.get(k, 0)
+                                   for k in ops.KERNELS}
+    with pytest.raises(ValueError), ops.GraphLaunches().capture():
+        ops.LAUNCHES["ssd_scan"] += 4
+        raise ValueError("capture failed")
+    assert ops.LAUNCHES["ssd_scan"] == 0
+    ops.reset_launch_counts()
+
+
 def _loss_rmsnorm(x, s):
     return (ops.rmsnorm(x, s) ** 2).sum()
 

@@ -4,6 +4,8 @@ with momentum, leaf by leaf, states included, with a freeze mask; the
 Adafactor state layout (``tests/test_optim.py``) and its per-client init
 on the vmap engine; SGDM (no step count) on the vmap engine; and SimCLR
 and BYOL states through the checkpoint files of both packages."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -80,6 +82,70 @@ def test_update_matches_reference(name):
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=RTOL, atol=ATOL,
                                    err_msg=k)
+
+
+def _device_scalars(opt, count, lr):
+    """An update's per-step scalars as 0-dim fp32 tensors, as a step
+    captured as a CUDA graph holds them."""
+    return {k: torch.tensor(v, dtype=torch.float32)
+            for k, v in opt.scalars(count, lr).items()}
+
+
+def _stacked_update(opt, grads, state, params, lr, mask, scalars=None):
+    """``opt.update`` under ``torch.func.vmap`` over a client axis, with
+    the step count shared, as ``client.stacked_train_step`` calls it."""
+    per_leaf, shared = client.shared_opt_state(state)
+    new_shared = {}
+
+    def one(g, s, p):
+        p, st = opt.update(g, {**s, **shared}, p, lr, mask, scalars=scalars)
+        leaf, sh = client.shared_opt_state(st)
+        new_shared.update(sh)
+        return p, leaf
+
+    params, per_leaf = torch.func.vmap(one)(grads, per_leaf, params)
+    return params, {**per_leaf, **new_shared}
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("steps", [1, 2, 5])
+@pytest.mark.parametrize("name", list(MAKERS))
+def test_device_scalars_give_the_float_updates_bits(name, steps, stacked):
+    """An update given its per-step scalars (``Optimizer.scalars``) as
+    0-dim tensors is bitwise the update that computes them as Python
+    floats from the step count, alone and under ``vmap`` over 3 clients,
+    step after step; the step count stays a Python int."""
+    opt, lr, C = MAKERS[name](topt), 3e-3, 3
+    mask = {k: torch.tensor(0.0 if k == "frozen" else 1.0) for k in SHAPES}
+
+    def leaves(seed):
+        t = {k: torch.from_numpy(v) for k, v in _inputs(seed).items()}
+        if stacked:
+            t = {k: torch.stack([v * (c + 1) for c in range(C)])
+                 for k, v in t.items()}
+        return t
+
+    update = functools.partial(_stacked_update, opt) if stacked \
+        else opt.update
+    init = functools.partial(client.stacked_opt_init, opt) if stacked \
+        else opt.init
+    params = leaves(0)
+    runs = []
+    for tensors in (False, True):
+        p, st = dict(params), init(params)
+        for c in range(1, steps + 1):
+            sc = _device_scalars(opt, c, lr) if tensors else None
+            p, st = update(leaves(c), st, p, lr, mask, scalars=sc)
+        runs.append((p, st))
+    (p0, s0), (p1, s1) = runs
+    for k in SHAPES:
+        assert torch.equal(p1[k], p0[k]), k
+    f0, f1 = _flat(s0), _flat(s1)
+    assert sorted(f1) == sorted(f0)
+    for k in f0:
+        np.testing.assert_array_equal(f1[k], f0[k], err_msg=k)
+    if name != "sgdm":
+        assert type(s1["count"]) is int and s1["count"] == steps
 
 
 def test_adafactor_factored_state_shapes():
