@@ -287,7 +287,13 @@ Phases, each of which must pass (any failure exits non-zero):
    attention backward at the MLA head dims. Phase 2m's: the dense LM's
    decode attention, one query over 128 keys (4, 1 / 128, 16/8 heads of
    128, non-causal, bf16), beside ``F.scaled_dot_product_attention``, and
-   its RMSNorm at (4, 2048) fp32 beside ``F.rms_norm``.
+   its RMSNorm at (4, 2048) fp32 beside ``F.rms_norm``. Zamba2-7B's (the
+   benchmark's zamba2-7b cell): causal bf16 attention at (1, 4096, 32,
+   224), the SSD scan at (1, 4096, 112, 64), N 64, 2 groups, RMSNorm at
+   (4096, 3584) and (4096, 7168) fp32 and at (2, 4096, 3584) with a (2,
+   3584) scale (the gated norm's groups), and pack and unpack
+   bit-identical on the 18-layer cut's stage-3 download (the whole model,
+   2,245,451,680 floats, above 2**31) and upload, timed at the download.
 
 With ``--profile``, a fifth phase traces one local step of the last stage
 with ``torch.profiler``, of one client and of four at once (the vmap
@@ -858,13 +864,14 @@ def lm_expected_launches(cfg, plans, steps):
     return scans, attns
 
 
-def lm_pack_checks(params, plans, tag="lm", label="LM"):
+def lm_pack_checks(params, plans, tag="lm", label="LM", stages=None):
     """gather_pack and scatter_unpack against their plain versions on an
     LM path's own payloads: every distinct download and upload layout of
     ``plans`` over the trained tree (for zamba the (groups, attn_every,
-    ...) block stacks, shared_attn, embed, lm_head, final_ln),
-    bit-identical; unpack of a random payload into fresh leaves. Times at
-    the largest payload. Returns {name_<tag>: record}."""
+    ...) block stacks, shared_attn, embed, lm_head, final_ln; ``stages``
+    maps a zamba2-topology leaf to its stages), bit-identical; unpack of a
+    random payload into fresh leaves. Times at the largest payload.
+    Returns {name_<tag>: record}."""
     import torch
     from repro_torch.federated.transport import Transport
     from repro_torch.kernels import ops, ref
@@ -873,7 +880,8 @@ def lm_pack_checks(params, plans, tag="lm", label="LM"):
     gen = torch.Generator(dev).manual_seed(9)
     specs = {}
     for plan in plans:
-        for direction, spec in Transport().plan_specs(params, plan).items():
+        for direction, spec in Transport(stages=stages).plan_specs(
+                params, plan).items():
             key = (spec.total, tuple(map(tuple, spec.layout)),
                    tuple(s.path for s in spec.slots))
             names = specs.setdefault(key, ([], spec))[0]
@@ -942,6 +950,39 @@ DENSE_VMAP_RUN = dict(clients=4, rounds=2, batch=2, seq_len=1024,
 # parameters and batches, in batched (vmap) or single products summed in
 # another order; half a bf16 rounding step (2^-9) of the loss
 DENSE_VMAP_RTOL = 2.0 ** -9
+
+
+def zamba2_pack_checks():
+    """``lm_pack_checks`` on Zamba2-7B's stage-3 payloads at the zamba2-7b
+    benchmark cell's cut (published widths, layers 0-17, random fp32
+    leaves on the card): the download is the whole model, 2,245,451,680
+    floats (above 2**31 elements), and the upload the stage's 821,584,352;
+    timed at the download."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import FLConfig, load_arch
+    from repro_torch.core import schedule as sched
+    from repro_torch.federated.transport import Transport
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(load_arch("zamba2-7b"), num_layers=18,
+                              hybrid_layer_ids=(6, 11, 17))
+    stages = lm.leaf_stages(cfg)
+    gen = torch.Generator("cuda").manual_seed(10)
+    params = {k: torch.randn(s, generator=gen, device="cuda")
+              for k, s in lm.lm_shapes(cfg).items()}
+    plans = sched.build_schedule(FLConfig(rounds=3,
+                                          rounds_per_stage=(0, 0, 3)),
+                                 lm.num_stages(cfg))[:1]
+    specs = Transport(stages=stages).plan_specs(params, plans[0])
+    check(specs["download"].total == cfg.param_count() > 2 ** 31,
+          f"Zamba2-7B stage 3 download: {specs['download'].total} floats, "
+          f"not the whole {cfg.param_count()}-float model above 2**31")
+    rec = lm_pack_checks(params, plans, "zamba2_7b", "Zamba2-7B", stages)
+    del params
+    torch.cuda.empty_cache()
+    return rec
 
 
 def dense_config(layers=DENSE_LAYERS, **kw):
@@ -3516,13 +3557,13 @@ def ssd_inputs(B, S, H, P, N, gen, dev="cuda"):
             F.silu(rn(B, S, N)))
 
 
-def ssd_flops(B, S, H, P, N, chunk):
+def ssd_flops(B, S, H, P, N, chunk, G=1):
     """Operations the scan needs: C.B^T over the causal half (Q (Q + 1) / 2
-    entries) once per (batch, chunk), since Bm and Cm are shared by the
-    heads; per (batch, head, chunk) M.x over the causal half, C.h^T and the
-    state update."""
+    entries) once per (batch, group, chunk), since a group's Bm and Cm are
+    shared by its heads; per (batch, head, chunk) M.x over the causal half,
+    C.h^T and the state update."""
     Q = chunk
-    return (B * (S // Q) * Q * (Q + 1) * N
+    return (B * G * (S // Q) * Q * (Q + 1) * N
             + B * H * (S // Q) * (Q * (Q + 1) * P + 4 * Q * N * P))
 
 
@@ -3556,8 +3597,12 @@ LM_ATTENTION = (
      "deepseek-v2's reduced() MLA, the launcher's in phase 2l(b)"),
     ("flash_attention_decode",
      (4, 1, 128, 16, 8, 128, 128, False, "bfloat16"),
-     "the dense LM's decode step over its 128-slot KV cache, phase 2m"))
-# their RMSNorms: (record, (rows, d, dtype), use)
+     "the dense LM's decode step over its 128-slot KV cache, phase 2m"),
+    ("flash_attention_zamba2_7b",
+     (1, 4096, 4096, 32, 32, 224, 224, True, "bfloat16"),
+     "Zamba2-7B's shared block over the 7168-wide joined input"))
+# their RMSNorms: (record, (rows, d, dtype[, G]), use); with G, x is (G,
+# rows, d) and the scale (G, d), the form of a grouped or per-client scale
 LM_RMSNORM = (
     ("rmsnorm_rows_2560", (4096, 2560, "float32"), "zamba2's residual stream"),
     ("rmsnorm_rows_5120", (4096, 5120, "float32"), "zamba2's gated norm"),
@@ -3572,7 +3617,13 @@ LM_RMSNORM = (
     ("rmsnorm_rows_1024_enc", (1024, 1024, "float32"),
      "seamless-m4t's encoder blocks"),
     ("rmsnorm_rows_2048_decode", (4, 2048, "float32"),
-     "the dense LM's decode step, batch 4, phase 2m"))
+     "the dense LM's decode step, batch 4, phase 2m"),
+    ("rmsnorm_rows_3584", (4096, 3584, "float32"),
+     "Zamba2-7B's residual stream and its shared block's ff norm"),
+    ("rmsnorm_rows_7168", (4096, 7168, "float32"),
+     "Zamba2-7B's shared block's norm over the joined [x, e] input"),
+    ("rmsnorm_rows_3584_g2", (4096, 3584, "float32", 2),
+     "Zamba2-7B's gated norm: 2 groups of rows, one scale row a group"))
 # InfoNCE: (record suffix, (C, B, d)); a suffix of None is checked only
 LM_INFONCE = (("", (1, 4, 2560)), (None, (1, 4, 5000)), (None, (2, 40, 4100)),
               ("xlstm", (1, 4, 768)), ("encdec", (1, 2, 1024)))
@@ -3698,6 +3749,37 @@ def lm_kernel_checks():
     print(f"  ssd_scan with h0 [{r['shape']}]: kernel {r['ms']} ms, plain "
           f"{r['plain_ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']}); "
           f"without h0 {rec['ssd_scan']['ms']} ms", flush=True)
+    # two groups of B and C: Zamba2-7B's Mamba2 layers (112 heads of 64,
+    # head h reading group h // 56)
+    B, S, H, P, N, G, Q = 1, 4096, 112, 64, 64, 2, 256
+
+    def grouped():
+        x, dt, a, _, _ = ssd_inputs(B, S, H, P, N, gen)
+        bc = F.silu(torch.randn((B, S, 2 * G * N), generator=gen,
+                                device=dev))
+        return (x, dt, a, *(t.unflatten(-1, (G, N))
+                            for t in bc.split(G * N, dim=-1)))
+    sets = [grouped() for _ in range(2)]
+    line(f"ssd_scan ({B}, {S}, {H}, {P}) N {N} G {G} chunk {Q} fp32",
+         rel(ops.ssd_scan(*sets[0], chunk=Q),
+             ref.ssd_scan_ref(*sets[0], chunk=Q)), 1e-4)
+    bms, by = bound(4 * (2 * B * S * H * P + 2 * B * S * H + 2 * B * S * G * N
+                         + B * H * P * N),
+                    3 * ssd_flops(B, S, H, P, N, Q, G), mesh.PEAK_FLOPS_TF32)
+    rec["ssd_scan_g2"] = dict(
+        max_abs_err=max_err(ops.ssd_scan(*sets[0], chunk=Q),
+                            ref.ssd_scan_ref(*sets[0], chunk=Q)),
+        kernel="ssd_scan",
+        ms=time_ms([lambda a=a: ops.ssd_scan(*a, chunk=Q) for a in sets]),
+        plain_ms=time_ms([lambda a=a: ref.ssd_scan_ref(*a, chunk=Q)
+                          for a in sets]),
+        library_ms=None, bound_ms=bms, bound_by=by,
+        shape=f"xh ({B}, {S}, {H}, {P}), N {N}, G {G}, chunk {Q}, fp32 "
+              f"(one Mamba2 layer of Zamba2-7B)")
+    r = rec["ssd_scan_g2"]
+    print(f"  ssd_scan grouped [{r['shape']}]: kernel {r['ms']} ms, plain "
+          f"{r['plain_ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']})",
+          flush=True)
 
     # attention at each path's shapes, against ref.sdpa_ref: bf16 within
     # 2e-2, fp32 within 1e-5 of the largest value; beside
@@ -3752,30 +3834,38 @@ def lm_kernel_checks():
 
     # RMSNorm at each path's rows and width: fp32 within 1e-5 of the
     # largest value, bf16 (rounded once, like the plain version) within 2e-2
-    for name, (R, d, dtype), what in LM_RMSNORM:
+    for name, (R, d, dtype, *grp), what in LM_RMSNORM:
         dt = getattr(torch, dtype)
         size = dt.itemsize
-        xs = [torch.randn((R, d), generator=gen, device=dev).to(dt)
-              for _ in range(copies(2 * size * R * d))]
-        sc = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        G = grp[0] if grp else 1
+        lead = (G,) if grp else ()
+        xs = [torch.randn(lead + (R, d), generator=gen, device=dev).to(dt)
+              for _ in range(copies(2 * size * G * R * d))]
+        sc = 1 + 0.1 * torch.randn(lead + (d,), generator=gen, device=dev)
         err = max_err(ops.rmsnorm(xs[0], sc), ref.rmsnorm_ref(xs[0], sc))
+        where = f"rmsnorm_rows {lead + (R, d)}" + (
+            f" scale {tuple(sc.shape)}" if grp else "")
         if dt == torch.float32:
-            line(f"rmsnorm_rows ({R}, {d}) fp32",
+            line(f"{where} fp32",
                  rel(ops.rmsnorm(xs[0], sc), ref.rmsnorm_ref(xs[0], sc)),
                  1e-5)
         else:
-            print(f"  rmsnorm_rows ({R}, {d}) {dtype}: max |kernel - plain| "
+            print(f"  {where} {dtype}: max |kernel - plain| "
                   f"= {err:.3e} (tolerance 2e-2)", flush=True)
-            check(err <= 2e-2, f"rmsnorm_rows ({R}, {d}) {dtype}: error {err}")
-        bms, by = bound(2 * size * R * d + 4 * d, 4 * R * d)
+            check(err <= 2e-2, f"{where} {dtype}: error {err}")
+        n = G * R * d
+        bms, by = bound(2 * size * n + 4 * G * d, 4 * n)
         rec[name] = dict(
             kernel="rmsnorm_rows", max_abs_err=err,
             ms=time_ms([lambda a=a: ops.rmsnorm(a, sc) for a in xs]),
             plain_ms=time_ms([lambda a=a: ref.rmsnorm_ref(a, sc)
                               for a in xs]),
-            library_ms=time_ms([lambda a=a: F.rms_norm(
+            # the library's norm takes one scale row
+            library_ms=None if grp else time_ms([lambda a=a: F.rms_norm(
                 a, (d,), sc.to(a.dtype), 1e-5) for a in xs]),
-            bound_ms=bms, bound_by=by, shape=f"x ({R}, {d}) {dtype} ({what})")
+            bound_ms=bms, bound_by=by,
+            shape=f"x {lead + (R, d)} {dtype}" + (
+                f", scale {tuple(sc.shape)}" if grp else "") + f" ({what})")
 
     # InfoNCE forward, dq and dk on the alignment's mean-pooled states, and
     # wider; each within 1e-5 of the largest plain value
@@ -4561,6 +4651,7 @@ def run(profile: bool = False) -> int:
     rec.update(codec_kernel_checks(state))
     rec.update(infonce_kernel_checks())
     lm_rec = lm_kernel_checks()
+    lm_rec.update(zamba2_pack_checks())
     lm_rec.update(lm_pack_rec)
     lm_rec.update(xlstm_pack_rec)
     lm_rec.update(encdec_pack_rec)

@@ -184,6 +184,50 @@ class ModelConfig:
         return self.attn_param_count() * 2 + self.mlp_param_count(self.d_ff) + 3 * self.d_model
 
 
+@dataclass(frozen=True)
+class GroupedSSMConfig(SSMConfig):
+    """Mamba2 with ``n_groups`` groups of B and C (``ngroups``): head h
+    reads group h // (heads / n_groups), and the gated RMSNorm normalises
+    each group's run of ``d_inner / n_groups`` channels apart. A field of
+    its own class, so that the JAX package's configs keep their fields."""
+    n_groups: int = 1
+
+
+@dataclass(frozen=True)
+class Zamba2Config(ModelConfig):
+    """Zamba2 at its published layout (arXiv:2411.15242; the ``zamba2``
+    topology of ``models/lm.py``), beside the JAX package's ``zamba`` one:
+    ``num_layers`` Mamba2 layers, and at each layer of
+    ``hybrid_layer_ids`` (use i) one of ``num_mem_blocks`` shared blocks (i
+    mod ``num_mem_blocks``) over the stream joined to the token embedding
+    (2 d wide, ``num_heads`` heads of ``head_dim`` = 2 d / heads), whose
+    output, through use i's own LoRA on the MLP's gate-up product (rank
+    ``adapter_rank``) and its own d x d projection, enters that layer's
+    Mamba2 input only. As published, q.k is scaled by (head_dim / 2)^-0.5
+    and the embedding is not scaled by sqrt(d) (the ``zamba2`` topology
+    does both); a layer-wise stage is ``stage_layers`` layers. ``act``
+    "geglu" is the shared MLP's exact (erf) GELU gate."""
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    num_mem_blocks: int = 1
+    adapter_rank: int = 0
+    stage_layers: int = 6
+
+    def param_count(self) -> int:
+        """Every parameter of the layout, the tied embedding once."""
+        d, s, f = self.d_model, self.ssm, self.d_ff
+        di = s.expand * d
+        G = getattr(s, "n_groups", 1)
+        H, conv = di // s.head_dim, di + 2 * G * s.state_dim
+        mamba = d * (di + conv + H) + di * d + s.conv_width * conv + conv \
+            + 3 * H + di + d
+        width = self.num_heads * self.resolved_head_dim
+        shared = 2 * d + 3 * 2 * d * width + width * d + d + 3 * d * f
+        use = d * d + self.adapter_rank * (d + 2 * f)
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2) + d
+        return n + self.num_layers * mamba + self.num_mem_blocks * shared \
+            + len(self.hybrid_layer_ids) * use
+
+
 # ---------------------------------------------------------------------------
 # Input shapes (assigned)
 # ---------------------------------------------------------------------------

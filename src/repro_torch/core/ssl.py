@@ -25,6 +25,7 @@ from repro_torch.core import heads, losses
 from repro_torch.federated.leaves import tree_sorted
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import vit as vit_mod
+from repro_torch.obs.trace import NOOP_TRACER
 
 Tree = Dict[str, torch.Tensor]
 
@@ -155,7 +156,7 @@ def ssl_loss(state, x1, x2, encoder: Encoder, ssl_cfg, *,
 def lm_ssl_loss(params: Tree, batch, cfg, *, sub_layers=None,
                 active_from: int = 0, global_params: Optional[Tree] = None,
                 align_weight: float = 0.0, tau: float = 0.2,
-                remat: bool = False):
+                remat: bool = False, tracer=NOOP_TRACER):
     """Next-token cross-entropy over the stage-s sub-model, plus the
     paper's Eq. 3 alignment between the local and the global model's
     mean-pooled hidden states when ``align_weight > 0``. A batch may carry
@@ -164,12 +165,14 @@ def lm_ssl_loss(params: Tree, batch, cfg, *, sub_layers=None,
     cross-entropy and kept in the pooled states. The global model's forward
     runs under ``torch.no_grad()`` (the reference stops its gradient); the
     alignment is ``losses.info_nce``. ``remat`` recomputes each trained
-    block in the backward. Returns (loss, metrics)."""
+    block in the backward; ``tracer`` goes to both forwards. Returns
+    (loss, metrics)."""
     frontend = batch.get("frontend")
     x = lm_mod.embed(params, batch["tokens"], cfg, frontend)
     hidden, aux = lm_mod.forward_hidden(params, x, cfg,
                                         sub_layers=sub_layers,
-                                        active_from=active_from, remat=remat)
+                                        active_from=active_from, remat=remat,
+                                        tracer=tracer)
     P = 0 if frontend is None else frontend.shape[1]
     xent = lm_mod.xent_loss(params, hidden[:, P:] if P else hidden,
                             batch["labels"], cfg, batch.get("mask"))
@@ -181,7 +184,7 @@ def lm_ssl_loss(params: Tree, batch, cfg, *, sub_layers=None,
             xg = lm_mod.embed(global_params, batch["tokens"], cfg, frontend)
             hg, _ = lm_mod.forward_hidden(global_params, xg, cfg,
                                           sub_layers=sub_layers,
-                                          active_from=0)
+                                          active_from=0, tracer=tracer)
             z_global = torch.mean(hg.to(torch.float32), dim=1)
         la = losses.info_nce(z_local, z_global, tau)
         loss = loss + align_weight * la

@@ -18,12 +18,13 @@ a step's phases as the spans ``step.forward`` (the loss), ``step.backward``
 target EMA); ``local_train`` records each step as a ``local_step`` (its
 ``t``) holding ``step.views`` (the batch's draws and augmentation) and
 those three. The spans wrap the ``torch.func.vmap`` calls of the stacked
-step, never open inside them.
+step, never open inside them. ``lm_train_step`` records the last three
+(``run_lm_fedssl``'s sequential loop wraps each in a ``local_step``).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch.func import vmap
@@ -31,7 +32,8 @@ from torch.func import vmap
 from repro_torch.core import schedule as sched
 from repro_torch.core import ssl as ssl_mod
 from repro_torch.data.augment import two_views
-from repro_torch.federated.masks import stage_update_mask
+from repro_torch.federated.masks import stage_update_mask, trained_leaves
+from repro_torch.models import lm as lm_mod
 from repro_torch.obs.trace import NOOP_TRACER
 
 Tree = Dict[str, torch.Tensor]
@@ -190,21 +192,46 @@ def stacked_train_step(state, opt_state, x1, x2, lr: float, *, encoder,
     return state, {**per_leaf, **new_shared}, losses
 
 
+def lm_step_leaves(params: Tree, cfg, sub_layers: int,
+                   active_from: int) -> List[str]:
+    """The leaves an LM step differentiates and updates: every leaf, or in
+    the zamba2 topology (one leaf a row, ``lm.leaf_stages``) only those
+    the stage trains, so that gradients and the optimizer's state hold the
+    stage's rows alone."""
+    stages = lm_mod.leaf_stages(cfg)
+    if not stages:
+        return list(params)
+    return trained_leaves(params, sub_layers, active_from, stages)
+
+
 def lm_train_step(params: Tree, opt_state, batch, lr: float, *, cfg, opt,
                   sub_layers: int, active_from: int,
                   global_params: Optional[Tree] = None,
-                  align_weight: float = 0.0):
+                  align_weight: float = 0.0, tracer=NOOP_TRACER):
     """One masked optimizer step of ``lm_ssl_loss`` on ``batch`` (the
-    reference's LM ``train_step``). Returns (params, opt_state,
-    metrics)."""
-    p = {k: v.detach().requires_grad_() for k, v in params.items()}
-    loss, metrics = ssl_mod.lm_ssl_loss(
-        p, batch, cfg, sub_layers=sub_layers, active_from=active_from,
-        global_params=global_params, align_weight=align_weight)
-    grads = grads_of(loss, p)
-    mask = stage_update_mask(params, sub_layers, active_from)
-    params, opt_state = opt.update(grads, opt_state, params, lr, mask)
-    return params, opt_state, {k: v.detach() for k, v in metrics.items()}
+    reference's LM ``train_step``), over the leaves of ``lm_step_leaves``
+    (``opt_state`` is the optimizer's state of those); the other leaves are
+    frozen and come back as they went in, as the masked update leaves
+    them. ``tracer`` records ``step.forward``, ``step.backward`` and
+    ``step.update`` (and the forwards' ``shared_block`` spans). Returns
+    (params, opt_state, metrics)."""
+    keys = lm_step_leaves(params, cfg, sub_layers, active_from)
+    p = dict(params)
+    p.update({k: params[k].detach().requires_grad_() for k in keys})
+    with tracer.span("step.forward", cat="step"):
+        loss, metrics = ssl_mod.lm_ssl_loss(
+            p, batch, cfg, sub_layers=sub_layers, active_from=active_from,
+            global_params=global_params, align_weight=align_weight,
+            tracer=tracer)
+    with tracer.span("step.backward", cat="step"):
+        grads = grads_of(loss, {k: p[k] for k in keys})
+    with tracer.span("step.update", cat="step"):
+        trained = {k: params[k] for k in keys}
+        mask = stage_update_mask(trained, sub_layers, active_from,
+                                 lm_mod.leaf_stages(cfg))
+        new, opt_state = opt.update(grads, opt_state, trained, lr, mask)
+    return ({**params, **new}, opt_state,
+            {k: v.detach() for k, v in metrics.items()})
 
 
 def local_train(global_state, images: torch.Tensor, plan, draws, opt, *,

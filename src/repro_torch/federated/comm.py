@@ -2,9 +2,11 @@
 ``repro.federated.comm``).
 
 Bytes come from the parameter tensors: a stage range selects rows of every
-stacked block leaf; embedding-side and head parameters are added according
-to the flags. ``plan_payloads`` is the membership rule the wire transport
-shares, so with the fp32 codec its measured bytes equal these exactly.
+stacked block leaf, and each leaf that ``stages`` maps to its stages (the
+zamba2 topology's rows) whole when one of them is in the range;
+embedding-side and head parameters are added according to the flags.
+``plan_payloads`` is the membership rule the wire transport shares, so with
+the fp32 codec its measured bytes equal these exactly.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Dict
 import torch
 
 from repro_torch.federated.leaves import classify_leaf
+from repro_torch.federated.masks import Stages, stage_piece
 
 
 def tree_bytes(tree: Dict[str, torch.Tensor]) -> int:
@@ -21,12 +24,15 @@ def tree_bytes(tree: Dict[str, torch.Tensor]) -> int:
 
 
 def _leaf_bytes(path, a: torch.Tensor, stage_range, include_embed,
-                include_heads) -> int:
-    kind = classify_leaf(path)
+                include_heads, stages=None) -> int:
     full = a.numel() * a.element_size()
-    if kind == "stacked":
-        lo, hi = max(0, stage_range[0]), min(a.shape[0], stage_range[1])
-        return max(0, hi - lo) * (full // a.shape[0])
+    piece = stage_piece(path, a, *stage_range, stages)
+    if piece is not None:
+        kind, lo, hi = piece
+        if hi <= lo:
+            return 0
+        return full if kind == "staged" else (hi - lo) * (full // a.shape[0])
+    kind = classify_leaf(path)
     if kind == "embed":
         return full if include_embed else 0
     if kind == "head":
@@ -36,9 +42,10 @@ def _leaf_bytes(path, a: torch.Tensor, stage_range, include_embed,
 
 
 def partial_bytes(params: Dict[str, torch.Tensor], stage_range, *,
-                  include_embed=True, include_heads=True) -> int:
-    return sum(_leaf_bytes(p, a, stage_range, include_embed, include_heads)
-               for p, a in params.items())
+                  include_embed=True, include_heads=True,
+                  stages: Stages = None) -> int:
+    return sum(_leaf_bytes(p, a, stage_range, include_embed, include_heads,
+                           stages) for p, a in params.items())
 
 
 def plan_payloads(plan) -> dict:
@@ -52,8 +59,9 @@ def plan_payloads(plan) -> dict:
     }
 
 
-def round_comm_bytes(params, plan, *, include_heads=True) -> dict:
+def round_comm_bytes(params, plan, *, include_heads=True,
+                     stages: Stages = None) -> dict:
     """Bytes for one client in one round under ``plan``."""
     return {d: partial_bytes(params, rng, include_embed=emb,
-                             include_heads=include_heads)
+                             include_heads=include_heads, stages=stages)
             for d, (rng, emb) in plan_payloads(plan).items()}

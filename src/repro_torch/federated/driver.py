@@ -70,7 +70,7 @@ from repro_torch.core import schedule as sched
 from repro_torch.core import ssl as ssl_mod
 from repro_torch.data.partition import stack_shards
 from repro_torch.federated import aggregate, comm, server
-from repro_torch.federated.client import lm_train_step
+from repro_torch.federated.client import lm_step_leaves, lm_train_step
 from repro_torch.federated.draws import TorchDraws
 from repro_torch.federated.engine import ENGINES, make_engine
 from repro_torch.federated.transport import Transport
@@ -594,11 +594,31 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
     privacy: as in ``run_fedssl``, with every client in every round (q =
     1), as the reference's ``train_lm`` accounts it; draws: the source of
     the privacy draws (default ``TorchDraws(fl.seed, device)``; the loop
-    draws nothing else).
+    draws nothing else). On the sequential engine each local step is a
+    ``local_step`` span (its ``t``) holding ``lm_train_step``'s
+    ``step.forward``, ``step.backward`` and ``step.update``.
+
+    The zamba2 topology (Zamba2's published layout, one leaf a row) trains
+    on the sequential engine: a client differentiates and keeps optimizer
+    state for the stage's own leaves only (``client.lm_step_leaves``), and
+    the masks, the wire and the accounting select leaves by the stages
+    ``lm.leaf_stages`` gives them. On the card it turns on the caching
+    allocator's expandable segments for the process.
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine '{engine}'; one of {ENGINES}")
+    stages = lm_mod.leaf_stages(cfg)
+    if stages and engine != "sequential":
+        raise ValueError(f"the {lm_mod.topology(cfg)} topology trains on "
+                         f"the sequential engine, not '{engine}'")
     device = resolve_device(device)
+    if stages and device.type == "cuda":
+        # a published-width model's whole-model payloads (8.4 GiB at
+        # Zamba2-7B's stage 3) alternate with a step's activations; without
+        # expandable segments the cached blocks fragment until a payload
+        # finds no room. The setting is the process's, as
+        # PYTORCH_CUDA_ALLOC_CONF's would be, and stays after the run.
+        torch._C._accelerator_setAllocatorSettings("expandable_segments:True")
     tokens = to_tensor(tokens, device, torch.int64)
     labels = to_tensor(labels, device, torch.int64)
     shards = [to_tensor(ix, device, torch.int64) for ix in shards]
@@ -623,27 +643,34 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
     prv = make_privacy(privacy)
     secure = prv is not None and prv.cfg.secure_agg
     draws = draws if draws is not None else TorchDraws(fl.seed, device)
-    wire = Transport(codec, kernels=transport_kernels, obs=obs, privacy=prv)
+    wire = Transport(codec, kernels=transport_kernels, obs=obs, privacy=prv,
+                     stages=stages)
     hist = FLHistory()
 
     def sequential_clients(plan, dparams, lr):
         """Every client's local steps, one client after another, from the
         decoded broadcast; returns (their trees, their last losses)."""
         outs, losses = [], []
+        keys = lm_step_leaves(dparams, cfg, plan.sub_layers,
+                              plan.active_from)
         for ix in shards:
-            p_i, o_i = dparams, opt.init(dparams)
+            p_i, o_i = dparams, opt.init({k: dparams[k] for k in keys})
             nb = max(1, len(ix) // B)
             for b in range(nb * fl.local_epochs):
                 # the reference's batch_start rule
                 sel = ix[(b * B) % max(1, len(ix) - B):][:B]
-                p_i, o_i, m = lm_train_step(
-                    p_i, o_i, {"tokens": tokens[sel], "labels": labels[sel]},
-                    lr, cfg=cfg, opt=opt, sub_layers=plan.sub_layers,
-                    active_from=plan.active_from,
-                    global_params=dparams if plan.align else None,
-                    align_weight=ALIGN_WEIGHT if plan.align else 0.0)
+                with tracer.span("local_step", cat="step", t=b):
+                    p_i, o_i, m = lm_train_step(
+                        p_i, o_i,
+                        {"tokens": tokens[sel], "labels": labels[sel]},
+                        lr, cfg=cfg, opt=opt, sub_layers=plan.sub_layers,
+                        active_from=plan.active_from,
+                        global_params=dparams if plan.align else None,
+                        align_weight=ALIGN_WEIGHT if plan.align else 0.0,
+                        tracer=tracer)
             outs.append(p_i)
             losses.append(float(m["loss"]))
+            del o_i
         return outs, losses
 
     obs.start_profiler()
@@ -659,7 +686,8 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
                 host_t0 = time.perf_counter()
                 with round_span:
                     if plan.new_stage and fl.weight_transfer:
-                        params = sched.transfer_model(params, plan.stage)
+                        params = lm_mod.transfer_model(cfg, params,
+                                                       plan.stage)
                     lr = learning_rate(plan.round_idx, fl.rounds, base_lr,
                                        train_cfg.lr_schedule)
                     # clients, and the alignment's global model, see the
@@ -710,7 +738,7 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
                                 prv.sigma(float(w.max())))
                         # every client in every round: q = 1
                         eps = _account_round(prv, hist, 1.0, up, spec, wire)
-                    cb = comm.round_comm_bytes(params, plan)
+                    cb = comm.round_comm_bytes(params, plan, stages=stages)
                     hist.loss.append(sum(losses) / len(losses))
                     hist.round_stage.append(plan.stage)
                     hist.download_bytes.append(cb["download"])

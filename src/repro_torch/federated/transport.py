@@ -55,6 +55,7 @@ import torch
 
 from repro_torch.federated import aggregate, comm
 from repro_torch.federated.leaves import classify_leaf, path_keys
+from repro_torch.federated.masks import stage_piece
 from repro_torch.kernels import ops
 from repro_torch.obs import NOOP_OBS
 
@@ -66,9 +67,9 @@ Tree = Dict[str, torch.Tensor]
 @dataclass(frozen=True)
 class LeafSlot:
     path: Tuple[str, ...]     # key path into the params tree
-    kind: str                 # stacked | embed | head | extra
-    lo: int                   # stacked: first stage row shipped
-    hi: int                   # stacked: one past the last stage row
+    kind: str                 # stacked | embed | head | extra | staged
+    lo: int                   # stacked, staged: first row shipped
+    hi: int                   # stacked, staged: one past the last row
     shape: Tuple[int, ...]    # shape of the shipped piece
     offset: int               # start element in the flat payload
     size: int                 # element count of the shipped piece
@@ -98,24 +99,28 @@ class PayloadSpec:
 
 
 def build_payload_spec(params: Tree, stage_range, *, include_embed: bool,
-                       include_heads: bool) -> PayloadSpec:
+                       include_heads: bool, stages=None) -> PayloadSpec:
     """Lay out the payload over ``params`` (a flat dict in tree order):
     stacked leaves contribute their ``[lo, hi)`` rows, embed and head
-    leaves whole tensors per the flags, extra leaves always."""
+    leaves whole tensors per the flags, extra leaves always; a leaf that
+    ``stages`` maps to its stages (the zamba2 topology's rows) travels
+    whole when one of them is in the range."""
     lo_req, hi_req = int(stage_range[0]), int(stage_range[1])
     slots: List[LeafSlot] = []
     offset = 0
     for path, a in params.items():
-        kind = classify_leaf(path)
-        if kind == "stacked":
-            lo, hi = max(0, lo_req), min(a.shape[0], hi_req)
+        piece = stage_piece(path, a, lo_req, hi_req, stages)
+        if piece is not None:
+            kind, lo, hi = piece
             if hi <= lo:
                 continue
-            shape = (hi - lo,) + tuple(a.shape[1:])
-        elif (kind == "embed" and not include_embed) or \
-                (kind == "head" and not include_heads):
-            continue
+            shape = tuple(a.shape) if kind == "staged" else \
+                (hi - lo,) + tuple(a.shape[1:])
         else:
+            kind = classify_leaf(path)
+            if (kind == "embed" and not include_embed) or \
+                    (kind == "head" and not include_heads):
+                continue
             lo, hi = 0, 0
             shape = tuple(a.shape)
         size = 1
@@ -309,9 +314,11 @@ class Transport:
     the wire bytes ``run_fedssl`` records in ``FLHistory``."""
 
     def __init__(self, codec="fp32", *, include_heads: bool = True,
-                 kernels: str = "xla", obs=None, privacy=None):
+                 kernels: str = "xla", obs=None, privacy=None, stages=None):
         self.codec = make_codec(codec) if isinstance(codec, str) else codec
         self.include_heads = include_heads
+        # leaf -> its stages (``lm.leaf_stages``), for the zamba2 topology
+        self.stages = stages or {}
         self.kernels = kernels
         self.privacy = privacy
         self.obs = obs if obs is not None else NOOP_OBS
@@ -327,7 +334,7 @@ class Transport:
         if key not in self._specs:
             self._specs[key] = build_payload_spec(
                 params, stage_range, include_embed=include_embed,
-                include_heads=self.include_heads)
+                include_heads=self.include_heads, stages=self.stages)
         return self._specs[key]
 
     def plan_specs(self, params: Tree, plan) -> Dict[str, PayloadSpec]:
@@ -461,9 +468,19 @@ class Transport:
                           client_ids, plan, weights: torch.Tensor,
                           ref_online: Optional[Tree] = None):
         """Clients -> server: FedAvg over the decoded uploads. Returns
-        (aggregated tree, per-client upload stats)."""
+        (aggregated tree, per-client upload stats). With a leaf stage map
+        (the zamba2 topology) only the upload's leaves are averaged and
+        every other leaf is the server's own tensor, which each decoded
+        tree holds as it is: no copy of a frozen stage is made."""
         trees, stats = self.decode_uploads(server_online, outs, client_ids,
                                            plan, ref_online=ref_online)
         with self.obs.tracer.span("fedavg", cat="transport",
                                   clients=len(trees)):
-            return aggregate.fedavg(trees, weights), stats
+            if not self.stages:
+                return aggregate.fedavg(trees, weights), stats
+            keys = {_key(s) for s in
+                    self.plan_specs(server_online, plan)["upload"].slots}
+            avg = aggregate.fedavg([{k: t[k] for k in keys} for t in trees],
+                                   weights)
+            return {k: avg.get(k, v) for k, v in server_online.items()}, \
+                stats

@@ -17,7 +17,8 @@
 // kernels take a q/k head dim DQ and a v head dim DV <= DQ (the output is
 // DV wide): (64, 64), (80, 80) (zamba2), (128, 128), and MLA's (192, 128)
 // (deepseek-v2's published widths: 128 + 64 q/k, 128 v) and (48, 32)
-// (its reduced() widths). The wrapper passes the batch, sequence and head
+// (its reduced() widths), and (224, 224) (Zamba2-7B's shared block: 32
+// heads over the 7168-wide stream joined to the embedding). The wrapper passes the batch, sequence and head
 // strides of each operand; the head dim is contiguous.
 //
 // Bound on the H100: for the ViT (B=256, S=T=65, 3 heads of 64, bf16) the
@@ -26,7 +27,9 @@
 // For zamba2's causal (4, 1024, 32, 80) the bytes are 84 MB (25 us) and the
 // causal half of the products 21.5 GFLOP (22 us): both about equal. For
 // deepseek-v2's causal MLA (2, 1024, 128 heads, q/k 192, v 128) q, k, v
-// and o are 335.5 MB (100 us) against 85.9 GFLOP (87 us).
+// and o are 335.5 MB (100 us) against 85.9 GFLOP (87 us). For Zamba2-7B's
+// causal (1, 4096, 32, 224) q, k, v and o are 235 MB (70 us) against 240.5
+// GFLOP (243 us): operations.
 //
 // bf16 kernel (flash_fwd_bf16_kernel). Products on the tensor cores with
 // mma.sync.m16n8k16 (bf16 in, fp32 accumulator), the FlashAttention-2
@@ -54,6 +57,11 @@
 // q fragments alone take 48 registers at DQ = 192 (one block an SM, as its
 // 137 KB of shared memory allows anyway); the exponential is the SFU's
 // ex2.approx: each was faster on the card than the alternative (PERF.md).
+// Past DQ = 192 the q fragments (56 registers at 224) stay in shared
+// memory and are read again for each 16-key step: with the 112 registers
+// of a 224-wide output accumulator and 32 of scores they would leave no
+// room under 255 without spills. At 224 the block's 128 q rows and two
+// K/V stages take 178 KB of shared memory: one block an SM.
 // TMA was not used: the
 // ViT's tiles are 8 KB, and a descriptor built on the host for each of
 // the path's 8616 launches would add host time to a host-bound step.
@@ -314,6 +322,9 @@ flash_fwd_bf16_kernel(const AttnArgs a) {
   constexpr int KC = DQ / 16;   // k16 chunks of the q/k head dim (q.k^T)
   constexpr int DN = DV / 8;    // n8 tiles of the v head dim (p.v)
   constexpr int SN = TK / 8;    // n8 tiles of a key tile (scores)
+  // q fragments in registers for the whole key loop, or re-read from
+  // shared memory (Qs holds q until the output is staged) past DQ = 192
+  constexpr bool QREG = DQ <= 192;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int q_warps = blockDim.x >> 5;
   const int bq = 16 * q_warps;
@@ -364,7 +375,7 @@ flash_fwd_bf16_kernel(const AttnArgs a) {
   // rows g (index 0 of m and l; entries 0, 1 of a fragment) and g + 8
   // (index 1; entries 2, 3).
   const float sl2 = a.scale * 1.4426950408889634f;
-  uint32_t qf[KC][4];
+  uint32_t qf[QREG ? KC : 1][4];
   float o[DN][4];
 #pragma unroll
   for (int j = 0; j < DN; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
@@ -382,11 +393,12 @@ flash_fwd_bf16_kernel(const AttnArgs a) {
       load_rows<DV>(Vs + nxt * TK * PV, vp, a.v_ss, k0 + TK, TK, a.T);
       common::cp_async_commit();
     }
-    if (it == 0) {
+    if (QREG && it == 0) {
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc)
-        common::ldsm_x4(qf[kc], Qs + (warp * 16 + (mi & 1) * 8 + mr) * PQ +
-                                    kc * 16 + (mi >> 1) * 8);
+        common::ldsm_x4(qf[QREG ? kc : 0],
+                        Qs + (warp * 16 + (mi & 1) * 8 + mr) * PQ + kc * 16 +
+                            (mi >> 1) * 8);
     }
     // keys [k0, k0 + nk) hold everything the warp's rows see in this tile
     const int nk = min(TK, w_end - k0);
@@ -403,10 +415,14 @@ flash_fwd_bf16_kernel(const AttnArgs a) {
 #pragma unroll
         for (int kc = 0; kc < KC; ++kc) {
           uint32_t kb[4];
+          if (!QREG)
+            common::ldsm_x4(qf[0], Qs + (warp * 16 + (mi & 1) * 8 + mr) * PQ +
+                                       kc * 16 + (mi >> 1) * 8);
           common::ldsm_x4(kb, Kt + (np * 16 + (mi >> 1) * 8 + mr) * PQ +
                                   kc * 16 + (mi & 1) * 8);
-          common::mma_bf16_16816(s[2 * np], qf[kc], kb[0], kb[1]);
-          common::mma_bf16_16816(s[2 * np + 1], qf[kc], kb[2], kb[3]);
+          const uint32_t(&qa)[4] = qf[QREG ? kc : 0];
+          common::mma_bf16_16816(s[2 * np], qa, kb[0], kb[1]);
+          common::mma_bf16_16816(s[2 * np + 1], qa, kb[2], kb[3]);
         }
       }
     }
@@ -566,6 +582,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   REPRO_HEAD_DIMS(128, 128)
   REPRO_HEAD_DIMS(192, 128)
   REPRO_HEAD_DIMS(48, 32)
+  REPRO_HEAD_DIMS(224, 224)
 #undef REPRO_HEAD_DIMS
   return static_cast<int>(cudaErrorInvalidValue);
 }

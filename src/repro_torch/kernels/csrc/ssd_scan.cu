@@ -4,9 +4,11 @@
 // Replaces src/repro/kernels/mamba2_scan.py::ssd_scan_bshpn (pallas_call at
 // :80, body _ssd_kernel :30; wrapper src/repro/kernels/ops.py:77 ssd_scan).
 //
-// Inputs xh (B, S, H, P), dt and a = dt * A (B, S, H), Bm and Cm (B, S, N)
-// (one group, shared by the heads), all float32; output y (B, S, H, P)
-// float32 (the LM path's Mamba2 blocks feed fp32 xh).
+// Inputs xh (B, S, H, P), dt and a = dt * A (B, S, H), Bm and Cm (B, S, G,
+// N) (G groups, each shared by H / G neighbouring heads: head h reads group
+// h / (H / G); G = 1 is the one group of the JAX package's layer), all
+// float32; output y (B, S, H, P) float32 (the LM path's Mamba2 blocks feed
+// fp32 xh).
 // Per (batch, head), chunk by chunk, with cum = cumsum(a) over the chunk:
 //   intra-chunk  y_i = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
 //   inter-chunk  y_i += exp(cum_i) C_i . h^T
@@ -21,9 +23,10 @@
 // and h in VMEM. Here the scan is the standard SSD decomposition, four
 // kernels on one stream, each parallel over the chunks:
 //   1. ssd_chunk_cb_kernel: CB = C_c . B_c^T over the causal half, once per
-//      (batch, chunk) and not per head (Bm and Cm are shared by the heads),
-//      into a (B, nc, Qp, Qp) scratch (Qp = Q rounded up to 64) that stays
-//      in L2; one block per 64 x 64 tile on or below the diagonal.
+//      (batch, group, chunk) and not per head (a group's Bm and Cm are
+//      shared by its heads), into a (B, G, nc, Qp, Qp) scratch (Qp = Q
+//      rounded up to 64) that stays in L2; one block per 64 x 64 tile on or
+//      below the diagonal.
 //   2. ssd_chunk_state_kernel: per (batch, head, chunk) the chunk's own
 //      state st = sum_j exp(cum_last - cum_j) dt_j x_j B_j^T, a 64 x 64 block
 //      of a (B, H, nc, 64, 64) scratch, and cum itself into a (B, H, S)
@@ -48,8 +51,10 @@
 // fragments read along a row and 72 where they read down a column, so the
 // 32 lanes of a fragment load hit 32 banks. Padding past P, N or the chunk
 // is zero-filled, never read from device memory.
-// Any P, N <= 64 and chunk Q <= 1024 with Q | S; operands are read through
-// their strides, with the last dim of xh, Bm and Cm contiguous.
+// Any P, N <= 64, G | H and chunk Q <= 1024 with Q | S; operands are read
+// through their strides, with the last dim of xh, Bm and Cm contiguous.
+// With G = 1 every address and product is what it was before groups: the
+// group index is 0 and its stride is never added.
 //
 // Bound on the H100, at the LM path's shapes (B 4, S 1024, H 80, P 64,
 // N 64, Q 256, fp32): xh read and y written are 2 x 83.9 MB, dt, a, Bm
@@ -63,7 +68,10 @@
 // GFLOP of fp32-accurate products (whole 64 x 64 tiles on the diagonal,
 // no C.h^T in a first chunk), as 34.5 GFLOP of TF32 work, 0.070 ms. With
 // an h0 the first chunk's C.h^T runs too, and h0 is read and hT written
-// (2 x 5.2 MB at that shape).
+// (2 x 5.2 MB at that shape). Zamba2-7B's (1, 4096, 112 heads, 64, N 64, G
+// 2, Q 256): xh and y 2 x 117.4 MB, dt, a, Bm and Cm 7.9 MB (0.073 ms);
+// C.B^T once per group and chunk, the rest per head: 15.2 GFLOP, 0.092 ms
+// at the 3xTF32 rate, so operations again.
 #include "common.cuh"
 
 namespace {
@@ -84,7 +92,7 @@ struct SsdArgs {
   const float* bm;
   const float* cm;
   float* y;
-  float* cb;    // (B, nc, Qp, Qp) scratch: C_c . B_c^T
+  float* cb;    // (B, G, nc, Qp, Qp) scratch: C_c . B_c^T per group
   float* st;    // (B, H, nc, 64, 64) scratch: chunk states, then h_c
   float* cum;   // (B, H, S) scratch: cumsum(a) over each chunk
   const float* h0;  // (B, H, P, N) state entering chunk 0, or null (zero)
@@ -92,9 +100,10 @@ struct SsdArgs {
   long long x_sb, x_ss, x_sh;
   long long dt_sb, dt_ss, dt_sh;
   long long a_sb, a_ss, a_sh;
-  long long b_sb, b_ss;
-  long long c_sb, c_ss;
-  int B, S, H, P, N, Q, nc, Qp;
+  long long b_sb, b_ss, b_sg;
+  long long c_sb, c_ss, c_sg;
+  int B, S, H, P, N, G, Q, nc, Qp;
+  int hpg;             // heads a group: H / G
   bool vec_x, vec_bc;  // 16-byte copies allowed for xh / for Bm and Cm
 };
 
@@ -190,21 +199,23 @@ __device__ __forceinline__ void store_tile(float* dst, long long ld,
   }
 }
 
-// grid (B * nc, tiles on or below the diagonal): CB tile (ti, tj) of chunk
-// c of batch b, C_i . B_j^T over N, into the (Qp, Qp) block of cb.
+// grid (B * G * nc, tiles on or below the diagonal): CB tile (ti, tj) of
+// chunk c of group grp of batch b, C_i . B_j^T over N, into the (Qp, Qp)
+// block of cb.
 __global__ void __launch_bounds__(THREADS)
 ssd_chunk_cb_kernel(const SsdArgs g) {
   __shared__ __align__(16) float Cs[TILE_R];
   __shared__ __align__(16) float Bs[TILE_R];
-  const int b = blockIdx.x / g.nc, c = blockIdx.x - b * g.nc;
+  const int bg = blockIdx.x / g.nc, c = blockIdx.x - bg * g.nc;
+  const int b = bg / g.G, grp = bg - b * g.G;
   int ti = 0, rest = blockIdx.y;  // the (ti, tj) of the lower triangle
   while (rest > ti) rest -= ++ti;
   const int tj = rest;
   const long long s0 = static_cast<long long>(c) * g.Q;
-  load_tile<LDR>(Cs, g.cm + b * g.c_sb + s0 * g.c_ss, g.c_ss, ti * TILE, g.Q,
-                 g.N, g.vec_bc);
-  load_tile<LDR>(Bs, g.bm + b * g.b_sb + s0 * g.b_ss, g.b_ss, tj * TILE, g.Q,
-                 g.N, g.vec_bc);
+  load_tile<LDR>(Cs, g.cm + b * g.c_sb + grp * g.c_sg + s0 * g.c_ss, g.c_ss,
+                 ti * TILE, g.Q, g.N, g.vec_bc);
+  load_tile<LDR>(Bs, g.bm + b * g.b_sb + grp * g.b_sg + s0 * g.b_ss, g.b_ss,
+                 tj * TILE, g.Q, g.N, g.vec_bc);
   common::cp_async_commit();
   common::cp_async_wait_all();
   __syncthreads();
@@ -215,7 +226,7 @@ ssd_chunk_cb_kernel(const SsdArgs g) {
   warp_tile_mma(
       acc, [&](int r, int k) { return Cs[(rw + r) * LDR + k]; },
       [&](int k, int col) { return Bs[(cw + col) * LDR + k]; });
-  float* out = g.cb + (static_cast<long long>(b) * g.nc + c) * g.Qp * g.Qp +
+  float* out = g.cb + (static_cast<long long>(bg) * g.nc + c) * g.Qp * g.Qp +
                static_cast<long long>(ti) * TILE * g.Qp + tj * TILE;
   store_tile(out, g.Qp, acc);
 }
@@ -250,9 +261,10 @@ ssd_chunk_state_kernel(const SsdArgs g) {
   float* ws = cum + g.Qp;
   const int bh = blockIdx.x / g.nc, c = blockIdx.x - bh * g.nc;
   const int b = bh / g.H, h = bh - b * g.H;
+  const int grp = h / g.hpg;
   const long long s0 = static_cast<long long>(c) * g.Q;
   const float* xp = g.x + b * g.x_sb + h * g.x_sh + s0 * g.x_ss;
-  const float* bp = g.bm + b * g.b_sb + s0 * g.b_ss;
+  const float* bp = g.bm + b * g.b_sb + grp * g.b_sg + s0 * g.b_ss;
   const int nt = g.Qp / TILE;
   auto issue = [&](int t) {
     float* buf = smem + (t & 1) * 2 * TILE_C;
@@ -374,10 +386,12 @@ ssd_chunk_scan_kernel(const SsdArgs g) {
   float* fac = dts + npos;     // [2][rows 64, columns 64]
   const int bh = bhc / g.nc, c = bhc - bh * g.nc;
   const int b = bh / g.H, h = bh - b * g.H;
+  const int grp = h / g.hpg;
   const long long s0 = static_cast<long long>(c) * g.Q;
   const float* xp = g.x + b * g.x_sb + h * g.x_sh + s0 * g.x_ss;
-  const float* cbp = g.cb + (static_cast<long long>(b) * g.nc + c) * g.Qp *
-                                g.Qp + static_cast<long long>(i0) * g.Qp;
+  const float* cbp =
+      g.cb + ((static_cast<long long>(b) * g.G + grp) * g.nc + c) * g.Qp *
+                 g.Qp + static_cast<long long>(i0) * g.Qp;
   auto pair = [&](int t) { return smem + (t & 1) * (TILE_R + TILE_C); };
   // C_i and h_c into the second pair, then CB_i0 and x_0 into the first
   // (chunk 0 has an entering state only with an h0)
@@ -385,8 +399,8 @@ ssd_chunk_scan_kernel(const SsdArgs g) {
   {
     float* p1 = pair(1);
     if (has_h) {
-      load_tile<LDR>(p1, g.cm + b * g.c_sb + s0 * g.c_ss, g.c_ss, i0, g.Q,
-                     g.N, g.vec_bc);
+      load_tile<LDR>(p1, g.cm + b * g.c_sb + grp * g.c_sg + s0 * g.c_ss,
+                     g.c_ss, i0, g.Q, g.N, g.vec_bc);
       load_tile<LDR>(p1 + TILE_R, g.st + static_cast<long long>(bhc) *
                      DMAX * DMAX, DMAX, 0, DMAX, DMAX, true);
     }
@@ -519,8 +533,9 @@ int launch(const SsdArgs& g, cudaStream_t st) {
   if (g.B == 0 || g.H == 0 || g.S == 0) return 0;
   const int nt = g.Qp / TILE;
   const unsigned bc = static_cast<unsigned>(g.B) * g.nc;
+  const unsigned bgc = bc * static_cast<unsigned>(g.G);
   const unsigned bhc = bc * static_cast<unsigned>(g.H);
-  ssd_chunk_cb_kernel<<<dim3(bc, nt * (nt + 1) / 2), THREADS, 0, st>>>(g);
+  ssd_chunk_cb_kernel<<<dim3(bgc, nt * (nt + 1) / 2), THREADS, 0, st>>>(g);
   ssd_chunk_state_kernel<<<bhc, THREADS, state_smem(g.Qp), st>>>(g);
   ssd_state_pass_kernel<<<static_cast<unsigned>(g.B) * g.H, PASS_THREADS,
                           0, st>>>(g);
@@ -536,19 +551,20 @@ const char* ssd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// All operands float32. strides: 13 element strides, (batch, seq, head) of
-// xh, dt and a, then (batch, seq) of Bm and Cm; the last dim of xh, Bm and
-// Cm is contiguous. y is a contiguous (B, S, H, P) tensor; cb (B, nc, Qp,
-// Qp), st (B, H, nc, 64, 64) and cum (B, H, S) are float32 scratch, Qp = Q
-// rounded up to a multiple of 64, each 16-byte aligned. h0 (null: zero)
-// and hT are contiguous (B, H, P, N).
+// All operands float32. strides: 15 element strides, (batch, seq, head) of
+// xh, dt and a, then (batch, seq, group) of Bm and Cm; the last dim of xh,
+// Bm and Cm is contiguous. y is a contiguous (B, S, H, P) tensor; cb (B, G,
+// nc, Qp, Qp), st (B, H, nc, 64, 64) and cum (B, H, S) are float32
+// scratch, Qp = Q rounded up to a multiple of 64, each 16-byte aligned. h0
+// (null: zero) and hT are contiguous (B, H, P, N). G divides H.
 int ssd_scan_launch(const void* x, const void* dt, const void* a,
                     const void* bm, const void* cm, const void* h0, void* y,
                     void* hT, void* cb, void* st, void* cum, int B, int S,
-                    int H, int P, int N, int Q, const long long* strides,
-                    void* stream) {
+                    int H, int P, int N, int G, int Q,
+                    const long long* strides, void* stream) {
   if (P < 1 || P > DMAX || N < 1 || N > DMAX || Q < 1 || Q > QMAX ||
-      S % Q != 0 || !common::aligned16(cb) || !common::aligned16(st))
+      S % Q != 0 || G < 1 || H % G != 0 || !common::aligned16(cb) ||
+      !common::aligned16(st))
     return static_cast<int>(cudaErrorInvalidValue);
   SsdArgs g;
   g.x = static_cast<const float*>(x);
@@ -565,16 +581,17 @@ int ssd_scan_launch(const void* x, const void* dt, const void* a,
   g.x_sb = strides[0]; g.x_ss = strides[1]; g.x_sh = strides[2];
   g.dt_sb = strides[3]; g.dt_ss = strides[4]; g.dt_sh = strides[5];
   g.a_sb = strides[6]; g.a_ss = strides[7]; g.a_sh = strides[8];
-  g.b_sb = strides[9]; g.b_ss = strides[10];
-  g.c_sb = strides[11]; g.c_ss = strides[12];
-  g.B = B; g.S = S; g.H = H; g.P = P; g.N = N; g.Q = Q;
+  g.b_sb = strides[9]; g.b_ss = strides[10]; g.b_sg = strides[11];
+  g.c_sb = strides[12]; g.c_ss = strides[13]; g.c_sg = strides[14];
+  g.B = B; g.S = S; g.H = H; g.P = P; g.N = N; g.G = G; g.Q = Q;
+  g.hpg = H / G;
   g.nc = Q > 0 ? S / Q : 0;
   g.Qp = (Q + TILE - 1) / TILE * TILE;
   g.vec_x = common::aligned16(x) && P % 4 == 0 && g.x_sb % 4 == 0 &&
             g.x_ss % 4 == 0 && g.x_sh % 4 == 0;
   g.vec_bc = common::aligned16(bm) && common::aligned16(cm) && N % 4 == 0 &&
-             g.b_sb % 4 == 0 && g.b_ss % 4 == 0 && g.c_sb % 4 == 0 &&
-             g.c_ss % 4 == 0;
+             g.b_sb % 4 == 0 && g.b_ss % 4 == 0 && g.b_sg % 4 == 0 &&
+             g.c_sb % 4 == 0 && g.c_ss % 4 == 0 && g.c_sg % 4 == 0;
   return launch(g, static_cast<cudaStream_t>(stream));
 }
 

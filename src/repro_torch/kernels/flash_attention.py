@@ -11,7 +11,8 @@ rounded to bf16 for p.v), float32 inputs to a CUDA-core kernel that keeps
 everything in fp32. Unlike the TPU wrapper nothing is padded: ragged
 sequence ends are masked in the kernel and the head dims are used as they
 are: the (q/k, v) pairs of ``HEAD_DIMS``, where MLA's v head is narrower
-than its q/k head (deepseek-v2: 192 / 128; its ``reduced()``: 48 / 32).
+than its q/k head (deepseek-v2: 192 / 128; its ``reduced()``: 48 / 32),
+and Zamba2-7B's shared block attends with heads of 224.
 
 CUDA tensors only; ``repro_torch.kernels.ops.flash_attention`` counts
 launches, sends CPU tensors to ``ref.sdpa_ref`` and adds the backward.
@@ -29,7 +30,8 @@ from repro_torch.kernels import build
 _c = ctypes.c_void_p
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the (q/k head dim, v head dim) pairs both kernels are built for
-HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128), (48, 32))
+HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128), (48, 32),
+             (224, 224))
 
 
 def _declare(lib) -> None:

@@ -16,6 +16,10 @@ one), and the state after the last chunk is returned beside y: the
 prefill hand-off, which the TPU kernel lacks (it starts every (batch,
 head) from zero and returns y alone).
 
+Bm and Cm are (B, S, N), the one group of the JAX package's layer, or (B,
+S, G, N): G groups, head h reading group h // (H / G) (Zamba2-7B's two).
+The first form runs exactly as before groups were added.
+
 CUDA tensors only; ``repro_torch.kernels.ops.ssd_scan`` counts launches
 (one per call, for the four kernels), sends CPU tensors to
 ``ref.ssd_explicit`` and adds the backward.
@@ -38,7 +42,7 @@ TILE = 64           # chunk positions per kernel tile
 def _declare(lib) -> None:
     i = ctypes.c_int
     lib.ssd_scan_launch.argtypes = [_c, _c, _c, _c, _c, _c, _c, _c, _c, _c,
-                                    _c, i, i, i, i, i, i,
+                                    _c, i, i, i, i, i, i, i,
                                     ctypes.POINTER(ctypes.c_longlong), _c]
     lib.ssd_scan_launch.restype = ctypes.c_int
     lib.ssd_error_string.argtypes = [ctypes.c_int]
@@ -49,13 +53,16 @@ def ssd_scan_bshpn(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                    Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
                    h0: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """xh: (B, S, H, P); dt, a = dt * A: (B, S, H); Bm, Cm: (B, S, N); h0
-    (B, H, P, N) or None (zero); all float32 on one CUDA device, the last
-    dim of xh, Bm and Cm contiguous (other strides are free). Returns (y,
-    a contiguous (B, S, H, P) float32 tensor; the final state, (B, H, P,
-    N) float32). ``chunk`` must divide S."""
+    """xh: (B, S, H, P); dt, a = dt * A: (B, S, H); Bm, Cm: (B, S, N) or
+    (B, S, G, N) with G dividing H; h0 (B, H, P, N) or None (zero); all
+    float32 on one CUDA device, the last dim of xh, Bm and Cm contiguous
+    (other strides are free). Returns (y, a contiguous (B, S, H, P) float32
+    tensor; the final state, (B, H, P, N) float32). ``chunk`` must divide
+    S."""
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
+    G = Bm.shape[2] if Bm.dim() == 4 else 1
+    bc_shape = (B, S, N) if Bm.dim() == 3 else (B, S, G, N)
     tensors = (xh, dt, a, Bm, Cm) + (() if h0 is None else (h0,))
     if xh.device.type != "cuda" or any(t.device != xh.device
                                        for t in tensors):
@@ -67,7 +74,8 @@ def ssd_scan_bshpn(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"ssd_scan_bshpn: h0 {tuple(h0.shape)} is not "
                          f"(B, H, P, N) = {(B, H, P, N)}")
     if tuple(dt.shape) != (B, S, H) or tuple(a.shape) != (B, S, H) \
-            or tuple(Bm.shape) != (B, S, N) or tuple(Cm.shape) != (B, S, N):
+            or tuple(Bm.shape) != bc_shape or tuple(Cm.shape) != bc_shape \
+            or H % G:
         raise ValueError(f"ssd_scan_bshpn: shapes disagree: xh "
                          f"{tuple(xh.shape)}, dt {tuple(dt.shape)}, a "
                          f"{tuple(a.shape)}, Bm {tuple(Bm.shape)}, Cm "
@@ -88,22 +96,27 @@ def ssd_scan_bshpn(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                    else h0.clone())
     hT = torch.empty((B, H, P, N), dtype=torch.float32, device=xh.device)
     h0 = None if h0 is None else h0.contiguous()
-    # scratch: C.B^T per chunk (rows padded to 64), the chunk states (64 x
-    # 64 blocks), then the states entering each chunk, and cumsum(a)
+    # scratch: C.B^T per group and chunk (rows padded to 64), the chunk
+    # states (64 x 64 blocks), then the states entering each chunk, and
+    # cumsum(a)
     nc, qp = S // chunk, -(-chunk // TILE) * TILE
-    cb = torch.empty((B, nc, qp, qp), dtype=torch.float32, device=xh.device)
+    cb = torch.empty((B, G, nc, qp, qp), dtype=torch.float32,
+                     device=xh.device)
     st = torch.empty((B, H, nc, MAX_PN, MAX_PN), dtype=torch.float32,
                      device=xh.device)
     cum = torch.empty((B, H, S), dtype=torch.float32, device=xh.device)
-    strides = (ctypes.c_longlong * 13)(
-        *xh.stride()[:3], *dt.stride(), *a.stride(), *Bm.stride()[:2],
-        *Cm.stride()[:2])
+    # (batch, seq, group) of Bm and Cm; one group has no group stride
+    bc_strides = [t.stride()[:3] if t.dim() == 4 else t.stride()[:2] + (0,)
+                  for t in (Bm, Cm)]
+    strides = (ctypes.c_longlong * 15)(
+        *xh.stride()[:3], *dt.stride(), *a.stride(), *bc_strides[0],
+        *bc_strides[1])
     lib = build.load("ssd_scan", _declare)
     stream = torch.cuda.current_stream(xh.device).cuda_stream
     build.check(lib.ssd_scan_launch(
         xh.data_ptr(), dt.data_ptr(), a.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
         hT.data_ptr(), cb.data_ptr(), st.data_ptr(), cum.data_ptr(), B, S,
-        H, P, N, int(chunk), strides, stream),
+        H, P, N, G, int(chunk), strides, stream),
         lib.ssd_error_string, "ssd_scan")
     return y, hT

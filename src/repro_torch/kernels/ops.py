@@ -211,11 +211,14 @@ def info_nce_flops(q_shape, k_shape, products: int = 1) -> int:
 
 def ssd_scan_flops(xh_shape, bm_shape, chunk: int) -> int:
     """The scan's forward as the roofline counts it
-    (``roofline.analysis.chunk_loop_correction``): per sequence 2 S Q N
-    (C.B) + 2 S Q H P (mask.x) + 4 S N H P (state in and out)."""
+    (``roofline.analysis.chunk_loop_correction``): per sequence 2 S Q N G
+    (C.B, once per group; G = 1 for a (B, S, N) Bm) + 2 S Q H P (mask.x) +
+    4 S N H P (state in and out)."""
     B, S, H, P = xh_shape
     N = bm_shape[-1]
-    return B * (2 * S * chunk * N + 2 * S * chunk * H * P + 4 * S * N * H * P)
+    G = bm_shape[2] if len(bm_shape) == 4 else 1
+    return B * (2 * S * chunk * N * G + 2 * S * chunk * H * P
+                + 4 * S * N * H * P)
 
 
 # -- wire pack / unpack -------------------------------------------------------
@@ -708,14 +711,18 @@ def _ssd_fake(xh, dt, a, Bm, Cm, h0, chunk):
 @register_sharding(torch.ops.repro_torch.ssd_scan_fwd.default)
 def _ssd_sharding(xh, dt, a, Bm, Cm, h0, chunk):
     """Over the batch, and over the heads (xh, dt, a and y on dim 2, the
-    states on dim 1; Bm and Cm, shared by the heads, replicated)."""
+    states on dim 1; Bm and Cm, shared by the heads, replicated) where B and
+    C form one group: a head shard of a grouped scan would map its heads to
+    the wrong groups."""
     def h(p):
         return None if h0 is None else p
     R = Replicate()
-    return [([R, R], [R] * 5 + [h(R), None]),
-            ([Shard(0), Shard(0)], [Shard(0)] * 5 + [h(Shard(0)), None]),
-            ([Shard(2), Shard(1)],
-             [Shard(2)] * 3 + [R, R, h(Shard(1)), None])]
+    rules = [([R, R], [R] * 5 + [h(R), None]),
+             ([Shard(0), Shard(0)], [Shard(0)] * 5 + [h(Shard(0)), None])]
+    if Bm.ndim == 3:
+        rules.append(([Shard(2), Shard(1)],
+                      [Shard(2)] * 3 + [R, R, h(Shard(1)), None]))
+    return rules
 
 
 def _ssd_fwd(xh, dt, a, Bm, Cm, h0, chunk):
@@ -802,7 +809,8 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
              h0: Optional[torch.Tensor] = None, return_state: bool = False):
     """Chunked SSD scan (``src/repro/kernels/ops.py::ssd_scan``): xh (B, S,
-    H, P); dt, a = dt * A (B, S, H); Bm, Cm (B, S, N) -> y (B, S, H, P) in
+    H, P); dt, a = dt * A (B, S, H); Bm, Cm (B, S, N), or (B, S, G, N) for
+    G groups (head h reads group h // (H / G)) -> y (B, S, H, P) in
     xh's dtype, fp32 math (the CUDA kernel takes float32 only, which is
     what ``mamba2_apply`` passes). ``h0`` (B, H, P, N) fp32 is the state
     entering the first position (zero when None); ``return_state`` also

@@ -374,14 +374,17 @@ def ssd_explicit(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
       inter-chunk  y_i += exp(cum_i) C_i . h^T
       state        h <- exp(cum_last) h + sum_j exp(cum_last - cum_j)
                         dt_j x_j B_j^T
-    xh: (B, S, H, P); dt, a: (B, S, H); Bm, Cm: (B, S, N); h0: (B, H, P, N)
-    or None (zeros). Returns (y (B, S, H, P) fp32, final state fp32). The
-    decay is masked before its exp, so neither value nor gradient sees the
-    j > i half (whose exponent is positive and may overflow)."""
+    xh: (B, S, H, P); dt, a: (B, S, H); Bm, Cm: (B, S, N), or (B, S, G, N)
+    with head h reading group h // (H / G) (``ssd_grouped``); h0: (B, H, P,
+    N) or None (zeros). Returns (y (B, S, H, P) fp32, final state fp32).
+    The decay is masked before its exp, so neither value nor gradient sees
+    the j > i half (whose exponent is positive and may overflow)."""
     Bsz, S, H, P = xh.shape
     N = Bm.shape[-1]
     if S % chunk:
         raise ValueError(f"ssd scan: chunk {chunk} does not divide S={S}")
+    if Bm.dim() == 4:
+        return ssd_grouped(xh, dt, a, Bm, Cm, chunk, h0)
     nc = S // chunk
     f32 = torch.float32
     # chunk-major, heads before positions: (nc, B, H, Q, ...)
@@ -407,6 +410,48 @@ def ssd_explicit(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             * torch.exp(cum)[..., None]
         w = torch.exp(cum[..., -1:] - cum) * dtc          # (B, H, Q)
         st = (x[c] * w[..., None]).transpose(-1, -2) @ Bc[c][:, None]
+        h = h * torch.exp(cum[..., -1])[..., None, None] + st
+        ys.append((y + y_off).transpose(1, 2))            # (B, Q, H, P)
+    return torch.cat(ys, dim=1), h
+
+
+def ssd_grouped(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ssd_explicit`` with G groups of B and C: Bm, Cm (B, S, G, N), the
+    H heads in G runs of H / G, each run reading its group's B and C (the
+    Mamba2 layout, ``ngroups``). C.B^T is formed once per group and
+    chunk, as the kernel forms it."""
+    Bsz, S, H, P = xh.shape
+    G, N = Bm.shape[-2:]
+    if H % G:
+        raise ValueError(f"ssd scan: {G} groups do not divide {H} heads")
+    rep, nc, f32 = H // G, S // chunk, torch.float32
+    x = xh.to(f32).reshape(Bsz, nc, chunk, H, P).permute(1, 0, 3, 2, 4)
+    dts = dt.to(f32).reshape(Bsz, nc, chunk, H).permute(1, 0, 3, 2)
+    cums = torch.cumsum(a.to(f32).reshape(Bsz, nc, chunk, H)
+                        .permute(1, 0, 3, 2), dim=-1)
+    # (nc, B, G, Q, N)
+    Bc = Bm.to(f32).reshape(Bsz, nc, chunk, G, N).permute(1, 0, 3, 2, 4)
+    Cc = Cm.to(f32).reshape(Bsz, nc, chunk, G, N).permute(1, 0, 3, 2, 4)
+    h = (torch.zeros((Bsz, H, P, N), dtype=f32, device=xh.device)
+         if h0 is None else h0.to(f32))
+    i = torch.arange(chunk, device=xh.device)
+    causal = i[:, None] >= i[None, :]
+    ys = []
+    for c in range(nc):
+        cum, dtc = cums[c], dts[c]                        # (B, H, Q)
+        seg = cum[..., :, None] - cum[..., None, :]       # (B, H, Q, Q)
+        L = torch.exp(seg.masked_fill(~causal, float("-inf")))
+        CB = Cc[c] @ Bc[c].transpose(-1, -2)              # (B, G, Q, Q)
+        M = CB.repeat_interleave(rep, dim=1) * L * dtc[..., None, :]
+        y = M @ x[c]                                      # (B, H, Q, P)
+        Ch = Cc[c].repeat_interleave(rep, dim=1)          # (B, H, Q, N)
+        y_off = (Ch @ h.transpose(-1, -2)) * torch.exp(cum)[..., None]
+        w = torch.exp(cum[..., -1:] - cum) * dtc          # (B, H, Q)
+        st = (x[c] * w[..., None]).transpose(-1, -2) \
+            @ Bc[c].repeat_interleave(rep, dim=1)
         h = h * torch.exp(cum[..., -1])[..., None, None] + st
         ys.append((y + y_off).transpose(1, 2))            # (B, Q, H, P)
     return torch.cat(ys, dim=1), h

@@ -13,7 +13,11 @@ Two modes:
         block) with 1, and zamba2-2.7b and xlstm-125m on the reductions of
         the reference's arch smoke test (``num_layers=4, attn_every=2`` and
         ``num_layers=4, slstm_every=2``: ``reduced()`` alone leaves them
-        no stage). seamless-m4t-medium is refused: the reference's
+        no stage). ``--arch zamba2-7b`` (the port's own: Zamba2's published
+        layout, which the JAX package lacks) runs at ``reduced()`` widths
+        with 6 layers in 3 stages of 2, hybrid layers 2, 3 and 5 (shared
+        blocks A, B, A, as the benchmark's stage-3 cell has them), heads of
+        2 d / heads over the joined input, on the sequential engine. seamless-m4t-medium is refused: the reference's
         launcher trains it as a decoder-only dense LM on the sequential
         engine and fails on the vmap engine; the encoder-decoder trains
         through ``launch.steps``.
@@ -211,6 +215,13 @@ LM_ARCHS = {"zamba2-2.7b": dict(num_layers=4, attn_every=2),
             "internlm2-1.8b": {}, "internlm2-20b": {}, "starcoder2-15b": {},
             "mistral-large-123b": {}, "internvl2-1b": {},
             "llama4-maverick-400b-a17b": {}, "deepseek-v2-236b": {}}
+# the port's own LM archs (no counterpart in the JAX package), on the
+# sequential engine only: zamba2-7b at reduced() widths (d 256, 4 heads),
+# the shared block's heads spanning the 2 d joined input, no GQA
+PORT_LM_ARCHS = {"zamba2-7b": dict(num_layers=6, stage_layers=2,
+                                   hybrid_layer_ids=(2, 3, 5),
+                                   num_kv_heads=4, head_dim=128,
+                                   adapter_rank=8)}
 # the encoder-decoder, which this launcher does not run
 ENCDEC_REFUSAL = (
     "the reference's launcher trains this arch as a decoder-only dense LM "
@@ -225,7 +236,8 @@ def train_lm(args):
     reference's ``train_lm``); returns (params, history)."""
     device = resolve_device(args.device)
     gen = torch.Generator(device).manual_seed(args.seed)
-    cfg = reduced(load_arch(args.arch), **LM_ARCHS[args.arch])
+    cfg = reduced(load_arch(args.arch),
+                  **{**LM_ARCHS, **PORT_LM_ARCHS}[args.arch])
     fl = FLConfig(num_clients=args.clients, rounds=args.rounds,
                   local_epochs=args.local_epochs, schedule=args.schedule,
                   seed=args.seed)
@@ -280,7 +292,9 @@ def main(argv=None):
                          "and xlstm-125m with the reference's arch "
                          "smoke-test overrides num_layers=4, attn_every=2 "
                          "and num_layers=4, slstm_every=2, since reduced() "
-                         "alone leaves them no stage)")
+                         "alone leaves them no stage); the port's own: "
+                         + ", ".join(PORT_LM_ARCHS) + " (sequential "
+                         "engine)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--schedule", default="lw_fedssl",
@@ -394,9 +408,13 @@ def main(argv=None):
                  "--mode vit")
     if args.arch == "seamless-m4t-medium":
         ap.error(f"--arch {args.arch}: {ENCDEC_REFUSAL}")
-    if args.arch not in LM_ARCHS:
+    if args.arch not in LM_ARCHS and args.arch not in PORT_LM_ARCHS:
         ap.error(f"--arch {args.arch}: not an LM architecture of "
-                 f"repro_torch (--mode lm takes: {', '.join(LM_ARCHS)})")
+                 f"repro_torch (--mode lm takes: "
+                 f"{', '.join([*LM_ARCHS, *PORT_LM_ARCHS])})")
+    if args.arch in PORT_LM_ARCHS and args.engine != "sequential":
+        ap.error(f"--arch {args.arch}: trains on the sequential engine "
+                 f"only, not --engine {args.engine}")
     return train_lm(args)
 
 

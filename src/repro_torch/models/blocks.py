@@ -16,6 +16,14 @@ Kinds:
   cross      the encoder-decoder's decoder block: causal self-attention
              with RoPE, cross-attention to the encoder memory (no RoPE),
              MLP, each after an RMSNorm (seamless-m4t)
+  zamba2_shared  Zamba2's published shared block (arXiv:2411.15242, the
+             ``zamba2`` topology): no residual of its own; RMSNorm over
+             the stream joined to the token embedding (2 d wide), causal
+             attention with RoPE over 2 d / heads wide heads, RMSNorm, a
+             GeGLU MLP whose gate-up product adds one use's LoRA, and that
+             use's d x d projection (``zamba2_shared_apply``). Its output
+             enters the Mamba2 input of the layer that uses it
+             (``hybrid_mamba_apply``), never the residual.
 
 ``block_apply`` returns (x, aux) as the reference does: aux is the MoE
 kinds' weighted load-balance loss (an fp32 0-d tensor), and 0.0 for the
@@ -45,6 +53,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.convert import subtree
 from repro_torch.federated.leaves import tree_sorted
@@ -55,7 +64,7 @@ from repro_torch.models.layers.mlp import mlp_apply, mlp_shapes
 from repro_torch.models.layers.norms import rmsnorm
 
 KINDS = ("enc", "dense", "moe", "mla_moe", "mamba", "attn_only", "mlstm",
-         "slstm", "cross")
+         "slstm", "cross", "zamba2_shared")
 # the kinds whose block is one layer on the residual stream after an
 # RMSNorm ("ln/scale"): (its subtree's shapes, its apply)
 _RESIDUAL = {"mamba": (mamba2.mamba2_shapes, mamba2.mamba2_apply),
@@ -98,6 +107,8 @@ def block_shapes(cfg, kind: str = "enc") -> Dict[str, tuple]:
                    for k, s in _RESIDUAL[kind][0](cfg).items()}}
     if kind not in KINDS:
         raise _unknown(kind)
+    if kind == "zamba2_shared":
+        return zamba2_shared_shapes(cfg)
     shapes = {"ln1/scale": (d,), "ln2/scale": (d,)}
     if kind == "mla_moe":
         shapes.update({f"attn/{k}": s for k, s in mla.mla_shapes(cfg).items()})
@@ -153,6 +164,10 @@ def block_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
             cfg), 0.0
     if kind not in KINDS:
         raise _unknown(kind)
+    if kind == "zamba2_shared":
+        raise ValueError("the zamba2_shared block applies through "
+                         "zamba2_shared_apply (it takes a use and the "
+                         "embedding)")
     if kind == "enc":
         cfg = dataclasses.replace(cfg, causal=False)
     h = rmsnorm(x, p["ln1/scale"], cfg.norm_eps)
@@ -167,6 +182,59 @@ def block_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
         return x + y, aux
     return x + mlp_apply(subtree(p, "mlp"), h, cfg.act,
                          getattr(torch, cfg.compute_dtype)), 0.0
+
+
+def zamba2_shared_shapes(cfg) -> Dict[str, tuple]:
+    """One shared block's leaves: the norm over the joined 2 d input, q, k,
+    v from it (``num_heads`` x ``head_dim`` each), o back to d, the norm
+    before the MLP and the MLP's gate, up and down."""
+    d, f = cfg.d_model, cfg.d_ff
+    w = cfg.num_heads * cfg.resolved_head_dim
+    return tree_sorted({
+        "attn/wk": (2 * d, w), "attn/wo": (w, d), "attn/wq": (2 * d, w),
+        "attn/wv": (2 * d, w), "ln_ff/scale": (d,), "ln_in/scale": (2 * d,),
+        "mlp/w_down": (f, d), "mlp/w_gate": (d, f), "mlp/w_up": (d, f)})
+
+
+def zamba2_use_shapes(cfg) -> Dict[str, tuple]:
+    """One use's own leaves: the LoRA of the MLP's gate-up product (d ->
+    rank -> 2 d_ff, gate first) and the d x d projection of the block's
+    output."""
+    d, r = cfg.d_model, cfg.adapter_rank
+    return {"adapter_a": (d, r), "adapter_b": (r, 2 * cfg.d_ff),
+            "linear": (d, d)}
+
+
+def zamba2_shared_apply(p: Dict[str, torch.Tensor],
+                        use: Dict[str, torch.Tensor], x: torch.Tensor,
+                        e: torch.Tensor, cfg) -> torch.Tensor:
+    """Zamba2's shared block ``p`` at one use (``use``: its LoRA and
+    projection). x: the stream (B, S, d); e: the token embedding (B, S,
+    d). Returns W_use MLP(RMSNorm(Attn(RMSNorm([x, e])))) (B, S, d), with
+    [g, u] = h W_gu + (h A) B and MLP = down(gelu(g) u), the exact GELU.
+    Products in the compute dtype; the attention's q.k scaled by (head_dim
+    / 2)^-0.5, as published."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    h = rmsnorm(torch.cat([x, e], dim=-1), p["ln_in/scale"], cfg.norm_eps)
+    a = attn_apply(subtree(p, "attn"), h, cfg,
+                   scale=(cfg.resolved_head_dim / 2) ** -0.5)
+    hc = rmsnorm(a, p["ln_ff/scale"], cfg.norm_eps).to(cdt)
+    lora = (hc @ use["adapter_a"].to(cdt)) @ use["adapter_b"].to(cdt)
+    g, u = torch.chunk(lora, 2, dim=-1)
+    g = g + hc @ p["mlp/w_gate"].to(cdt)
+    u = u + hc @ p["mlp/w_up"].to(cdt)
+    y = (F.gelu(g) * u) @ p["mlp/w_down"].to(cdt)
+    return (y @ use["linear"].to(cdt)).to(x.dtype)
+
+
+def hybrid_mamba_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                       t: torch.Tensor, cfg) -> torch.Tensor:
+    """A hybrid layer's Mamba2 (a ``mamba`` block's leaves): x +
+    Mamba2(RMSNorm(x + t)), the shared block's output ``t`` in the Mamba2
+    input only."""
+    return x + mamba2.mamba2_apply(
+        subtree(p, "mamba"), rmsnorm(x + t, p["ln/scale"], cfg.norm_eps),
+        cfg)
 
 
 def _check_decodes(kind: str) -> None:

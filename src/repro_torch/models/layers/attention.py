@@ -35,7 +35,7 @@ card within a step.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -47,9 +47,12 @@ from repro_torch.sharding.aten import (CACHE_READ, CACHE_WRITE,
 Cache = Dict[str, torch.Tensor]
 
 
-def attn_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    """p: {"wq", "wk", "wv", "wo"}; x: (B, S, d) -> (B, S, d), with RoPE
-    over positions 0..S-1."""
+def attn_apply(p, x: torch.Tensor, cfg,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """p: {"wq", "wk", "wv", "wo"}; x: (B, S, d_in) -> (B, S, d), with
+    RoPE over positions 0..S-1 (d_in is wq's rows: Zamba2's shared block
+    attends over its 2 d wide joined input); q.k times ``scale``, 1 /
+    sqrt(head_dim) by default."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     cdt = getattr(torch, cfg.compute_dtype)
@@ -60,7 +63,8 @@ def attn_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
     positions = torch.arange(S, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
+    out = ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.window,
+                              scale=scale)
     y = out.reshape(B, S, cfg.num_heads * hd) @ p["wo"].to(cdt)
     return y.to(x.dtype)
 

@@ -8,6 +8,13 @@ kernel on the card, ``ref.ssd_scan_ref`` on the CPU); the JAX layer calls
 its own ``ssd_chunked`` there, which the kernel is checked against. The
 gated norm is the RMSNorm kernel at width ``d_inner``.
 
+Groups (``GroupedSSMConfig.n_groups`` = G > 1, Zamba2-7B's 2): the
+in-projection and the convolution carry G blocks of B and C, the scan
+takes them as (B, S, G, N), and the gated norm normalises each group's
+``d_inner / G`` channels apart (the RMSNorm kernel at that width, with the
+norm's scale as one row a group). One group is the JAX package's layer,
+run as it always was.
+
 ``ssd_chunked`` is the layer's plain scan (dt and A separately, an
 optional incoming state, the final state).
 
@@ -44,12 +51,17 @@ def n_heads(cfg) -> int:
     return d_inner(cfg) // cfg.ssm.head_dim
 
 
+def n_groups(cfg) -> int:
+    return getattr(cfg.ssm, "n_groups", 1)
+
+
 def mamba2_shapes(cfg):
     """Per-layer leaf shapes, keyed by their path inside the block's
     ``mamba`` subtree."""
     s = cfg.ssm
     d, di, H = cfg.d_model, d_inner(cfg), n_heads(cfg)
-    conv_ch = di + 2 * s.state_dim
+    GN = n_groups(cfg) * s.state_dim
+    conv_ch = di + 2 * GN
     return {
         "D": (H,),
         "a_log": (H,),                      # A = -exp(a_log)
@@ -57,8 +69,8 @@ def mamba2_shapes(cfg):
         "conv_w": (s.conv_width, conv_ch),
         "dt_bias": (H,),
         "norm/scale": (di,),
-        # in_proj -> [z (di), x (di), B (N), C (N), dt (H)]
-        "w_in": (d, 2 * di + 2 * s.state_dim + H),
+        # in_proj -> [z (di), x (di), B (G N), C (G N), dt (H)]
+        "w_in": (d, 2 * di + 2 * GN + H),
         "w_out": (di, d),
     }
 
@@ -93,10 +105,12 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, h0=None):
 
 def scan_inputs(p, x: torch.Tensor, cfg):
     """The block up to its scan: (z, the convolution's inputs (B, S, C),
-    xh (B, S, H, P), dt (B, S, H), A (H,), Bm, Cm (B, S, N)), fp32."""
+    xh (B, S, H, P), dt (B, S, H), A (H,), Bm, Cm (B, S, N), or (B, S, G,
+    N) with G > 1 groups), fp32."""
     s = cfg.ssm
     B, S, _ = x.shape
-    di, H, N = d_inner(cfg), n_heads(cfg), s.state_dim
+    di, H, G = d_inner(cfg), n_heads(cfg), n_groups(cfg)
+    N = G * s.state_dim
     cdt = getattr(torch, cfg.compute_dtype)
     proj = (x.to(cdt) @ p["w_in"].to(cdt)).to(torch.float32)
     z, xr, Bm, Cm, dt = torch.split(proj, [di, di, N, N, H], dim=-1)
@@ -104,6 +118,9 @@ def scan_inputs(p, x: torch.Tensor, cfg):
     conv_out = F.silu(_causal_conv(conv_in, p["conv_w"].to(torch.float32),
                                    p["conv_b"].to(torch.float32)))
     xr, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
+    if G > 1:
+        Bm = Bm.unflatten(-1, (G, s.state_dim))
+        Cm = Cm.unflatten(-1, (G, s.state_dim))
     dt = F.softplus(dt + p["dt_bias"])
     A = -torch.exp(p["a_log"])
     return z, conv_in, xr.reshape(B, S, H, s.head_dim), dt, A, Bm, Cm
@@ -125,12 +142,25 @@ def mamba2_apply(p, x: torch.Tensor, cfg, h0=None, conv0=None, *,
                               chunk=min(s.chunk_size, S), h0=h0,
                               return_state=True)
     y = y + xh * p["D"][None, None, :, None]
-    y = rmsnorm(y.reshape(B, S, d_inner(cfg)) * F.silu(z), p["norm/scale"],
-                cfg.norm_eps)
+    y = gated_norm(y.reshape(B, S, d_inner(cfg)), z, p["norm/scale"], cfg)
     out = (y.to(cdt) @ p["w_out"].to(cdt)).to(x.dtype)
     if return_state:
         return out, (h_final, conv_in[:, -(s.conv_width - 1):, :])
     return out
+
+
+def gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+               cfg) -> torch.Tensor:
+    """RMSNorm(y * silu(z)) over d_inner, or over each of G groups of
+    d_inner / G channels (the kernel on G runs of rows, one scale row
+    each)."""
+    G = n_groups(cfg)
+    if G == 1:
+        return rmsnorm(y * F.silu(z), scale, cfg.norm_eps)
+    h = (y * F.silu(z)).unflatten(-1, (G, -1))          # (..., G, dg)
+    rows = h.movedim(-2, 0).contiguous()                # (G, ..., dg)
+    out = rmsnorm(rows, scale.reshape(G, -1), cfg.norm_eps)
+    return out.movedim(0, -2).flatten(-2)
 
 
 def init_state(cfg, batch: int, device=None) -> Dict[str, torch.Tensor]:
@@ -146,7 +176,10 @@ def init_state(cfg, batch: int, device=None) -> Dict[str, torch.Tensor]:
 def mamba2_decode(p, x: torch.Tensor, state,
                   cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-token recurrent update. p: the block's ``mamba`` leaves; x:
-    (B, 1, d). Returns (y (B, 1, d), the new state)."""
+    (B, 1, d). Returns (y (B, 1, d), the new state). One group only."""
+    if n_groups(cfg) != 1:
+        raise ValueError("mamba2_decode steps one group of B and C; the "
+                         "grouped layer (zamba2 topology) does not decode")
     s = cfg.ssm
     B = x.shape[0]
     di, H, N = d_inner(cfg), n_heads(cfg), s.state_dim

@@ -12,6 +12,13 @@ topologies:
   block's weights are reused after every group; a stage is one group.
 - ``xlstm``: groups of ``slstm_every - 1`` mLSTM blocks followed by one
   sLSTM block (xLSTM, arXiv:2405.04517); a stage is one group.
+- ``zamba2``: Zamba2 at its published layout (``configs.base.Zamba2Config``;
+  the JAX package has none): ``num_layers`` Mamba2 layers, and at each
+  layer of ``hybrid_layer_ids`` (use i) shared block i mod
+  ``num_mem_blocks`` over the stream joined to the (unscaled) token
+  embedding, whose output, through use i's LoRA and d x d projection,
+  enters that layer's Mamba2 input only (``blocks.zamba2_shared_apply``,
+  ``blocks.hybrid_mamba_apply``); a stage is ``stage_layers`` layers.
 
 Parameters are a flat ``{path: tensor}`` dict at the JAX key paths, in
 ``jax.tree_util`` order: ``embed`` (V, d), ``final_ln/scale``, ``lm_head``
@@ -20,6 +27,14 @@ Parameters are a flat ``{path: tensor}`` dict at the JAX key paths, in
 ...) (moe_il, plus ``moe_blocks/...`` (groups, ...)) or (groups,
 attn_every, ...) (zamba, plus ``shared_attn/...``), or ``mlstm/...``
 (groups, slstm_every - 1, ...) and ``slstm/...`` (groups, ...) (xlstm).
+The ``zamba2`` topology keeps one leaf a row instead of stacks:
+``layers/<l>/...`` (a ``mamba`` block), ``hybrid/<i>/...`` (use i's LoRA
+and projection) and ``mem_blocks/<b>/...`` (a shared block), so that a
+stage's gradients, moments, uploads and masks hold its own rows and
+nothing else: at Zamba2-7B's widths one stacked leaf of 18 layers is 5.6
+GB, three times a stage's rows. ``leaf_stages`` maps each of those leaves
+to the stages it belongs to (a shared block to the stages of its uses),
+which the masks, the transport and the accounting read.
 
 The stage interface is the JAX package's: ``sub_layers`` limits the depth
 (in stages), and the stages below ``active_from`` run under
@@ -28,7 +43,12 @@ neither they, nor the embedding, nor (zamba) the shared block's uses there
 get gradients, and their MoE load-balance loss enters the total without
 one. ``remat`` recomputes each trained block in the backward (the
 reference's per-block ``jax.checkpoint``; as there, not zamba's shared
-block, the xLSTM's sLSTM blocks nor llama4's MoE blocks). The VLM frontend
+block, the xLSTM's sLSTM blocks nor llama4's MoE blocks; in ``zamba2``
+the plain Mamba2 layers only). A frozen use of a trained shared block
+(block A's first use, in stage 2, when stage 3 trains its second) runs
+under ``torch.no_grad()`` with the rest of its stage. With a ``tracer``
+each use of a shared block is a ``shared_block`` span (attributes
+``mem_block``, ``layer``, ``trained``). The VLM frontend
 is the reference's stub: precomputed (B, P, d) embeddings put ahead of the
 token embeddings (``embed(..., frontend)``). A uniform stack of Mamba2
 blocks is the ``uniform`` topology with ``mamba`` blocks (no config of the
@@ -50,18 +70,23 @@ reference donates them), and returns the logits and the caches.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Dict, Optional
+import types
+from typing import Dict, Mapping, Optional
 
 import torch
 from torch.distributed.tensor import DTensor
 from torch.func import vjp
 
 from repro_torch.convert import subtree
+from repro_torch.core import schedule as sched
 from repro_torch.federated.leaves import tree_sorted
 from repro_torch.models import blocks as B
 from repro_torch.models.layers.init import embed_init_
 from repro_torch.models.layers.norms import rmsnorm
+from repro_torch.obs.trace import NOOP_TRACER
 from repro_torch.sharding.aten import LOOKUP, collective_source, replicating
 
 LOSS_CHUNK = 512
@@ -86,6 +111,8 @@ def _maybe_seq_shard(x: torch.Tensor) -> torch.Tensor:
 
 
 def topology(cfg) -> str:
+    if getattr(cfg, "hybrid_layer_ids", ()):
+        return "zamba2"
     if cfg.family == "hybrid":
         return "zamba"
     if cfg.xlstm is not None:
@@ -118,6 +145,8 @@ def num_stages(cfg) -> int:
     blocks (moe_il) or of ``slstm_every`` xLSTM blocks (xlstm; one block a
     stage when ``slstm_every`` is 0, as the reference counts it)."""
     topo = topology(cfg)
+    if topo == "zamba2":
+        return -(-cfg.num_layers // cfg.stage_layers)
     if topo == "zamba":
         return cfg.num_layers // cfg.attn_every
     if topo == "moe_il":
@@ -151,6 +180,10 @@ def lm_shapes(cfg) -> Dict[str, tuple]:
         shapes.update({f"slstm/{k}": (g,) + s
                        for k, s in B.block_shapes(cfg, "slstm").items()})
         return tree_sorted(shapes)
+    if topo == "zamba2":
+        for prefix, leaves in _zamba2_rows(cfg):
+            shapes.update({f"{prefix}/{k}": s for k, s in leaves.items()})
+        return tree_sorted(shapes)
     shapes.update({f"blocks/{k}": (num_stages(cfg), cfg.attn_every) + s
                    for k, s in B.block_shapes(cfg, "mamba").items()})
     shapes.update({f"shared_attn/{k}": s
@@ -173,6 +206,9 @@ def init_lm(cfg, generator=None, device="cpu") -> Tree:
     elif topo == "xlstm":
         B.stacked_init_(subtree(params, "mlstm"), generator, lead=2)
         B.stacked_init_(subtree(params, "slstm"), generator, lead=1)
+    elif topo == "zamba2":
+        for prefix, _ in _zamba2_rows(cfg):
+            B.stacked_init_(subtree(params, prefix), generator, lead=0)
     else:
         B.stacked_init_(subtree(params, "blocks"), generator, lead=2)
         B.stacked_init_(subtree(params, "shared_attn"), generator, lead=0)
@@ -186,14 +222,16 @@ def init_lm(cfg, generator=None, device="cpu") -> Tree:
 
 def embed(params: Tree, tokens: torch.Tensor, cfg,
           frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens (B, S) -> (B, S, d) in the parameter dtype, times sqrt(d);
+    """tokens (B, S) -> (B, S, d) in the parameter dtype, times sqrt(d)
+    (not in the zamba2 topology: Zamba2 does not scale its embedding);
     with ``frontend`` (B, P, d), (B, P + S, d), the frontend first."""
     table = params["embed"]
     if isinstance(table, DTensor):
         x = _ShardedLookup.apply(table, tokens)
     else:
         x = table[tokens]
-    x = x * math.sqrt(cfg.d_model)
+    if topology(cfg) != "zamba2":
+        x = x * math.sqrt(cfg.d_model)
     if frontend is not None:
         x = torch.cat([frontend.to(x.dtype), x], dim=1)
     return x
@@ -304,14 +342,19 @@ def remat_block(p: Tree, x: torch.Tensor, cfg, kind: str, remat: bool,
 
 def forward_hidden(params: Tree, x: torch.Tensor, cfg, *,
                    sub_layers: Optional[int] = None, active_from: int = 0,
-                   remat: bool = False):
+                   remat: bool = False, tracer=NOOP_TRACER):
     """x: (B, S, d) embedded inputs. Returns (hidden, aux_loss): the sum
     of the MoE blocks' load-balance losses, fp32 (0 without MoE blocks);
-    the frozen stages' part carries no gradient."""
+    the frozen stages' part carries no gradient. ``tracer`` records the
+    zamba2 topology's ``shared_block`` spans."""
     topo = topology(cfg)
     S = num_stages(cfg)
     sub = S if sub_layers is None else sub_layers
     act = max(0, min(active_from, sub))
+    if topo == "zamba2":
+        x = _zamba2_layers(params, x, cfg, sub, act, remat, tracer)
+        x = rmsnorm(x, params["final_ln/scale"], cfg.norm_eps)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
     stack = subtree(params, "blocks")
 
     def inner(x, aux, st, idx, kind):
@@ -366,6 +409,93 @@ def forward_hidden(params: Tree, x: torch.Tensor, cfg, *,
         x, aux = stage(x, aux, i)
     x = rmsnorm(x, params["final_ln/scale"], cfg.norm_eps)
     return x, aux
+
+
+def _zamba2_rows(cfg):
+    """(prefix, {leaf: shape}) of every row of the zamba2 topology: the
+    Mamba2 layers, the uses' LoRA and projections, the shared blocks."""
+    rows = [(f"layers/{i}", B.block_shapes(cfg, "mamba"))
+            for i in range(cfg.num_layers)]
+    rows += [(f"hybrid/{j}", B.zamba2_use_shapes(cfg))
+             for j in range(len(_zamba2_uses(cfg)))]
+    rows += [(f"mem_blocks/{b}", B.block_shapes(cfg, "zamba2_shared"))
+             for b in range(cfg.num_mem_blocks)]
+    return rows
+
+
+def _zamba2_uses(cfg):
+    """The hybrid layers that the config builds, in order."""
+    return [l for l in cfg.hybrid_layer_ids if l < cfg.num_layers]
+
+
+@functools.lru_cache(maxsize=None)
+def _leaf_stages(cfg):
+    per = cfg.stage_layers
+    uses = _zamba2_uses(cfg)
+    mem = [frozenset(l // per for j, l in enumerate(uses)
+                     if j % cfg.num_mem_blocks == b)
+           for b in range(cfg.num_mem_blocks)]
+    out = {}
+    for prefix, leaves in _zamba2_rows(cfg):
+        kind, i = prefix.split("/")
+        i = int(i)
+        st = (frozenset({i // per}) if kind == "layers" else
+              frozenset({uses[i] // per}) if kind == "hybrid" else mem[i])
+        out.update({f"{prefix}/{k}": st for k in leaves})
+    return types.MappingProxyType(out)    # cached: no caller may edit it
+
+
+def leaf_stages(cfg) -> Mapping[str, frozenset]:
+    """{leaf path: the 0-based stages it belongs to} of the zamba2
+    topology's rows (a shared block: the stages of its uses); empty for
+    the other topologies, whose stacks carry their stage on dim 0. Masks,
+    the transport and the accounting train and exchange such a leaf in a
+    stage range that holds one of its stages."""
+    return _leaf_stages(cfg) if topology(cfg) == "zamba2" else {}
+
+
+def transfer_model(cfg, params: Tree, stage: int) -> Tree:
+    """Weight transfer at the start of ``stage`` (1-based): the block stacks'
+    row ``stage - 2`` into row ``stage - 1`` (``schedule.transfer_model``);
+    in zamba2, each Mamba2 layer of stage ``stage - 1`` copied into the
+    layer at the same place in stage ``stage`` (a short last stage takes
+    the first of them). Uses and shared blocks keep their own weights: the
+    stages hold different numbers of them."""
+    if topology(cfg) != "zamba2":
+        return sched.transfer_model(params, stage)
+    if stage < 2:
+        return params
+    per, out = cfg.stage_layers, dict(params)
+    for i in range((stage - 1) * per, min(stage * per, cfg.num_layers)):
+        src, dst = f"layers/{i - per}/", f"layers/{i}/"
+        out.update({dst + k[len(src):]: v.clone() for k, v in params.items()
+                    if k.startswith(src)})
+    return out
+
+
+def _zamba2_layers(params: Tree, x: torch.Tensor, cfg, sub: int, act: int,
+                   remat: bool, tracer):
+    """The zamba2 topology's layers of the first ``sub`` stages over the
+    embedded tokens ``x``, the stages below ``act`` under no_grad."""
+    per = cfg.stage_layers
+    uses = {l: j for j, l in enumerate(_zamba2_uses(cfg))}
+    e = x
+    for i in range(min(cfg.num_layers, sub * per)):
+        frozen = i // per < act
+        with torch.no_grad() if frozen else contextlib.nullcontext():
+            p = subtree(params, f"layers/{i}")
+            if i not in uses:
+                x, _ = remat_block(p, x, cfg, "mamba", remat)
+                continue
+            j = uses[i]
+            b = j % cfg.num_mem_blocks
+            with tracer.span("shared_block", cat="step", mem_block=b,
+                             layer=i, trained=torch.is_grad_enabled()):
+                t = B.zamba2_shared_apply(subtree(params, f"mem_blocks/{b}"),
+                                          subtree(params, f"hybrid/{j}"), x,
+                                          e, cfg)
+            x = B.hybrid_mamba_apply(p, x, t, cfg)
+    return x
 
 
 def xent_loss(params: Tree, hidden: torch.Tensor, labels: torch.Tensor,

@@ -795,6 +795,66 @@ def test_ssd_scan_kernel_strided_and_backward(dev, pad):
         assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
 
 
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk", [
+    (1, 4096, 112, 64, 64, 2, 256),  # Zamba2-7B's Mamba2 layers
+    (2, 96, 6, 20, 7, 3, 32),        # ragged P, N, three groups
+])
+def test_ssd_scan_grouped_kernel(dev, B, S, H, P, N, G, chunk):
+    """G groups of B and C (head h reads group h // (H / G)) against the
+    plain grouped scan, 1e-4 of the largest output; Bm and Cm as the
+    Mamba2 layer passes them (views of one convolution output); the
+    Function's backward against autograd through the plain version at the
+    ragged shape; one group given as (B, S, 1, N) gives the (B, S, N)
+    form's bits."""
+    xh, dt, a, _, _ = _ssd_inputs(B, S, H, P, N, dev, seed=3)
+    rng = np.random.default_rng(4)
+    conv = torch.from_numpy((rng.standard_normal((B, S, 2 * G * N))
+                             / np.sqrt(N)).astype(np.float32)).to(dev)
+    Bm, Cm = (t.unflatten(-1, (G, N)) for t in conv.split(G * N, dim=-1))
+    before = ops.launch_counts()["ssd_scan"]
+    got, h = ops.ssd_scan(xh, dt, a, Bm, Cm, chunk=chunk, return_state=True)
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    want, hw = ref.ssd_scan_ref(xh, dt, a, Bm, Cm, chunk=chunk,
+                                return_state=True)
+    assert (got - want).abs().max().item() <= \
+        1e-4 * max(want.abs().max().item(), 1.0)
+    assert (h - hw).abs().max().item() <= 1e-4 * max(hw.abs().max().item(),
+                                                      1.0)
+    if S <= 128:
+        ins = [t.clone().requires_grad_() for t in (xh, dt, a, Bm, Cm)]
+        g = torch.randn((B, S, H, P), device=dev)
+        gk = torch.autograd.grad(
+            (ops.ssd_scan(*ins, chunk=chunk) * g).sum(), ins)
+        gr = torch.autograd.grad(
+            (ref.ssd_scan_ref(*ins, chunk=chunk) * g).sum(), ins)
+        for x, y in zip(gk, gr):
+            assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
+    one = ops.ssd_scan(xh, dt, a, Bm[:, :, 0], Cm[:, :, 0], chunk=chunk)
+    assert torch.equal(ops.ssd_scan(xh, dt, a, Bm[:, :, :1], Cm[:, :, :1],
+                                    chunk=chunk), one)
+
+
+def test_flash_attention_224_causal_4096(dev):
+    """Zamba2-7B's shared block: causal (1, 4096, 32, 224) bf16 at its q.k
+    scale (224 / 2)^-0.5 against the plain version (2e-2, as every bf16
+    case), and the fp32 kernel at heads of 224 (2e-5)."""
+    sc = (224 / 2) ** -0.5
+    q, k, v = (_rand((1, 4096, 32, 224), torch.bfloat16, dev, s)
+               for s in range(3))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=True, scale=sc)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ref.sdpa_ref(*(t.float().transpose(1, 2) for t in (q, k, v)),
+                        causal=True, scale=sc).transpose(1, 2)
+    assert got.dtype == torch.bfloat16
+    assert (got.float() - want).abs().max().item() < 2e-2
+    q, k, v = (t[:, :300].float() for t in (q, k, v))
+    got = ops.flash_attention(q, k, v, causal=True, scale=sc)
+    want = ref.sdpa_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                        causal=True, scale=sc).transpose(1, 2)
+    assert (got - want).abs().max().item() < 2e-5
+
+
 def test_ssd_scan_bitwise_deterministic(dev):
     """No atomics: two calls at the LM path's shape give the same bits."""
     args = _ssd_inputs(4, 1024, 80, 64, 64, dev, seed=2)
