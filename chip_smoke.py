@@ -44,9 +44,11 @@ Phases, each of which must pass (any failure exits non-zero):
    stage), batch 4 x 1024 tokens, 64 synthetic sequences (4 local steps a
    client and round), fp32 wire. Counters set to 0 before, read after;
    losses finite, wire bytes equal to the analytic bytes in every round,
-   and the ``ssd_scan`` and ``flash_attention`` launches equal to the counts
-   the plan implies (12 s scans and 2 s attentions a local step at stage
-   s: the online forward, frozen groups included, and the global model's);
+   and the ``ssd_scan``, ``flash_attention`` and ``rope`` launches equal to
+   the counts the plan implies (12 s scans and 2 s attentions a local step
+   at stage s: the online forward, frozen groups included, and the global
+   model's; a RoPE launch an attention and one more in the backward of
+   each trained group's);
    seconds per round and peak memory; the run again from the same seed,
    with bit-identical losses. Then ``gather_pack`` and
    ``scatter_unpack`` are held bit-identical to their plain versions on
@@ -294,6 +296,12 @@ Phases, each of which must pass (any failure exits non-zero):
    3584) scale (the gated norm's groups), and pack and unpack
    bit-identical on the 18-layer cut's stage-3 download (the whole model,
    2,245,451,680 floats, above 2**31) and upload, timed at the download.
+   RoPE (``rope_rotate_kernel``, which replaces no TPU kernel: the
+   reference's RoPE is jnp code) rotating q and k in one launch at the
+   ViT cell's (4096, 65, 3, 64) bf16 and at Zamba2-7B's (1, 4096, 32, 224)
+   bf16: forward and backward bit-identical to the plain version, timed
+   beside it and against its byte bound, of which it must reach
+   ``ROPE_BOUND_SHARE`` at the ViT's shape.
 
 With ``--profile``, a fifth phase traces one local step of the last stage
 with ``torch.profiler``, of one client and of four at once (the vmap
@@ -353,13 +361,17 @@ TPU_SOURCES = {
                          "src/repro/kernels/infonce.py:65"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/mamba2_scan.py:67"),
+    # replaces none: the reference's RoPE is jnp code
+    # (src/repro/models/layers/rope.py:12)
+    "rope": ("src/repro_torch/kernels/csrc/rope.cu", None),
 }
 # the kernels each path must launch; a kernel's "launches" in the kernels
 # line is its count on the first path that lists it. info_nce_rows_dk is on
 # no path: every negative of the loss is detached, so only chip_smoke's
 # check launches it.
 MAIN_KERNELS = ("gather_pack", "scatter_unpack", "rmsnorm_rows",
-                "flash_attention", "info_nce_rows", "info_nce_rows_dq")
+                "flash_attention", "info_nce_rows", "info_nce_rows_dq",
+                "rope")
 PATH_KERNELS = {
     "fp32": MAIN_KERNELS,
     "int8": ("int8_quant_matrix", "int8_dequant_matrix"),
@@ -378,9 +390,9 @@ PATH_KERNELS = {
     "encdec": MAIN_KERNELS,
     "lm_moe": MAIN_KERNELS,
     # serving: decode attention over the KV cache and the decode RMSNorms
-    "serve": ("flash_attention", "rmsnorm_rows"),
+    "serve": ("flash_attention", "rmsnorm_rows", "rope"),
     # phase 2n: the sharded dense step and the Mamba2 prefill hand-off
-    "sharded": ("flash_attention", "rmsnorm_rows"),
+    "sharded": ("flash_attention", "rmsnorm_rows", "rope"),
     "prefill": ("ssd_scan", "rmsnorm_rows"),
 }
 TOPK_ROUNDS_PER_STAGE = (1,) * 11 + (3,)
@@ -621,29 +633,35 @@ def vit_expected_launches(ssl_cfg, fl, plans, counts, batch, aux, engine):
     where the plan aligns, the global encoder; its InfoNCE terms (forward
     and dq) are MoCo's two and the alignment's two. A calibration step
     (``server_epochs`` passes over ``aux`` images) is a local step without
-    the alignment. The vmap engine launches once a batched step, so its
-    step count is the largest client's. Every round packs and unpacks the
-    download once and each client's upload once."""
+    the alignment. RoPE launches once an attention (q and k together), and
+    once more in the backward of each trained block's attention of the
+    online branch (blocks ``active_from`` up; all in calibration). The
+    vmap engine launches once a batched step, so its step count is the
+    largest client's. Every round packs and unpacks the download once and
+    each client's upload once."""
     target = ssl_cfg.method in ("moco_v3", "byol")
     moco = 2 if ssl_cfg.method == "moco_v3" else 0
     steps = [n // batch * fl.local_epochs for n in counts]
     calib = fl.server_epochs * max(1, aux // batch)
     out = dict.fromkeys(("flash_attention", "rmsnorm_rows", "info_nce_rows",
-                         "info_nce_rows_dq", "gather_pack",
-                         "scatter_unpack"), 0)
+                         "info_nce_rows_dq", "gather_pack", "scatter_unpack",
+                         "rope"), 0)
 
-    def add(s, align, n):
+    def add(s, act, align, n):
         encoders = 2 * (1 + target + align)
         out["flash_attention"] += n * encoders * s
         out["rmsnorm_rows"] += n * encoders * (2 * s + 1)
         out["info_nce_rows"] += n * (moco + 2 * align)
         out["info_nce_rows_dq"] += n * (moco + 2 * align)
+        out["rope"] += n * (encoders * s + 2 * (s - act))
 
     for plan in plans:
-        add(plan.sub_layers, plan.align and ssl_cfg.align_weight > 0,
+        s = plan.sub_layers
+        add(s, min(plan.active_from, s),
+            plan.align and ssl_cfg.align_weight > 0,
             max(steps) if engine == "vmap" else sum(steps))
         if plan.server_calibrate:
-            add(plan.sub_layers, False, calib)
+            add(s, 0, False, calib)
         out["gather_pack"] += 1 + len(counts)
         out["scatter_unpack"] += 1 + len(counts)
     return out
@@ -851,17 +869,21 @@ def lm_init(device, cfg, samples, seq_len, seed=0):
 
 
 def lm_expected_launches(cfg, plans, steps):
-    """(ssd_scan, flash_attention) launches the LM path's plan implies:
-    per local step at stage s, s groups of ``attn_every`` scans and one
-    attention each, in the online forward (frozen groups included) and
-    again in the global model's when the plan aligns."""
-    scans = attns = 0
+    """(ssd_scan, flash_attention, rope) launches the LM path's plan
+    implies: per local step at stage s, s groups of ``attn_every`` scans
+    and one attention each, in the online forward (frozen groups included)
+    and again in the global model's when the plan aligns; RoPE once an
+    attention and once more in the backward of each trained group's (those
+    from ``active_from`` up, in the online forward)."""
+    scans = attns = ropes = 0
     for plan in plans:
         passes = 2 if plan.align else 1
+        s = plan.sub_layers
         for n in steps:
-            scans += n * passes * plan.sub_layers * cfg.attn_every
-            attns += n * passes * plan.sub_layers
-    return scans, attns
+            scans += n * passes * s * cfg.attn_every
+            attns += n * passes * s
+            ropes += n * (passes * s + s - min(plan.active_from, s))
+    return scans, attns, ropes
 
 
 def lm_pack_checks(params, plans, tag="lm", label="LM", stages=None):
@@ -992,27 +1014,33 @@ def dense_config(layers=DENSE_LAYERS, **kw):
     return dataclasses.replace(load_arch(DENSE_ARCH), num_layers=layers, **kw)
 
 
-def dense_expected_launches(plans, steps, engine="sequential"):
+def dense_expected_launches(plans, steps, engine="sequential", ropes=1):
     """The dense LM path's launches its plan implies: per local step at
     stage s, the online forward runs s blocks (attention and two RMSNorms
     each, the frozen prefix included) and the final RMSNorm, and again the
     global model's where the plan aligns, whose InfoNCE is one forward and
     one dq; the vmap engine launches once a batched step (the largest
     client's step count). Every round packs and unpacks the download once
-    and each client's upload once."""
-    return stack_expected_launches(plans, steps, engine, norms=2, attns=1)
+    and each client's upload once. RoPE: ``ropes`` launches an attention
+    (q and k together: 1; MLA's rope parts of q and of k apart: 2), as
+    many again in the backward of each trained block's (the online
+    forward's blocks from ``active_from`` up)."""
+    return stack_expected_launches(plans, steps, engine, norms=2, attns=1,
+                                   ropes=ropes)
 
 
-def stack_expected_launches(plans, steps, engine, *, norms, attns):
+def stack_expected_launches(plans, steps, engine, *, norms, attns, ropes=1):
     """The launches of an LM path whose stage runs ``norms`` RMSNorms and
     ``attns`` attentions (see ``dense_expected_launches``)."""
     out = dict.fromkeys(("flash_attention", "rmsnorm_rows", "info_nce_rows",
-                         "info_nce_rows_dq", "gather_pack",
-                         "scatter_unpack"), 0)
+                         "info_nce_rows_dq", "gather_pack", "scatter_unpack",
+                         "rope"), 0)
     n = max(steps) if engine == "vmap" else sum(steps)
     for plan in plans:
         passes, s = 1 + plan.align, plan.sub_layers
+        trained = s - min(plan.active_from, s)
         out["flash_attention"] += n * passes * s * attns
+        out["rope"] += n * (passes * s + trained) * attns * ropes
         out["rmsnorm_rows"] += n * passes * (norms * s + 1)
         out["info_nce_rows"] += n * plan.align
         out["info_nce_rows_dq"] += n * plan.align
@@ -1403,17 +1431,23 @@ def encdec_expected_launches(cfg, plans, steps):
     decoder runs every block once (self-attention, cross attention, three
     RMSNorms) and the final RMSNorm; the alignment is one InfoNCE forward
     and one dq. Every round packs and unpacks the download once and each
-    client's upload once."""
+    client's upload once. RoPE launches once an encoder or decoder
+    self-attention (q and k together; cross attention has none), and once
+    more in the backward of each trained one: the decoder's, and the
+    encoder's from ``active_from`` up in the loss's encode and in the
+    alignment's local one."""
     L = cfg.dec_layers
     out = dict.fromkeys(("encoder", "decoder_self", "cross", "rmsnorm_rows",
                          "info_nce_rows", "info_nce_rows_dq", "gather_pack",
-                         "scatter_unpack"), 0)
+                         "scatter_unpack", "rope"), 0)
     n = max(steps)
     for plan in plans:
         passes, s = 1 + 2 * plan.align, plan.sub_layers
+        trained = (1 + plan.align) * (s - min(plan.active_from, s))
         out["encoder"] += n * passes * s
         out["decoder_self"] += n * L
         out["cross"] += n * L
+        out["rope"] += n * (passes * s + trained + 2 * L)
         out["rmsnorm_rows"] += n * (passes * (2 * s + 1) + 3 * L + 1)
         out["info_nce_rows"] += n * plan.align
         out["info_nce_rows_dq"] += n * plan.align
@@ -1661,9 +1695,10 @@ def moe_phase():
           f"{len(hist.loss)} rounds: download {hist.wire_download_bytes}, "
           f"upload {hist.wire_upload_bytes} per client; {peak_line(base)}",
           flush=True)
-    # a block is an MLA attention and two RMSNorms, as a dense block
+    # a block is an MLA attention and two RMSNorms, as a dense block; MLA
+    # rotates the rope parts of q and of k in a launch each
     check_launches("MoE LM", launches["lm_moe"],
-                   dense_expected_launches(plans, steps))
+                   dense_expected_launches(plans, steps, ropes=2))
     check_repeat("MoE LM", hist, moe_config(), MOE_RUN)
     rels = lm_reference_check(params, toks, seq=256, cfg=cfg)
     print(f"  MoE LM lm_ssl_loss at full width, stage 1, 2 x 256 tokens, "
@@ -1736,12 +1771,12 @@ RING = dict(window=16, layers=2, steps=48)
 
 def serve_expected_launches(cfg, steps):
     """The serving path's launches: a step runs every block once at S = 1
-    (one attention and two RMSNorms a dense block) and the final RMSNorm;
-    no other kernel."""
+    (one attention, its RoPE of q and k, and two RMSNorms a dense block)
+    and the final RMSNorm; no other kernel."""
     out = dict.fromkeys(("gather_pack", "scatter_unpack", "info_nce_rows",
                          "info_nce_rows_dq", "info_nce_rows_dk",
                          "ssd_scan"), 0)
-    out["flash_attention"] = steps * cfg.num_layers
+    out["flash_attention"] = out["rope"] = steps * cfg.num_layers
     out["rmsnorm_rows"] = steps * (2 * cfg.num_layers + 1)
     return out
 
@@ -2307,7 +2342,7 @@ CLI_KERNELS = ("gather_pack_kernel", "scatter_unpack_kernel",
                "int8_absmax_kernel", "int8_quant_kernel",
                "int8_dequant_kernel", "info_nce_logits_kernel<0>",
                "info_nce_rows_kernel", "info_nce_logits_kernel<1>",
-               "info_nce_grad_kernel<false>")
+               "info_nce_grad_kernel<false>", "rope_rotate_kernel")
 
 
 def obs_cli_run():
@@ -3049,6 +3084,11 @@ def lm_reference_check(params, tokens, n=2, seq=512, cfg=None):
 # ---------------------------------------------------------------------------
 # phase 4: kernels against their plain versions, and their times
 # ---------------------------------------------------------------------------
+# the least share of its byte bound the RoPE kernel takes at the ViT cell's
+# shape
+ROPE_BOUND_SHARE = 0.7
+
+
 def time_ms(calls, iters=24) -> float:
     """Mean device milliseconds of one call. ``calls`` are closures over
     distinct copies of the inputs, whose bytes together exceed the 50 MB L2
@@ -3119,6 +3159,54 @@ def max_err(a, b) -> float:
     if isinstance(a, (list, tuple)):
         return max(max_err(x, y) for x, y in zip(a, b))
     return float((a.float() - b.float()).abs().max())
+
+
+def rope_record(shape, k_heads, dtype, gen, what):
+    """The RoPE kernel on q of ``shape`` (B, S, H, hd) and k of ``k_heads``
+    heads in one launch, over positions 0..S-1: forward and backward equal
+    to the plain version's to the bit (the kernel's contract), then
+    timed against the plain rotation of q and of k (``ref.rope_ref``, the
+    arithmetic the port ran before the kernel) from the same table, and
+    against its bound (one read and one write of q and k, the table read
+    once). Returns the kernel record."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = gen.device
+    B, S, H, hd = shape
+    q = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, S, k_heads, hd), generator=gen,
+                    device=dev).to(dtype)
+    cos, sin = ref.rope_table(torch.arange(S, device=dev), hd)
+    got = ops.rope_qk(q, k, cos, sin)
+    want = [ref.rope_ref(t, cos, sin) for t in (q, k)]
+    qg, kg = q.clone().requires_grad_(), k.clone().requires_grad_()
+    gq, gk = (torch.randn(t.shape, generator=gen, device=dev).to(dtype)
+              for t in (q, k))
+    dgot = torch.autograd.grad(ops.rope_qk(qg, kg, cos, sin), (qg, kg),
+                               (gq, gk))
+    dwant = torch.autograd.grad([ref.rope_ref(t, cos, sin) for t in (qg, kg)],
+                                (qg, kg), (gq, gk))
+    same = all(torch.equal(a, b) for a, b in zip((*got, *dgot),
+                                                 (*want, *dwant)))
+    print(f"  rope {what}: q {tuple(shape)}, k {k_heads} heads, {dtype}: "
+          f"forward and backward bit-identical to the plain version: "
+          f"{same}", flush=True)
+    check(same, f"rope {what}: the kernel's bits differ from the plain "
+                f"version's")
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size() + \
+        2 * 4 * cos.numel()
+    sets = [(q, k)] + [tuple(torch.randn(t.shape, generator=gen, device=dev)
+                             .to(dtype) for t in (q, k))
+                       for _ in range(copies(nbytes) - 1)]
+    bms, by = bound(nbytes, 6 * (q.numel() + k.numel()))
+    ms = time_ms([lambda a=a: ops.rope_qk(*a, cos, sin) for a in sets])
+    return dict(
+        kernel="rope", max_abs_err=max_err(got, want), ms=ms,
+        plain_ms=time_ms([lambda a=a: [ref.rope_ref(t, cos, sin) for t in a]
+                          for a in sets]),
+        library_ms=None, bound_ms=bms, bound_by=by,
+        shape=f"q {tuple(shape)}, k {k_heads} heads, {dtype} ({what}); "
+              f"{100 * bms / ms:.1f}% of the bound")
 
 
 def kernel_checks(state):
@@ -3273,6 +3361,15 @@ def kernel_checks(state):
             (qg, kg, vg), go)
         line(f"flash_attention backward (causal, S {Sg}, Hq {Hq}, Hkv "
              f"{Hkv}, head dims {hdq} / {hdv})", max_err(got, want), 1e-4)
+
+    # RoPE: the benchmark's ViT cell rotates q and k of 16 clients x 256
+    # images in one launch; at least ROPE_BOUND_SHARE of its byte bound
+    rec["rope"] = rope_record((16 * B, S, Hh, hd), Hh, torch.bfloat16, gen,
+                              "the ViT cell's 16 clients")
+    share = rec["rope"]["bound_ms"] / rec["rope"]["ms"]
+    check(share >= ROPE_BOUND_SHARE,
+          f"rope at the ViT cell's shape: {100 * share:.1f}% of its bound, "
+          f"under {100 * ROPE_BOUND_SHARE:.0f}%")
     return rec
 
 
@@ -3916,6 +4013,10 @@ def lm_kernel_checks():
                 plain_ms=time_ms([lambda w=wrt_k: ref.info_nce_rows_bwd_ref(
                     q, k, wlse, gg, tau, w)]),
                 library_ms=None, bound_ms=bms, bound_by=by, shape=shape)
+    # RoPE at Zamba2-7B's shared block (the benchmark's zamba2-7b cell)
+    rec["rope_zamba2_7b"] = rope_record((1, 4096, 32, 224), 32,
+                                        torch.bfloat16, gen,
+                                        "Zamba2-7B's shared block")
     for name, r in rec.items():
         print(f"  LM shapes, {name} [{r['shape']}]: kernel {r['ms']} ms, "
               f"plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
@@ -3944,7 +4045,8 @@ KERNEL_NAMES = {"gather_pack": ("gather_pack_kernel",),
                                      "info_nce_grad_kernel<true>"),
                 "ssd_scan": ("ssd_chunk_cb_kernel", "ssd_chunk_state_kernel",
                              "ssd_state_pass_kernel",
-                             "ssd_chunk_scan_kernel")}
+                             "ssd_chunk_scan_kernel"),
+                "rope": ("rope_rotate_kernel",)}
 
 
 def vmap_memory_check(model_cfg, ssl_cfg, batch=256, clients=(1, 4)):
@@ -4508,7 +4610,8 @@ def run(profile: bool = False) -> int:
           f"LM wire bytes {lhist.wire_download_bytes} / "
           f"{lhist.wire_upload_bytes} differ from the analytic "
           f"{lhist.download_bytes} / {lhist.upload_bytes}")
-    want_scans, want_attn = lm_expected_launches(lcfg, lplans, lsteps)
+    want_scans, want_attn, want_rope = lm_expected_launches(lcfg, lplans,
+                                                            lsteps)
     print(f"  LM: seconds per round {[round(x, 3) for x in lsecs]}; losses "
           f"{[round(x, 4) for x in lhist.loss]}; wire bytes equal analytic "
           f"bytes in all {len(lhist.loss)} rounds: download "
@@ -4525,6 +4628,9 @@ def run(profile: bool = False) -> int:
     check(launches["lm"]["flash_attention"] == want_attn,
           f"flash_attention launched {launches['lm']['flash_attention']} "
           f"times, the plan implies {want_attn}")
+    check(launches["lm"]["rope"] == want_rope,
+          f"rope launched {launches['lm']['rope']} times, the plan implies "
+          f"{want_rope}")
     check(launches["lm"]["info_nce_rows_dk"] == 0,
           "info_nce_rows_dk launched on the LM path (its k is detached)")
     check_repeat("LM", lhist, lcfg, LM_RUN)

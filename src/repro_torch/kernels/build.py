@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "_build"
 SOURCES = ("pack", "rmsnorm", "flash_attention", "wire_codecs", "infonce",
-           "ssd_scan")
+           "ssd_scan", "rope")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")

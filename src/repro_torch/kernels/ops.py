@@ -27,6 +27,13 @@ tensors: it returns every client's gradient at once, and a per-client
 operand's gradient stays per client (RMSNorm's (G, d) scale, InfoNCE's
 client axis). ``torch.func.grad`` under ``vmap`` works too.
 
+``rope`` / ``rope_qk`` (``RopeFn``) rotate one tensor, or q and k in one
+launch, by an fp32 cos / sin table that the caller builds
+(``ref.rope_table``); the Function saves only the table, and its backward
+is the same rotation with the sin negated, itself a ``RopeFn``. The JAX
+package has no RoPE kernel (its RoPE is jnp code); the port's plain
+version is ``ref.rope_ref``, to whose bits the CUDA kernel is held.
+
 ``wire_cast_encode`` / ``wire_cast_decode`` and ``wire_topk_decode`` are
 plain PyTorch on every device: in the reference they are not Pallas
 kernels either.
@@ -50,7 +57,9 @@ Sharded steps. A ``DTensor`` operand also sends a kernel through its
 custom op, where ``register_sharding`` gives DTensor the op's sharding
 rule: attention over the batch and the heads (q and kv heads split
 together, replicated where the kv head count does not divide), RMSNorm
-over rows, the SSD scan over the batch and the heads, InfoNCE replicated
+over rows, RoPE over the batch (the table with it where it has a batch
+dim) and as attention over the heads, the SSD scan over the batch and
+the heads, InfoNCE replicated
 (each row's positive is the row of k with its own index, so neither
 operand's rows can be split). DTensor redistributes the operands to one of those layouts
 and calls the op on each device's local tensors, so the kernels run
@@ -79,12 +88,13 @@ from repro_torch.kernels import infonce as nce
 from repro_torch.kernels import mamba2_scan as ms
 from repro_torch.kernels import pack, ref
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import rope as rp
 from repro_torch.kernels import wire_codecs as wc
 
 KERNELS = ("gather_pack", "scatter_unpack", "rmsnorm_rows", "flash_attention",
            "int8_quant_matrix", "int8_dequant_matrix", "compensate",
            "topk_ef_update", "info_nce_rows", "info_nce_rows_dq",
-           "info_nce_rows_dk", "ssd_scan")
+           "info_nce_rows_dk", "ssd_scan", "rope")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -419,6 +429,137 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """x: (..., d); scale: (d,). fp32 math, output in x's dtype."""
     return RMSNormFn.apply(x, scale, eps)
+
+
+# -- RoPE ----------------------------------------------------------------------
+def _rope_impl(xs, cos, sin, inverse):
+    if _device_kind(*xs, cos, sin) == "cpu":
+        return tuple(ref.rope_ref(x, cos, sin, inverse) for x in xs)
+    outs = rp.rope_rotate([x.contiguous() for x in xs], cos.contiguous(),
+                          sin.contiguous(), inverse)
+    LAUNCHES["rope"] += 1
+    return outs
+
+
+@torch.library.custom_op("repro_torch::rope_fwd", mutates_args=())
+def _rope_op(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+             inverse: bool) -> torch.Tensor:
+    return _rope_impl((x,), cos, sin, inverse)[0]
+
+
+@_rope_op.register_fake
+def _rope_fake(x, cos, sin, inverse):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("repro_torch::rope_qk_fwd", mutates_args=())
+def _rope_qk_op(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor,
+                inverse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _rope_impl((q, k), cos, sin, inverse)
+
+
+@_rope_qk_op.register_fake
+def _rope_qk_fake(q, k, cos, sin, inverse):
+    return torch.empty_like(q), torch.empty_like(k)
+
+
+def _rope_rules(x_ndim, t_ndim, heads_split):
+    """(x placement, table placement) pairs: replicated; over each batch
+    dim of x (..., S, H, hd), the table's matching dim split alike where
+    it has one; over the heads where ``heads_split``, the table
+    replicated. S and hd stay whole."""
+    R = Replicate()
+    out = [(R, R)]
+    for d in range(x_ndim - 3):
+        td = d - (x_ndim - 1 - t_ndim)
+        out.append((Shard(d), Shard(td) if td >= 0 else R))
+    if heads_split:
+        out.append((Shard(x_ndim - 2), R))
+    return out
+
+
+@register_sharding(torch.ops.repro_torch.rope_fwd.default)
+def _rope_sharding(x, cos, sin, inverse):
+    return [([px], [px, pt, pt, None])
+            for px, pt in _rope_rules(x.ndim, cos.ndim, True)]
+
+
+@register_sharding(torch.ops.repro_torch.rope_qk_fwd.default)
+def _rope_qk_sharding(q, k, cos, sin, inverse):
+    """As attention's rule: q and k over the batch alike, and over the
+    heads where their counts split alike, so that attention takes them
+    as they are."""
+    split = _divides_heads(q.mesh, q.shape[-2], k.shape[-2])
+    return [([px, px], [px, px, pt, pt, None])
+            for px, pt in _rope_rules(q.ndim, cos.ndim, split)]
+
+
+def _rope_fwd(xs, cos, sin, inverse):
+    if _via_op(*xs, cos, sin):
+        if len(xs) == 1:
+            return (_rope_op(xs[0], cos, sin, inverse),)
+        return tuple(_rope_qk_op(*xs, cos, sin, inverse))
+    return _rope_impl(xs, cos, sin, inverse)
+
+
+class RopeFn(torch.autograd.Function):
+    """Split-half RoPE of one or two tensors (..., S, H, hd) by one fp32
+    (cos, sin) table (..., S, hd / 2), one kernel launch for both; returns
+    a tuple. Saves only the table: the backward is the same rotation with
+    the sin negated (``inverse``), bit for bit the plain version's
+    autograd, and itself a ``RopeFn``, so it differentiates and vmaps
+    again."""
+
+    @staticmethod
+    def forward(cos, sin, inverse, *xs):
+        return _rope_fwd(xs, cos, sin, inverse)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        cos, sin, inverse = inputs[:3]
+        ctx.save_for_backward(cos, sin)
+        ctx.inverse = inverse
+
+    @staticmethod
+    def backward(ctx, *gs):
+        from repro_torch.sharding.aten import replicating
+        cos, sin = ctx.saved_tensors
+        # a sharded step's gradients are DTensors beside the plain table
+        with replicating(*gs):
+            dxs = RopeFn.apply(cos, sin, not ctx.inverse, *gs)
+        return (None, None, None, *dxs)
+
+    @staticmethod
+    def vmap(info, in_dims, cos, sin, inverse, *xs):
+        n = info.batch_size
+        xs = [_front(x, d, n) for x, d in zip(xs, in_dims[3:])]
+        if in_dims[0] is not None or in_dims[1] is not None:
+            # a table per vmapped index: laid out over x's leading dims
+            # (its positions, broadcast where x has more), so that it ends
+            # the folded x's leading shape as the kernel reads it
+            lead = xs[0].shape[1:-2]
+            cos, sin = (_front(t, d, n) for t, d in
+                        zip((cos, sin), in_dims[:2]))
+            ones = (1,) * (len(lead) - (cos.dim() - 2))
+            cos, sin = (t.reshape(n, *ones, *t.shape[1:])
+                        .expand(n, *lead, t.shape[-1]) for t in (cos, sin))
+        return RopeFn.apply(cos, sin, inverse, *xs), (0,) * len(xs)
+
+
+def rope(x: torch.Tensor, cos: torch.Tensor,
+         sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, H, hd) rotated by the fp32 table (cos, sin) of its
+    positions, (S, hd / 2) or (B, S, hd / 2) (``ref.rope_table``). fp32
+    math, output in x's dtype."""
+    return RopeFn.apply(cos, sin, False, x)[0]
+
+
+def rope_qk(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+            sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``rope`` of q and of k (one head dim, head counts free) in one
+    kernel launch."""
+    return RopeFn.apply(cos, sin, False, q, k)
 
 
 # -- attention -----------------------------------------------------------------

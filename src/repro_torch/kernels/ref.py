@@ -285,6 +285,36 @@ def info_nce_rows_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     return (g / tau)[..., None] * (torch.matmul(p, kf) - kf)
 
 
+# -- RoPE (``repro.models.layers.rope``: jnp code there, no Pallas kernel) ----
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)                  # (head_dim // 2,)
+
+
+def rope_table(positions: torch.Tensor, head_dim: int,
+               theta: float = 10000.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) fp32 (..., S, head_dim / 2) of positions (S,) or (B,
+    S): the angles position x frequency, on the positions' device."""
+    inv = rope_freqs(head_dim, theta, positions.device)
+    ang = positions.to(torch.float32)[..., :, None] * inv    # (..., S, hd/2)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rope_ref(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+             inverse: bool = False) -> torch.Tensor:
+    """Split-half RoPE of x (..., S, H, hd) by the table (..., S, hd / 2):
+    the first and second halves of the head dim are the two rotated
+    components. fp32 math, output in x's dtype. ``inverse`` negates sin:
+    the rotation by the negated angle, which is the backward."""
+    if inverse:
+        sin = -sin
+    cos, sin = cos[..., :, None, :], sin[..., :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # -- attention ---------------------------------------------------------------
 def _visible(S: int, T: int, causal: bool, window: int,
              kv_len: Optional[int], device) -> torch.Tensor:

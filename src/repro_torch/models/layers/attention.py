@@ -4,7 +4,9 @@ encoder-decoder's cross attention (``cross_attn_apply``): queries from the
 decoder's stream, keys and values from the encoder memory, no RoPE, no
 mask, S queries over T keys.
 
-The scaled dot product goes through the flash-attention kernel
+RoPE rotates q and k in one launch of the RoPE kernel (``ops.rope_qk``)
+by one cos / sin table (``layers.rope.seq_table``, kept per length). The
+scaled dot product goes through the flash-attention kernel
 (``kernels.ops.flash_attention``: the CUDA kernel on the card, its plain
 version on the CPU), which maps each q head to its kv head itself, so K
 and V are not repeated. The plain version keeps the q.k logits and the
@@ -40,7 +42,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers.rope import apply_rope
+from repro_torch.models.layers.rope import apply_rope_qk, seq_table
 from repro_torch.sharding.aten import (CACHE_READ, CACHE_WRITE,
                                        collective_source)
 
@@ -60,9 +62,7 @@ def attn_apply(p, x: torch.Tensor, cfg,
     q = (xc @ p["wq"].to(cdt)).reshape(B, S, cfg.num_heads, hd)
     k = (xc @ p["wk"].to(cdt)).reshape(B, S, cfg.num_kv_heads, hd)
     v = (xc @ p["wv"].to(cdt)).reshape(B, S, cfg.num_kv_heads, hd)
-    positions = torch.arange(S, device=x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = ops.rope_qk(q, k, *seq_table(S, hd, cfg.rope_theta, x.device))
     out = ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.window,
                               scale=scale)
     y = out.reshape(B, S, cfg.num_heads * hd) @ p["wo"].to(cdt)
@@ -116,8 +116,7 @@ def attn_decode(p, x: torch.Tensor, cache: Cache, pos: int,
     k = (xc @ p["wk"].to(cdt)).reshape(B, 1, cfg.num_kv_heads, hd)
     v = (xc @ p["wv"].to(cdt)).reshape(B, 1, cfg.num_kv_heads, hd)
     positions = torch.full((1,), pos, dtype=torch.float32, device=x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = apply_rope_qk(q, k, positions, cfg.rope_theta)
     slot = pos % W
     with collective_source(CACHE_WRITE):
         cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)

@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers.attention import cache_size
-from repro_torch.models.layers.rope import apply_rope
+from repro_torch.models.layers.rope import apply_rope, seq_table
 from repro_torch.sharding.aten import (CACHE_READ, CACHE_WRITE,
                                        collective_source)
 
@@ -78,12 +78,12 @@ def mla_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
     H = cfg.num_heads
     cdt = getattr(torch, cfg.compute_dtype)
     xc = x.to(cdt)
-    positions = torch.arange(S, device=x.device)
+    table = seq_table(S, m.qk_rope_head_dim, cfg.rope_theta, x.device)
     c_kv = xc @ p["w_dkv"].to(cdt)                             # (B, S, r)
-    k_rope = apply_rope((xc @ p["w_kr"].to(cdt))[:, :, None, :], positions,
-                        cfg.rope_theta)                        # (B,S,1,rd)
+    k_rope = ops.rope((xc @ p["w_kr"].to(cdt))[:, :, None, :],
+                      *table)                                  # (B,S,1,rd)
     q_nope, q_rope = _split_q(_q_proj(p, xc, cfg, cdt), cfg)
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = ops.rope(q_rope, *table)
     k_nope = torch.einsum("bsr,hrn->bshn", c_kv, p["w_uk"].to(cdt))
     v = torch.einsum("bsr,hrv->bshv", c_kv, p["w_uv"].to(cdt))
     q = torch.cat([q_nope, q_rope], dim=-1)                    # (B,S,H,qd)

@@ -1264,3 +1264,179 @@ def test_graphed_step_capture_error_and_one_open_step(dev):
     torch.cuda.synchronize()
     assert torch.equal(y, torch.full_like(x, 6))
     h.close()
+
+
+# -- RoPE -----------------------------------------------------------------------
+def _plain_rope(x, positions, theta=10000.0):
+    """The port's RoPE before its kernel, op for op (ATen's fp32 kernels)."""
+    inv = ref.rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions.to(torch.float32)[..., :, None] * inv
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# (q shape, k's head count, dtype, positions: (S,) or (B, S))
+ROPE_CASES = [
+    ((4096, 65, 3, 64), 3, torch.bfloat16, "seq"),     # the ViT cell's
+    ((1, 4096, 32, 224), 32, torch.bfloat16, "seq"),   # Zamba2-7B's block
+    ((4, 1024, 32, 80), 8, torch.float32, "seq"),
+    ((4, 1, 16, 128), 8, torch.bfloat16, "batch"),     # decode positions
+    ((2, 33, 4, 40), 2, torch.float16, "batch"),       # half 20: scalars
+]
+
+
+@pytest.mark.parametrize("shape,hk,dtype,kind", ROPE_CASES)
+def test_rope_kernel_bit_identical(dev, shape, hk, dtype, kind):
+    """q and k in one launch, forward and backward (one more launch), and
+    q alone: every output and gradient equal to the plain path's."""
+    from repro_torch.models.layers import rope
+    B, S = shape[:2]
+    q = _rand(shape, dtype, dev, 0).requires_grad_()
+    k = _rand(shape[:2] + (hk, shape[3]), dtype, dev, 1).requires_grad_()
+    pos = (torch.arange(S, device=dev) if kind == "seq" else
+           torch.randint(0, 4096, (B, S), device=dev))
+    before = ops.launch_counts()["rope"]
+    rq, rk = rope.apply_rope_qk(q, k, pos)
+    assert ops.launch_counts()["rope"] == before + 1
+    pq, pk = _plain_rope(q, pos), _plain_rope(k, pos)
+    assert torch.equal(rq, pq) and torch.equal(rk, pk)
+    gq, gk = _rand(q.shape, dtype, dev, 2), _rand(k.shape, dtype, dev, 3)
+    got = torch.autograd.grad((rq, rk), (q, k), (gq, gk))
+    assert ops.launch_counts()["rope"] == before + 2
+    want = torch.autograd.grad((pq, pk), (q, k), (gq, gk))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(rope.apply_rope(q.detach(), pos), pq)
+    assert ops.launch_counts()["rope"] == before + 3
+
+
+def test_rope_kernel_mla_slice(dev):
+    """deepseek-v2's MLA: the rope part of each q head, a strided slice of
+    the projection, and the shared (B, S, 1, 64) key part."""
+    from repro_torch.models.layers import rope
+    qf = _rand((2, 1024, 128, 192), torch.bfloat16, dev, 0).requires_grad_()
+    kr = _rand((2, 1024, 1, 64), torch.bfloat16, dev, 1).requires_grad_()
+    part = qf[..., 128:]
+    assert not part.is_contiguous()
+    pos = torch.arange(1024, device=dev)
+    got = [rope.apply_rope(part, pos), rope.apply_rope(kr, pos)]
+    want = [_plain_rope(part, pos), _plain_rope(kr, pos)]
+    gs = [_rand(t.shape, torch.bfloat16, dev, 2 + i)
+          for i, t in enumerate(got)]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(torch.autograd.grad(got, (qf, kr), gs),
+                    torch.autograd.grad(want, (qf, kr), gs)):
+        assert torch.equal(a, b)
+
+
+def test_rope_kernel_under_vmap(dev):
+    """16 clients of the ViT cell's (256, 65, 3, 64) under vmap: one launch
+    forward and one backward, the plain path's bits."""
+    from repro_torch.models.layers import rope
+    C = 16
+    q = _rand((C, 256, 65, 3, 64), torch.bfloat16, dev, 0).requires_grad_()
+    k = _rand((C, 256, 65, 3, 64), torch.bfloat16, dev, 1).requires_grad_()
+    pos = torch.arange(65, device=dev)
+    before = ops.launch_counts()["rope"]
+    rq, rk = torch.func.vmap(
+        lambda a, b: rope.apply_rope_qk(a, b, pos))(q, k)
+    assert ops.launch_counts()["rope"] == before + 1
+    pq, pk = (torch.func.vmap(lambda a: _plain_rope(a, pos))(t)
+              for t in (q, k))
+    assert torch.equal(rq, pq) and torch.equal(rk, pk)
+    gq, gk = (_rand(q.shape, torch.bfloat16, dev, s) for s in (2, 3))
+    got = torch.autograd.grad((rq, rk), (q, k), (gq, gk))
+    assert ops.launch_counts()["rope"] == before + 2
+    want = torch.autograd.grad((pq, pk), (q, k), (gq, gk))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_rope_kernel_in_a_cuda_graph(dev):
+    """Forward and backward captured with ``GraphedStep`` and replayed on
+    new inputs: the plain path's bits every replay; ``LAUNCHES`` counts the
+    capture's two launches once a replay."""
+    from repro_torch.federated.graphed import GraphedStep
+    from repro_torch.models.layers import rope
+    shape = (256, 65, 3, 64)
+    q, k = (_rand(shape, torch.bfloat16, dev, s) for s in (0, 1))
+    g = _rand(shape, torch.bfloat16, dev, 2)
+    pos = torch.arange(65, device=dev)
+    outs = [torch.empty_like(q) for _ in range(4)]
+
+    def step():
+        a, b = q.detach().requires_grad_(), k.detach().requires_grad_()
+        rq, rk = rope.apply_rope_qk(a, b, pos)
+        ga, gb = torch.autograd.grad((rq, rk), (a, b), (g, g))
+        for o, t in zip(outs, (rq, rk, ga, gb)):
+            o.copy_(t)
+
+    step()                      # eager: builds and loads the kernel
+    before = ops.launch_counts()["rope"]
+    graph = GraphedStep(step, dev)
+    assert ops.launch_counts()["rope"] == before
+    try:
+        for seed in (3, 4):
+            q.copy_(_rand(shape, torch.bfloat16, dev, seed))
+            k.copy_(_rand(shape, torch.bfloat16, dev, seed + 10))
+            graph.replay()
+            torch.cuda.synchronize()
+            a, b = q.clone().requires_grad_(), k.clone().requires_grad_()
+            pq, pk = _plain_rope(a, pos), _plain_rope(b, pos)
+            want = [pq, pk, *torch.autograd.grad((pq, pk), (a, b), (g, g))]
+            for o, w in zip(outs, want):
+                assert torch.equal(o, w)
+    finally:
+        graph.close()
+    assert ops.launch_counts()["rope"] == before + 2 * 2
+
+
+def test_rope_seq_table_made_in_a_capture_is_not_kept(dev):
+    """A table first made while a step is captured holds nothing until a
+    replay, so it is not kept: the replay computes it, and the next eager
+    call builds and keeps one of its own."""
+    from repro_torch.federated.graphed import GraphedStep
+    from repro_torch.models.layers import rope
+    want = ref.rope_table(torch.arange(77, device=dev), 64)[0]
+    rope._SEQ_TABLES.clear()
+    out = torch.zeros_like(want)
+
+    def step():
+        out.copy_(rope.seq_table(77, 64, 10000.0, dev)[0])
+
+    graph = GraphedStep(step, dev)
+    try:
+        assert not rope._SEQ_TABLES
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    finally:
+        graph.close()
+    assert torch.equal(rope.seq_table(77, 64, 10000.0, dev)[0], want)
+    assert len(rope._SEQ_TABLES) == 1
+
+
+def test_rope_wrapper_raises_instead_of_falling_back(dev):
+    """The kernel launches or raises: a layout, dtype or table it does not
+    take is refused (``ops`` makes a strided x contiguous first)."""
+    from repro_torch.kernels import rope as rp
+    x = torch.zeros((2, 8, 2, 64), dtype=torch.bfloat16, device=dev)
+    c = torch.zeros((8, 32), device=dev)
+    for xs, cs in [([x.transpose(1, 2)], (c, c)),          # strided
+                   ([x.double()], (c, c)),                 # float64
+                   ([x[..., :63].contiguous()], (c, c)),   # odd head dim
+                   ([x, x.float()], (c, c)),               # two dtypes
+                   ([x], (c.bfloat16(), c.bfloat16())),    # table dtype
+                   ([x], (c[:7].contiguous(),) * 2),       # wrong S
+                   ([x], (c[:, :16].contiguous(),) * 2),   # wrong width
+                   ([x.cpu()], (c, c))]:                   # device
+        with pytest.raises(ValueError):
+            rp.rope_rotate(xs, *cs)
+    with pytest.raises(ValueError):
+        ops.rope(x.double(), c, c)
+    strided = torch.ones((2, 2, 8, 64), dtype=torch.bfloat16,
+                         device=dev).transpose(1, 2)
+    assert torch.equal(ops.rope(strided, torch.ones_like(c), c), strided)
