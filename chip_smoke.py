@@ -1193,7 +1193,7 @@ def stage2_step(cfg, params, tokens, batch):
     sequences; it returns (new params, metrics)."""
     import torch
     from repro_torch.federated.client import lm_train_step
-    from repro_torch.launch.steps import ALIGN_WEIGHT
+    from repro_torch.core.ssl import ALIGN_WEIGHT
     from repro_torch.optim import make_optimizer
     from repro_torch.configs.base import TrainConfig
 
@@ -1464,7 +1464,8 @@ def encdec_phase(dev="cuda"):
     from repro_torch.core import schedule as sched
     from repro_torch.data.partition import iid_partition, stack_shards
     from repro_torch.federated import aggregate, comm
-    from repro_torch.federated.driver import _lm_batch_plan
+    from repro_torch.core import ssl as ssl_mod
+    from repro_torch.federated.engine import lm_batch_indices, lm_batch_plan
     from repro_torch.federated.transport import Transport
     from repro_torch.kernels import ops
     from repro_torch.launch import steps as lsteps
@@ -1521,7 +1522,7 @@ def encdec_phase(dev="cuda"):
     gen = torch.Generator(dev).manual_seed(1)
     params = encdec.init_encdec(cfg, gen, dev)
     n_params = sum(t.numel() for t in params.values())
-    S = lsteps._stages(cfg)
+    S = ssl_mod.lm_stages(cfg)
     print(f"  (b) {cfg.arch_id} cut to {cfg.num_layers} + {cfg.dec_layers} "
           f"blocks (from 12 + 12; widths unchanged): {n_params} parameters, "
           f"{S} stages; make_fl_round_program, {R['clients']} clients, "
@@ -1534,9 +1535,11 @@ def encdec_phase(dev="cuda"):
     data = encdec_data(cfg, n, R["seq_len"], gen)
     shards = iid_partition(n, R["clients"], seed=0)
     pool = {k: stack_shards(v, shards)[0] for k, v in data.items()}
-    batch_idx, valid = (t.to(dev) for t in _lm_batch_plan(
-        [torch.as_tensor(ix) for ix in shards], R["batch"], 1))
-    nsteps = [max(1, len(ix) // R["batch"]) for ix in shards]
+    starts = lm_batch_plan([len(ix) for ix in shards], R["batch"], 1)
+    batch_idx = lm_batch_indices(starts, R["batch"]).to(dev)
+    valid = torch.tensor([[t < len(s) for t in range(batch_idx.shape[1])]
+                          for s in starts], device=dev)
+    nsteps = [len(s) for s in starts]
     fl = FLConfig(num_clients=R["clients"], rounds=R["rounds"],
                   local_epochs=1, schedule="lw_fedssl")
     tc = TrainConfig(batch_size=R["batch"], base_lr=3e-4)
@@ -1606,10 +1609,10 @@ def encdec_reference_check(params, data, cfg, n=2, seq=256):
     the trained one nudged as in ``lm_reference_check``. Returns {metric:
     relative difference}."""
     import torch
-    from repro_torch.launch import steps as lsteps
+    from repro_torch.core import ssl as ssl_mod
 
     cfg = dataclasses.replace(cfg, compute_dtype="float32")
-    S = lsteps._stages(cfg)
+    S = ssl_mod.lm_stages(cfg)
     gen = torch.Generator("cpu").manual_seed(3)
     local = {k: v.cpu() for k, v in params.items()}
     glob = {k: v + 1e-3 * v.std() * torch.randn(v.shape, generator=gen)
@@ -1620,12 +1623,12 @@ def encdec_reference_check(params, data, cfg, n=2, seq=256):
     out = {}
     for dev in ("cuda", "cpu"):
         with torch.no_grad():
-            _, m = lsteps._loss_for(
+            _, m = ssl_mod.lm_loss(
                 cfg, {k: v.to(dev) for k, v in local.items()},
                 {k: v.to(dev) for k, v in batch.items()}, sub_layers=S,
                 active_from=S - 1,
                 global_params={k: v.to(dev) for k, v in glob.items()},
-                align_weight=lsteps.ALIGN_WEIGHT, remat=False)
+                align_weight=ssl_mod.ALIGN_WEIGHT, remat=False)
         out[dev] = {k: float(v) for k, v in m.items() if k != "aux"}
     print(f"  card {out['cuda']}, CPU {out['cpu']}", flush=True)
     return {k: abs(out["cuda"][k] - v) / max(abs(v), 1e-12)

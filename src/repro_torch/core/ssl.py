@@ -1,7 +1,7 @@
 """Self-supervised learning engines: MoCo v3 (the paper's default), SimCLR
 and BYOL, with representation alignment (``repro.core.ssl``; Algorithm 2
 of the paper), and the LM family's SSL loss (``lm_ssl_loss``: next-token
-prediction plus the same alignment).
+prediction plus the same alignment; ``lm_loss`` adds the encoder-decoder's).
 
 State layout, flat dicts keyed by the reference's key paths:
 
@@ -23,6 +23,7 @@ import torch
 from repro_torch.convert import prefixed, subtree
 from repro_torch.core import heads, losses
 from repro_torch.federated.leaves import tree_sorted
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import vit as vit_mod
 from repro_torch.obs.trace import NOOP_TRACER
@@ -190,4 +191,50 @@ def lm_ssl_loss(params: Tree, batch, cfg, *, sub_layers=None,
         loss = loss + align_weight * la
         metrics["align"] = la
     metrics["loss"] = loss
+    return loss, metrics
+
+
+ALIGN_WEIGHT = 0.01
+TAU = 0.2
+
+
+def is_encdec(cfg) -> bool:
+    return bool(cfg.cross_attention and cfg.dec_layers)
+
+
+def lm_stages(cfg) -> int:
+    """Stages of the layer-wise schedule: the encoder-decoder's are its
+    encoder blocks (``cfg.num_layers``), as the reference counts them."""
+    if is_encdec(cfg):
+        return cfg.num_layers
+    return lm_mod.num_stages(cfg)
+
+
+def lm_loss(cfg, params, batch, *, sub_layers, active_from, global_params,
+            align_weight, remat):
+    """The local loss and its metrics: ``lm_ssl_loss`` for a decoder-only
+    LM; for the encoder-decoder ``encdec_loss``, plus the alignment on the
+    mean-pooled encoder memory, encoded again from the local parameters
+    (as the reference does) and from the global ones without gradient."""
+    if not is_encdec(cfg):
+        return lm_ssl_loss(params, batch, cfg, sub_layers=sub_layers,
+                           active_from=active_from,
+                           global_params=global_params,
+                           align_weight=align_weight, tau=TAU, remat=remat)
+    loss, metrics = encdec_mod.encdec_loss(
+        params, batch, cfg, sub_layers=sub_layers, active_from=active_from,
+        remat=remat)
+    if align_weight and global_params is not None:
+        mem = encdec_mod.encode(params, batch["frontend"], cfg,
+                                sub_layers=sub_layers,
+                                active_from=active_from, remat=remat)
+        with torch.no_grad():
+            gmem = encdec_mod.encode(global_params, batch["frontend"], cfg,
+                                     sub_layers=sub_layers, active_from=0,
+                                     remat=remat)
+            zg = torch.mean(gmem.to(torch.float32), dim=1)
+        la = losses.info_nce(torch.mean(mem.to(torch.float32), dim=1), zg,
+                             TAU)
+        loss = loss + align_weight * la
+        metrics = {**metrics, "align": la}
     return loss, metrics

@@ -10,7 +10,7 @@ vectorised engine's): the clients' forwards under ``torch.func.vmap``, then
 one ``torch.autograd.grad`` of their summed losses, which frees the
 backward's intermediates as it goes, as ``train_step``'s does.
 ``lm_train_step`` is the LM family's step (``lm_ssl_loss``; no target
-branch).
+branch), ``lm_stacked_train_step`` its stacked form.
 
 ``tracer=`` (a ``repro_torch.obs`` tracer; the no-op by default) records
 a step's phases as the spans ``step.forward`` (the loss), ``step.backward``
@@ -19,7 +19,7 @@ target EMA); ``local_train`` records each step as a ``local_step`` (its
 ``t``) holding ``step.views`` (the batch's draws and augmentation) and
 those three. The spans wrap the ``torch.func.vmap`` calls of the stacked
 step, never open inside them. ``lm_train_step`` records the last three
-(``run_lm_fedssl``'s sequential loop wraps each in a ``local_step``).
+(the LM sequential engine wraps each in a ``local_step``).
 """
 from __future__ import annotations
 
@@ -176,20 +176,29 @@ def stacked_train_step(state, opt_state, x1, x2, lr: float, *, encoder,
         sub_layers=sub_layers, active_from=active_from,
         layer_gates=layer_gates, global_enc=global_enc,
         align_weight=align_weight, tracer=tracer)
+    with tracer.span("step.update", cat="step"):
+        state, opt_state = _stacked_update(
+            lambda s, o, g: _apply_update(
+                s, o, g, lr, ssl_cfg=ssl_cfg, opt=opt, sub_layers=sub_layers,
+                active_from=active_from), state, opt_state, grads)
+    return state, opt_state, losses
+
+
+def _stacked_update(update, state, opt_state, grads):
+    """One client's ``update(state, opt_state, grads) -> (state,
+    opt_state)`` under ``torch.func.vmap`` over a client stack; the
+    optimizer's shared step count goes in and comes out once."""
     per_leaf, shared = shared_opt_state(opt_state)
     new_shared = {}
 
-    def update(state, per_leaf, grads):
-        state, new_opt = _apply_update(
-            state, {**per_leaf, **shared}, grads, lr, ssl_cfg=ssl_cfg,
-            opt=opt, sub_layers=sub_layers, active_from=active_from)
-        new_leaf, s = shared_opt_state(new_opt)
+    def one(state, per_leaf, grads):
+        state, new_opt = update(state, {**per_leaf, **shared}, grads)
+        per_leaf, s = shared_opt_state(new_opt)
         new_shared.update(s)
-        return state, new_leaf
+        return state, per_leaf
 
-    with tracer.span("step.update", cat="step"):
-        state, per_leaf = vmap(update)(state, per_leaf, grads)
-    return state, {**per_leaf, **new_shared}, losses
+    state, per_leaf = vmap(one)(state, per_leaf, grads)
+    return state, {**per_leaf, **new_shared}
 
 
 def lm_step_leaves(params: Tree, cfg, sub_layers: int,
@@ -232,6 +241,31 @@ def lm_train_step(params: Tree, opt_state, batch, lr: float, *, cfg, opt,
         new, opt_state = opt.update(grads, opt_state, trained, lr, mask)
     return ({**params, **new}, opt_state,
             {k: v.detach() for k, v in metrics.items()})
+
+
+def lm_stacked_train_step(params: Tree, opt_state, batch, lr: float, *, cfg,
+                          opt, sub_layers: int, active_from: int,
+                          global_params: Optional[Tree] = None,
+                          align_weight: float = 0.0, remat: bool = False):
+    """``stacked_train_step`` for ``ssl.lm_loss`` (the encoder-decoder's
+    too): ``params``, ``opt_state`` and ``batch`` carry a leading client
+    axis. Returns (params, opt_state, losses (C,))."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+
+    def loss_fn(p, b, gp):
+        return ssl_mod.lm_loss(cfg, p, b, sub_layers=sub_layers,
+                               active_from=active_from, global_params=gp,
+                               align_weight=align_weight, remat=remat)[0]
+
+    losses = vmap(loss_fn, in_dims=(0, 0, None))(leaves, batch,
+                                                 global_params)
+    grads = grads_of(losses.sum(), leaves)
+    masked = active_from > 0 or sub_layers < ssl_mod.lm_stages(cfg)
+    params, opt_state = _stacked_update(
+        lambda p, o, d: opt.update(d, o, p, lr, stage_update_mask(
+            p, sub_layers, active_from) if masked else None),
+        params, opt_state, grads)
+    return params, opt_state, losses.detach()
 
 
 def local_train(global_state, images: torch.Tensor, plan, draws, opt, *,

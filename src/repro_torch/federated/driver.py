@@ -68,13 +68,12 @@ import torch
 from repro_torch.convert import subtree, to_tensor
 from repro_torch.core import schedule as sched
 from repro_torch.core import ssl as ssl_mod
-from repro_torch.data.partition import stack_shards
 from repro_torch.federated import aggregate, comm, server
-from repro_torch.federated.client import lm_step_leaves, lm_train_step
+from repro_torch.federated.client import lm_train_step
 from repro_torch.federated.draws import TorchDraws
-from repro_torch.federated.engine import ENGINES, make_engine
+from repro_torch.federated.engine import (ENGINES, LMSequentialEngine,
+                                          LMVmapEngine, make_engine)
 from repro_torch.federated.transport import Transport
-from repro_torch.launch.steps import ALIGN_WEIGHT, make_fl_round_program
 from repro_torch.models import lm as lm_mod
 from repro_torch.obs import NOOP_OBS, format_round_line
 from repro_torch.obs import resources as obs_resources
@@ -235,6 +234,7 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
     tracer, met = obs.tracer, obs.metrics
     prv = make_privacy(privacy)
     secure = prv is not None and prv.cfg.secure_agg
+    buffered = sim is not None and sim.policy.needs_client_trees
     wire = Transport(codec, include_heads=fl.include_heads,
                      kernels=transport_kernels, obs=obs, privacy=prv)
     eng = make_engine(engine, encoder=encoder, ssl_cfg=ssl_cfg, opt=opt,
@@ -313,56 +313,39 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                     batch_plans = [draws.batch_plan(
                         eng.counts[i], fl.local_epochs,
                         train_cfg.batch_size) for i in participants]
-                    train_span = tracer.span("local_train", cat="fl",
-                                             participants=len(participants))
-                    if sim is not None and sim.policy.needs_client_trees:
-                        # buffered-async: the engine returns each client's
-                        # decoded tree; the policy buffers them and
-                        # aggregates arrivals staleness-weighted, possibly
-                        # rounds after they trained. Secure aggregation
-                        # masks each flush's arrival set (agg_fn)
-                        with train_span:
-                            if participants:
-                                trees, losses, up = eng.run_round(
-                                    dstate, plan, participants, batch_plans,
-                                    lr, global_enc,
-                                    server_online=state["online"],
-                                    collect=True, probe=probe)
-                            else:  # every sampled client busy or offline
-                                trees, losses = [], []
-                                up = wire.stats(up_spec)
+                    # buffered-async aggregates each client's decoded tree
+                    # staleness-weighted, possibly rounds later; secure
+                    # aggregation masks each flush's arrival set (agg_fn),
+                    # else the round's decoded trees in place of FedAvg
+                    with tracer.span("local_train", cat="fl",
+                                     participants=len(participants)):
+                        if participants:
+                            result, losses, up = eng.run_round(
+                                dstate, plan, participants, batch_plans, lr,
+                                global_enc, server_online=state["online"],
+                                collect=buffered or secure, probe=probe)
+                        else:  # every sampled client busy or offline
+                            result, losses = [], []
+                            up = wire.stats(up_spec)
+                    if buffered:
                         new_online, outcome = sim.complete_round_async(
-                            outcome, trees,
+                            outcome, result,
                             agg_fn=prv.make_secure_agg_fn(
                                 up_spec, state["online"],
                                 draws.mask_seed(plan.round_idx))
                             if secure else None)
                     elif secure:
-                        # synchronous or deadline: the decoded per-client
-                        # trees through the masked fixed-point sum in
-                        # place of the engine's float FedAvg
-                        with train_span:
-                            trees, losses, up = eng.run_round(
-                                dstate, plan, participants, batch_plans, lr,
-                                global_enc, server_online=state["online"],
-                                collect=True, probe=probe)
                         w = aggregate.client_weights(
                             [eng.counts[i] for i in participants])
                         new_online = prv.secure_fedavg(
-                            trees, w.tolist(), participants, spec=up_spec,
+                            result, w.tolist(), participants, spec=up_spec,
                             base=state["online"],
                             seed=draws.mask_seed(plan.round_idx))
-                        del trees
-                        if sim is not None:
-                            outcome = sim.complete_round(outcome)
                     else:
-                        with train_span:
-                            new_online, losses, up = eng.run_round(
-                                dstate, plan, participants, batch_plans, lr,
-                                global_enc, server_online=state["online"],
-                                probe=probe)
-                        if sim is not None:
-                            outcome = sim.complete_round(outcome)
+                        new_online = result
+                    del result
+                    if sim is not None and not buffered:
+                        outcome = sim.complete_round(outcome)
                     if probe is not None and probe.flops is not None:
                         with tracer.span("resources.measure", cat="obs",
                                          stage=plan.stage):
@@ -384,50 +367,16 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                     cb = comm.round_comm_bytes(
                         state["online"], plan,
                         include_heads=fl.include_heads)
-                    if losses:
-                        hist.loss.append(sum(losses) / len(losses))
-                    else:  # async round with no launches: carry the loss
-                        hist.loss.append(hist.loss[-1] if hist.loss
-                                         else float("nan"))
-                    hist.round_stage.append(plan.stage)
-                    hist.download_bytes.append(cb["download"])
-                    hist.upload_bytes.append(cb["upload"])
-                    hist.wire_download_bytes.append(down["wire_bytes"])
-                    hist.wire_upload_bytes.append(up["wire_bytes"])
-                    sim_log = ""
-                    dropped = 0
-                    if outcome is not None:
-                        dropped = len(outcome.dropped)
-                        hist.round_wall_clock.append(outcome.wall_clock_s)
-                        hist.device_seconds.append(outcome.device_seconds)
-                        hist.energy_joules.append(outcome.energy_j)
-                        hist.dropped_clients.append(dropped)
-                        hist.participants.append(tuple(participants))
-                        sim_log = (f" sim {outcome.wall_clock_s:.1f}s "
-                                   f"dropped {dropped}")
-                    eps = None
-                    if prv is not None:
-                        # the sampled cohort, not the survivors: dropped
-                        # clients were still contacted
-                        eps = _account_round(prv, hist, len(cohort)
-                                             / max(1, fl.num_clients),
-                                             up, up_spec, wire)
-                        if prv.dp:
-                            sim_log += f" eps {eps:.3g}"
-                    round_span.set(
-                        loss=hist.loss[-1], lr=lr,
-                        download_bytes=cb["download"],
-                        upload_bytes=cb["upload"],
-                        wire_download_bytes=down["wire_bytes"],
-                        wire_upload_bytes=up["wire_bytes"],
-                        participants=len(participants), dropped=dropped)
-                    if obs.enabled:
-                        # live watermark (mem.* attrs are excluded from
-                        # Tracer.structure(): environment, not structure)
-                        round_span.set(
-                            **obs_resources.memory_span_attrs(device))
-                    if prv is not None:
-                        _privacy_span_attrs(round_span, hist)
+                    dropped = 0 if outcome is None else len(outcome.dropped)
+                    # privacy accounts the sampled cohort, not the
+                    # survivors: dropped clients were still contacted
+                    line = _record_round(
+                        hist, round_span, plan, fl.rounds, losses, lr, cb,
+                        down, up, prv=prv,
+                        q=len(cohort) / max(1, fl.num_clients), spec=up_spec,
+                        wire=wire, outcome=outcome,
+                        participants=participants, dropped=dropped,
+                        device=device if obs.enabled else None)
                 if obs.enabled:
                     _round_metrics(met, cb, down, up, hist.loss[-1],
                                    host_t0)
@@ -437,25 +386,21 @@ def run_fedssl(model_cfg, ssl_cfg, fl, train_cfg, *, images, client_indices,
                         met.counter("sim.energy_j").inc(outcome.energy_j)
                         met.counter("sim.dropped_clients").inc(dropped)
                     if prv is not None:
-                        met.gauge("privacy.epsilon").set(eps)
+                        met.gauge("privacy.epsilon").set(hist.epsilon[-1])
                         met.histogram("privacy.clip_fraction").observe(
                             hist.clip_fraction[-1])
                         met.counter("privacy.secure_agg_overhead_bytes").inc(
                             hist.secure_agg_overhead_bytes[-1])
                 if log:
-                    log(format_round_line(
-                        plan.round_idx, fl.rounds, plan.stage, hist.loss[-1],
-                        lr=lr, down_mb=cb["download"] / 1e6,
-                        up_mb=cb["upload"] / 1e6,
-                        wire_mb=(down["wire_bytes"] + up["wire_bytes"])
-                        / 1e6, extra=sim_log))
+                    log(line)
                 if _observe_health(obs, plan, fl.rounds, hist.loss[-1], cb,
                                    down, up, len(participants), log,
                                    value=True, dropped=dropped):
                     break
-                if _budget_exhausted(prv, eps, plan, fl.rounds, log):
+                if _budget_exhausted(prv, hist, plan, fl.rounds, log):
                     tracer.instant("privacy.budget_exhausted", cat="fl",
-                                   round=plan.round_idx, epsilon=eps,
+                                   round=plan.round_idx,
+                                   epsilon=hist.epsilon[-1],
                                    budget=prv.cfg.epsilon_budget)
                     break
         if obs.enabled:
@@ -475,33 +420,65 @@ def _max_weight(outcome, participants, counts) -> float:
     return float(aggregate.client_weights([counts[i] for i in ids]).max())
 
 
-def _account_round(prv, hist, q: float, up, spec, wire) -> float:
-    """Account one round at sampling fraction ``q`` and append the
-    round's ``epsilon``, ``clip_fraction`` and secure-aggregation overhead
-    to ``hist``; returns epsilon."""
-    prv.accountant.observe_round(q)
-    eps = float(prv.accountant.epsilon(prv.cfg.delta))
-    hist.epsilon.append(eps)
-    hist.clip_fraction.append(float(up.get("clip_fraction", 0.0)))
-    hist.secure_agg_overhead_bytes.append(
-        prv.secure_overhead_bytes(spec, wire.wire_bytes(spec)))
-    return eps
+def _record_round(hist, round_span, plan, rounds: int, losses, lr: float,
+                  cb, down, up, *, prv=None, q: float = 1.0, spec=None,
+                  wire=None, outcome=None, participants=None,
+                  dropped: int = 0, device=None) -> str:
+    """Append the round to ``hist`` (the mean loss, the last round's when no
+    client reported; ``prv``'s accounting at sampling fraction ``q`` of
+    ``spec`` on ``wire``; a simulator's ``outcome``), set the round span's
+    attributes and return the round line."""
+    hist.loss.append(sum(losses) / len(losses) if losses
+                     else hist.loss[-1] if hist.loss else float("nan"))
+    hist.round_stage.append(plan.stage)
+    hist.download_bytes.append(cb["download"])
+    hist.upload_bytes.append(cb["upload"])
+    hist.wire_download_bytes.append(down["wire_bytes"])
+    hist.wire_upload_bytes.append(up["wire_bytes"])
+    extra = ""
+    if prv is not None:
+        prv.accountant.observe_round(q)
+        hist.epsilon.append(float(prv.accountant.epsilon(prv.cfg.delta)))
+        hist.clip_fraction.append(float(up.get("clip_fraction", 0.0)))
+        hist.secure_agg_overhead_bytes.append(
+            prv.secure_overhead_bytes(spec, wire.wire_bytes(spec)))
+    if outcome is not None:
+        hist.round_wall_clock.append(outcome.wall_clock_s)
+        hist.device_seconds.append(outcome.device_seconds)
+        hist.energy_joules.append(outcome.energy_j)
+        hist.dropped_clients.append(dropped)
+        hist.participants.append(tuple(participants))
+        extra = f" sim {outcome.wall_clock_s:.1f}s dropped {dropped}"
+    if prv is not None and prv.dp:
+        extra += f" eps {hist.epsilon[-1]:.3g}"
+    attrs = ({} if participants is None else
+             {"participants": len(participants), "dropped": dropped})
+    round_span.set(loss=hist.loss[-1], lr=lr,
+                   download_bytes=cb["download"], upload_bytes=cb["upload"],
+                   wire_download_bytes=down["wire_bytes"],
+                   wire_upload_bytes=up["wire_bytes"], **attrs)
+    if device is not None:
+        # live watermark (mem.* attrs are excluded from Tracer.structure():
+        # environment, not structure)
+        round_span.set(**obs_resources.memory_span_attrs(device))
+    if prv is not None:
+        round_span.set(epsilon=hist.epsilon[-1],
+                       clip_fraction=hist.clip_fraction[-1],
+                       secure_agg_overhead_bytes=hist
+                       .secure_agg_overhead_bytes[-1])
+    return format_round_line(
+        plan.round_idx, rounds, plan.stage, hist.loss[-1], lr=lr,
+        down_mb=cb["download"] / 1e6, up_mb=cb["upload"] / 1e6,
+        wire_mb=(down["wire_bytes"] + up["wire_bytes"]) / 1e6, extra=extra)
 
 
-def _privacy_span_attrs(round_span, hist) -> None:
-    round_span.set(epsilon=hist.epsilon[-1],
-                   clip_fraction=hist.clip_fraction[-1],
-                   secure_agg_overhead_bytes=hist
-                   .secure_agg_overhead_bytes[-1])
-
-
-def _budget_exhausted(prv, eps, plan, rounds: int, log) -> bool:
+def _budget_exhausted(prv, hist, plan, rounds: int, log) -> bool:
     """True (and logged) once epsilon exceeds the run's budget."""
     if prv is None or prv.cfg.epsilon_budget <= 0.0 \
-            or eps <= prv.cfg.epsilon_budget:
+            or hist.epsilon[-1] <= prv.cfg.epsilon_budget:
         return False
     if log:
-        log(f"privacy budget exhausted: eps {eps:.4g} > "
+        log(f"privacy budget exhausted: eps {hist.epsilon[-1]:.4g} > "
             f"{prv.cfg.epsilon_budget:.4g} after round "
             f"{plan.round_idx + 1}/{rounds}; halting")
     return True
@@ -553,24 +530,6 @@ def _observe_health(obs, plan, rounds: int, loss: float, cb, down, up,
     return True
 
 
-def _lm_batch_plan(shards, B: int, local_epochs: int):
-    """The sequential LM loop's batches as the vmap engine's gather
-    indices: (C, T, B) shard-local indices of each local step and the (C,
-    T) mask of the steps a client really takes (its first ``max(1, n_i //
-    B) * local_epochs``); the reference's ``train_lm`` replays them the
-    same way."""
-    nbs = [max(1, len(ix) // B) * local_epochs for ix in shards]
-    T = max(nbs)
-    batch_idx = torch.zeros((len(shards), T, B), dtype=torch.int64)
-    valid = torch.zeros((len(shards), T), dtype=torch.bool)
-    for ci, ix in enumerate(shards):
-        for b in range(nbs[ci]):
-            start = (b * B) % max(1, len(ix) - B)
-            batch_idx[ci, b] = torch.arange(start, start + B)
-            valid[ci, b] = True
-    return batch_idx, valid
-
-
 def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
                   device="cuda", codec: str = "fp32",
                   transport_kernels: str = "xla", log=None, obs=None,
@@ -586,17 +545,15 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
     round's cosine rate; FedAvg consumes the decoded uploads. Tensors are
     moved to ``device``, which defaults to the card. A client's round loss
     is its last step's. engine: ``sequential`` (one client after another)
-    or ``vmap`` (``launch.steps.make_fl_round_program``: every client's
-    step batched through ``torch.func.vmap``, on the same batches; it
-    needs every shard to hold a batch). obs: as in ``run_fedssl``, with
-    the spans of the reference's LM loop (``run > round > local_train``
-    and the transport's).
+    or ``vmap`` (every client's step batched through ``torch.func.vmap``,
+    on the same batches; it needs every shard to hold a batch), built once
+    a run (``engine.LMSequentialEngine``, ``LMVmapEngine``). obs: as in
+    ``run_fedssl``, with the spans of the reference's LM loop (``run >
+    round > local_train`` and the transport's).
     privacy: as in ``run_fedssl``, with every client in every round (q =
     1), as the reference's ``train_lm`` accounts it; draws: the source of
     the privacy draws (default ``TorchDraws(fl.seed, device)``; the loop
-    draws nothing else). On the sequential engine each local step is a
-    ``local_step`` span (its ``t``) holding ``lm_train_step``'s
-    ``step.forward``, ``step.backward`` and ``step.update``.
+    draws nothing else).
 
     The zamba2 topology (Zamba2's published layout, one leaf a row) trains
     on the sequential engine: a client differentiates and keeps optimizer
@@ -622,21 +579,9 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
     tokens = to_tensor(tokens, device, torch.int64)
     labels = to_tensor(labels, device, torch.int64)
     shards = [to_tensor(ix, device, torch.int64) for ix in shards]
-    B = train_cfg.batch_size
-    if engine == "vmap":
-        if min(len(ix) for ix in shards) < B:
-            raise ValueError(
-                f"vmap engine needs every shard >= batch size: smallest "
-                f"shard {min(len(ix) for ix in shards)} < batch {B}")
-        pool = {k: stack_shards(v, [ix.cpu().numpy() for ix in shards])[0]
-                for k, v in (("tokens", tokens), ("labels", labels))}
-        batch_idx, valid = (t.to(device) for t in _lm_batch_plan(
-            shards, B, fl.local_epochs))
     params = {k: to_tensor(v, device) for k, v in params.items()}
-    opt = make_optimizer(train_cfg)
     plans = sched.build_schedule(fl, lm_mod.num_stages(cfg))
     base_lr = scaled_base_lr(train_cfg.base_lr, train_cfg.batch_size)
-    w = aggregate.client_weights([len(ix) for ix in shards])
     clients = list(range(len(shards)))
     obs = obs if obs is not None else NOOP_OBS
     tracer = obs.tracer
@@ -645,33 +590,14 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
     draws = draws if draws is not None else TorchDraws(fl.seed, device)
     wire = Transport(codec, kernels=transport_kernels, obs=obs, privacy=prv,
                      stages=stages)
+    kw = dict(cfg=cfg, opt=make_optimizer(train_cfg), tokens=tokens,
+              labels=labels, shards=shards, batch_size=train_cfg.batch_size,
+              local_epochs=fl.local_epochs, transport=wire, obs=obs)
+    # lm_train_step as this module binds it when the run starts
+    eng = (LMVmapEngine(remat=train_cfg.remat, **kw) if engine == "vmap"
+           else LMSequentialEngine(step=lm_train_step, **kw))
+    w = eng.weights
     hist = FLHistory()
-
-    def sequential_clients(plan, dparams, lr):
-        """Every client's local steps, one client after another, from the
-        decoded broadcast; returns (their trees, their last losses)."""
-        outs, losses = [], []
-        keys = lm_step_leaves(dparams, cfg, plan.sub_layers,
-                              plan.active_from)
-        for ix in shards:
-            p_i, o_i = dparams, opt.init({k: dparams[k] for k in keys})
-            nb = max(1, len(ix) // B)
-            for b in range(nb * fl.local_epochs):
-                # the reference's batch_start rule
-                sel = ix[(b * B) % max(1, len(ix) - B):][:B]
-                with tracer.span("local_step", cat="step", t=b):
-                    p_i, o_i, m = lm_train_step(
-                        p_i, o_i,
-                        {"tokens": tokens[sel], "labels": labels[sel]},
-                        lr, cfg=cfg, opt=opt, sub_layers=plan.sub_layers,
-                        active_from=plan.active_from,
-                        global_params=dparams if plan.align else None,
-                        align_weight=ALIGN_WEIGHT if plan.align else 0.0,
-                        tracer=tracer)
-            outs.append(p_i)
-            losses.append(float(m["loss"]))
-            del o_i
-        return outs, losses
 
     obs.start_profiler()
     try:
@@ -694,33 +620,8 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
                     # decoded broadcast; no step writes into it
                     dparams, down = wire.broadcast(params, plan)
                     spec = wire.plan_specs(params, plan)["upload"]
-                    with tracer.span("local_train", cat="fl", engine=engine,
-                                     clients=len(clients)):
-                        if engine == "vmap":
-                            round_fn, _ = make_fl_round_program(
-                                cfg, train_cfg, sub_layers=plan.sub_layers,
-                                active_from=plan.active_from,
-                                align=plan.align, transport=wire, plan=plan,
-                                fedavg=not secure)
-                            result, lvec, up = round_fn(
-                                {"params": dparams, "server": params,
-                                 "global_params": dparams if plan.align
-                                 else None},
-                                pool, batch_idx, valid, w, lr)
-                            losses = lvec.tolist()
-                        else:
-                            outs, losses = sequential_clients(plan, dparams,
-                                                              lr)
-                    if engine == "sequential":
-                        if secure:
-                            result, up = wire.decode_uploads(
-                                params, outs, clients, plan,
-                                ref_online=dparams)
-                        else:
-                            result, up = wire.aggregate_uploads(
-                                params, outs, clients, plan, w,
-                                ref_online=dparams)
-                        del outs  # not needed past the upload
+                    result, losses, up = eng.run_round(plan, dparams, params,
+                                                       lr, collect=secure)
                     if secure:
                         # the decoded trees, FedAvg'd as a masked sum
                         params = prv.secure_fedavg(
@@ -730,46 +631,26 @@ def run_lm_fedssl(cfg, fl, train_cfg, *, tokens, labels, shards, params,
                     else:
                         params = result
                     del result
-                    eps = None
-                    if prv is not None:
-                        if prv.noise_enabled:
-                            params = prv.add_noise(
-                                params, spec, draws, plan.round_idx,
-                                prv.sigma(float(w.max())))
-                        # every client in every round: q = 1
-                        eps = _account_round(prv, hist, 1.0, up, spec, wire)
+                    if prv is not None and prv.noise_enabled:
+                        params = prv.add_noise(params, spec, draws,
+                                               plan.round_idx,
+                                               prv.sigma(float(w.max())))
                     cb = comm.round_comm_bytes(params, plan, stages=stages)
-                    hist.loss.append(sum(losses) / len(losses))
-                    hist.round_stage.append(plan.stage)
-                    hist.download_bytes.append(cb["download"])
-                    hist.upload_bytes.append(cb["upload"])
-                    hist.wire_download_bytes.append(down["wire_bytes"])
-                    hist.wire_upload_bytes.append(up["wire_bytes"])
-                    round_span.set(loss=hist.loss[-1], lr=lr,
-                                   download_bytes=cb["download"],
-                                   upload_bytes=cb["upload"],
-                                   wire_download_bytes=down["wire_bytes"],
-                                   wire_upload_bytes=up["wire_bytes"])
-                    if prv is not None:
-                        _privacy_span_attrs(round_span, hist)
+                    # every client in every round: q = 1
+                    line = _record_round(hist, round_span, plan, fl.rounds,
+                                         losses, lr, cb, down, up, prv=prv,
+                                         spec=spec, wire=wire)
                 if obs.enabled:
                     _round_metrics(obs.metrics, cb, down, up, hist.loss[-1],
                                    host_t0)
                 if log:
-                    log(format_round_line(
-                        plan.round_idx, fl.rounds, plan.stage, hist.loss[-1],
-                        lr=lr, down_mb=cb["download"] / 1e6,
-                        up_mb=cb["upload"] / 1e6,
-                        wire_mb=(down["wire_bytes"] + up["wire_bytes"])
-                        / 1e6,
-                        extra=f" eps {eps:.3g}" if prv is not None
-                        and prv.dp else ""))
+                    log(line)
                 if _observe_health(obs, plan, fl.rounds, hist.loss[-1], cb,
                                    down, up, len(clients), log, value=False):
                     break
                 # the reference's LM loop logs the halt and records no
                 # instant
-                if _budget_exhausted(prv, eps, plan, fl.rounds, log):
+                if _budget_exhausted(prv, hist, plan, fl.rounds, log):
                     break
     finally:
         obs.stop_profiler()

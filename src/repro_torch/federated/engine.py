@@ -42,6 +42,11 @@ holding ``step.views``, ``step.forward``, ``step.backward`` and
 ``engine.dispatch`` on the vmap engine; the vmap engine's
 ``engine.inputs`` (every draw of the round, stacked); the transport's
 ``fedavg``.
+
+The LM family's engines, ``LMSequentialEngine`` and ``LMVmapEngine``
+(``lm_stacked_clients``), train every client each round on the
+reference's batches (``lm_batch_plan``); both vmap engines pad through
+``padded_steps``.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.core import schedule as sched
+from repro_torch.core.ssl import ALIGN_WEIGHT
 from repro_torch.data.augment import two_views
 from repro_torch.data.partition import stack_shards
 from repro_torch.federated import aggregate, client as client_mod
@@ -99,18 +105,15 @@ class SequentialEngine:
                     # the reference reads every client's loss here; an
                     # untraced round reads them once, after the last client
                     sp.set(loss=float(losses[-1]))
-        if collect:
-            trees, stats = self.transport.decode_uploads(
-                server_online, outs, list(participants), plan,
-                ref_online=state["online"])
-            return trees, [float(x) for x in losses], stats
-        w = aggregate.client_weights([self.counts[i] for i in participants])
-        with tracer.span("aggregate", cat="engine", engine=self.name,
-                         clients=len(participants)):
-            new_online, stats = self.transport.aggregate_uploads(
-                server_online, outs, list(participants), plan, w,
-                ref_online=state["online"])
-        return new_online, [float(x) for x in losses], stats
+        w = None if collect else aggregate.client_weights(
+            [self.counts[i] for i in participants])
+        with (contextlib.nullcontext() if collect else tracer.span(
+                "aggregate", cat="engine", engine=self.name,
+                clients=len(participants))):
+            result, stats = upload(self.transport, server_online, outs,
+                                   list(participants), plan,
+                                   state["online"], w)
+        return result, [float(x) for x in losses], stats
 
 
 def keep_rows(keep: torch.Tensor, new, old):
@@ -122,28 +125,57 @@ def keep_rows(keep: torch.Tensor, new, old):
                        old)
 
 
-class VmapEngine:
+def padded_steps(step, state, opt_state, steps: Sequence[int]):
+    """``max(steps)`` batched local steps ``step(t, state, opt_state) ->
+    (state, opt_state, losses (C,))`` from client-stacked states, of which
+    client c takes ``steps[c]``: past them its rows and its loss keep their
+    values (the shared step count goes on). ``steps`` is on the host, so a
+    step every client takes adds no tensor op. Returns (state, losses)."""
+    losses = None
+    for t in range(max(steps)):
+        new_state, new_opt, loss = step(t, state, opt_state)
+        if all(t < s for s in steps):
+            state, opt_state, losses = new_state, new_opt, loss
+            continue
+        keep = torch.tensor([t < s for s in steps], device=loss.device)
+        state = keep_rows(keep, new_state, state)
+        new_leaf, shared = client_mod.shared_opt_state(new_opt)
+        opt_state = {**keep_rows(keep, new_leaf, opt_state), **shared}
+        losses = torch.where(keep, loss, torch.zeros_like(loss)
+                             if losses is None else losses)
+    return state, losses
+
+
+def upload(transport, server, outs, clients, plan, ref, weights=None):
+    """``outs`` through the wire onto the server's tree: their FedAvg with
+    ``weights``, else each decoded upload. Returns (result, stats)."""
+    if weights is None:
+        return transport.decode_uploads(server, outs, clients, plan,
+                                        ref_online=ref)
+    return transport.aggregate_uploads(server, outs, clients, plan, weights,
+                                       ref_online=ref)
+
+
+def _check_shards(counts, batch_size: int) -> None:
+    if min(counts) < batch_size:
+        # a batched step takes a whole batch of every client (the ViT's
+        # sequential engine would run no step for a smaller shard): fail
+        # here rather than average an untrained client in
+        raise ValueError(
+            f"vmap engine needs every shard >= batch size: smallest "
+            f"shard {min(counts)} < batch {batch_size}")
+
+
+class VmapEngine(SequentialEngine):
     name = "vmap"
 
-    def __init__(self, *, encoder, ssl_cfg, opt, fl, images: torch.Tensor,
-                 client_indices: Sequence[torch.Tensor], transport, draws,
-                 batch_size: int, obs=None):
-        self.encoder, self.ssl_cfg, self.opt = encoder, ssl_cfg, opt
-        self.images = images
-        self.counts = [len(ix) for ix in client_indices]
-        self.transport, self.draws = transport, draws
-        self.obs = obs if obs is not None else NOOP_OBS
-        if min(self.counts) < batch_size:
-            # the sequential engine cannot train such a client either (it
-            # would run no local step); fail here rather than average an
-            # untrained client in
-            raise ValueError(
-                f"vmap engine needs every shard >= batch size: smallest "
-                f"shard {min(self.counts)} < batch {batch_size}")
+    def __init__(self, *, batch_size: int, **kw):
+        super().__init__(**kw)
+        _check_shards(self.counts, batch_size)
         # (N, n_max) pool indices of each client's shard, padded
         self.shard_idx, _ = stack_shards(
-            torch.arange(images.shape[0], device=images.device),
-            [ix.cpu().numpy() for ix in client_indices])
+            torch.arange(self.images.shape[0], device=self.images.device),
+            [ix.cpu().numpy() for ix in self.client_indices])
 
     def _round_inputs(self, plan, participants, batch_plans):
         """Every draw of the round, asked for client by client and step by
@@ -184,77 +216,63 @@ class VmapEngine:
 
         return (per_step(idx).flatten(1, 2), view_draws(draws1),
                 view_draws(draws2),
-                per_step(gates) if plan.depth_dropout > 0.0 else None, T)
+                per_step(gates) if plan.depth_dropout > 0.0 else None)
 
     def run_round(self, state, plan, participants, batch_plans, lr: float,
                   global_enc, server_online, collect: bool = False,
                   probe=None):
         """As ``SequentialEngine.run_round``: each local step is one batched
         step of all participants."""
-        with self.obs.tracer.span("engine.dispatch", cat="engine",
-                                  engine=self.name,
-                                  participants=len(participants)):
-            result, losses, stats = self._round(
-                state, plan, participants, batch_plans, lr, global_enc,
-                server_online, collect, probe)
-        return result, [float(x) for x in losses.tolist()], stats
-
-    def _round(self, state, plan, participants, batch_plans, lr: float,
-               global_enc, server_online, collect, probe):
         C = len(participants)
-        steps = [len(b) for b in batch_plans]
         tracer = self.obs.tracer
-        with tracer.span("engine.inputs", cat="engine"):
-            pool_idx, v1, v2, gates, T = self._round_inputs(
-                plan, participants, batch_plans)
-        g = state["online"]
-        cstate = {"online": {k: v.expand(C, *v.shape) for k, v in g.items()}}
-        if "target" in state:
-            # the target restarts from the downloaded model each round
-            cstate["target"] = {k: g[k].expand(C, *g[k].shape)
-                                for k in state["target"]}
-        opt_state = client_mod.stacked_opt_init(self.opt, cstate["online"])
-        align_w = self.ssl_cfg.align_weight if plan.align else 0.0
-        losses = None
-        for t in range(T):
-            with tracer.span("local_step", cat="step", t=t):
-                with tracer.span("step.views", cat="step"):
-                    x1, x2 = two_views(self.images[pool_idx[t]],
-                                       {f: v[t] for f, v in v1.items()},
-                                       {f: v[t] for f, v in v2.items()})
-                with (probe if probe is not None and t == 0
-                      else contextlib.nullcontext()):
-                    new_state, new_opt, loss = client_mod.stacked_train_step(
-                        cstate, opt_state, x1.unflatten(0, (C, -1)),
-                        x2.unflatten(0, (C, -1)), lr, encoder=self.encoder,
-                        ssl_cfg=self.ssl_cfg, opt=self.opt,
-                        sub_layers=plan.sub_layers,
-                        active_from=plan.active_from,
-                        layer_gates=None if gates is None else gates[t],
-                        global_enc=global_enc, align_weight=align_w,
-                        tracer=tracer)
-            if probe is not None and t == 0:
-                probe.samples = x1.shape[0]
-            if all(t < s for s in steps):
-                cstate, opt_state, losses = new_state, new_opt, loss
-                continue
-            keep = torch.tensor([t < s for s in steps], device=loss.device)
-            cstate = keep_rows(keep, new_state, cstate)
-            new_leaf, shared = client_mod.shared_opt_state(new_opt)
-            opt_state = {**keep_rows(keep, new_leaf, opt_state), **shared}
-            losses = torch.where(keep, loss, losses)
-        outs = [{k: v[c] for k, v in cstate["online"].items()}
-                for c in range(C)]
-        if collect:
-            trees, stats = self.transport.decode_uploads(
-                server_online, outs, list(participants), plan,
-                ref_online=state["online"])
-            return trees, losses, stats
-        w = aggregate.client_weights([self.counts[i] for i in participants])
-        new_online, stats = self.transport.aggregate_uploads(
-            server_online, outs, list(participants), plan, w,
-            ref_online=state["online"])
-        return new_online, losses, stats
+        with tracer.span("engine.dispatch", cat="engine", engine=self.name,
+                         participants=C):
+            with tracer.span("engine.inputs", cat="engine"):
+                pool_idx, v1, v2, gates = self._round_inputs(
+                    plan, participants, batch_plans)
+            g = state["online"]
+            cstate = {"online": {k: v.expand(C, *v.shape)
+                                 for k, v in g.items()}}
+            if "target" in state:
+                # the target restarts from the downloaded model each round
+                cstate["target"] = {k: g[k].expand(C, *g[k].shape)
+                                    for k in state["target"]}
+            align_w = self.ssl_cfg.align_weight if plan.align else 0.0
+
+            def step(t, cstate, opt_state):
+                with tracer.span("local_step", cat="step", t=t):
+                    with tracer.span("step.views", cat="step"):
+                        x1, x2 = two_views(self.images[pool_idx[t]],
+                                           {f: v[t] for f, v in v1.items()},
+                                           {f: v[t] for f, v in v2.items()})
+                    with (probe if probe is not None and t == 0
+                          else contextlib.nullcontext()):
+                        out = client_mod.stacked_train_step(
+                            cstate, opt_state, x1.unflatten(0, (C, -1)),
+                            x2.unflatten(0, (C, -1)), lr,
+                            encoder=self.encoder, ssl_cfg=self.ssl_cfg,
+                            opt=self.opt, sub_layers=plan.sub_layers,
+                            active_from=plan.active_from,
+                            layer_gates=None if gates is None else gates[t],
+                            global_enc=global_enc, align_weight=align_w,
+                            tracer=tracer)
+                if probe is not None and t == 0:
+                    probe.samples = x1.shape[0]
+                return out
+
+            # unnamed: a name here would hold the first moments all round
+            cstate, losses = padded_steps(
+                step, cstate,
+                client_mod.stacked_opt_init(self.opt, cstate["online"]),
+                [len(b) for b in batch_plans])
+            outs = [{k: v[c] for k, v in cstate["online"].items()}
+                    for c in range(C)]
+            result, stats = upload(
+                self.transport, server_online, outs, list(participants),
+                plan, state["online"], None if collect else
+                aggregate.client_weights([self.counts[i]
+                                          for i in participants]))
+        return result, [float(x) for x in losses.tolist()], stats
 
 
 def make_engine(name: str, *, batch_size: int, **kw):
@@ -265,3 +283,123 @@ def make_engine(name: str, *, batch_size: int, **kw):
     if name == "vmap":
         return VmapEngine(batch_size=batch_size, **kw)
     raise ValueError(f"unknown engine '{name}'; one of {ENGINES}")
+
+
+# ---------------------------------------------------------------------------
+# the LM family's engines
+# ---------------------------------------------------------------------------
+def lm_batch_plan(counts: Sequence[int], B: int, local_epochs: int):
+    """The reference's batch-start rule (``train_lm``): the shard-local
+    starts of a client's ``max(1, n // B) * local_epochs`` batches, a short
+    one when its n samples are fewer than B."""
+    return [[(b * B) % max(1, n - B)
+             for b in range(max(1, n // B) * local_epochs)] for n in counts]
+
+
+def lm_batch_indices(starts, B: int) -> torch.Tensor:
+    """(C, T, B) shard-local indices of ``lm_batch_plan``'s batches; a
+    client's steps past its own repeat its first batch."""
+    T = max(map(len, starts))
+    first = torch.tensor([s + [0] * (T - len(s)) for s in starts])
+    return first[..., None] + torch.arange(B)
+
+
+def lm_stacked_clients(params, pool, batch_idx, steps: Sequence[int], lr,
+                       *, opt, **step_kw):
+    """Every client's ``steps[c]`` local steps from the broadcast ``params``,
+    batched (``client.lm_stacked_train_step`` with ``step_kw``) on ``pool``'s
+    (C, n_max, ...) shards at ``batch_idx`` (C, T, B). Returns (the clients'
+    trees, the (C,) losses of their last steps)."""
+    C = len(steps)
+    rows = torch.arange(C, device=batch_idx.device)[:, None]
+    stacked = {k: v.expand(C, *v.shape) for k, v in params.items()}
+
+    def step(t, p, o):
+        batch = {k: v[rows, batch_idx[:, t]] for k, v in pool.items()}
+        return client_mod.lm_stacked_train_step(p, o, batch, lr, opt=opt,
+                                                **step_kw)
+
+    stacked, losses = padded_steps(
+        step, stacked, client_mod.stacked_opt_init(opt, stacked), steps)
+    return [{k: v[c] for k, v in stacked.items()} for c in range(C)], losses
+
+
+class LMSequentialEngine:
+    """Each client's ``step`` (``client.lm_train_step``'s signature) over its
+    batches in turn, each a ``local_step`` span (its ``t``). ``run_round``
+    trains every client from the decoded ``broadcast`` under the round's
+    ``local_train`` span (``_train``); returns (their FedAvg onto
+    ``server`` through the wire, or with ``collect`` their decoded trees;
+    their last losses; the upload stats)."""
+    name = "sequential"
+
+    def __init__(self, *, cfg, opt, tokens, labels, shards, batch_size: int,
+                 local_epochs: int, transport, obs=None,
+                 step=client_mod.lm_train_step):
+        self.cfg, self.opt, self.step, self.B = cfg, opt, step, batch_size
+        self.tokens, self.labels, self.shards = tokens, labels, list(shards)
+        self.counts = [len(ix) for ix in self.shards]
+        self.weights = aggregate.client_weights(self.counts)
+        self.starts = lm_batch_plan(self.counts, batch_size, local_epochs)
+        self.transport = transport
+        self.obs = obs if obs is not None else NOOP_OBS
+
+    def run_round(self, plan, broadcast, server, lr: float,
+                  collect: bool = False):
+        with self.obs.tracer.span("local_train", cat="fl", engine=self.name,
+                                  clients=len(self.counts)):
+            outs, losses = self._train(plan, broadcast, lr)
+        result, stats = upload(self.transport, server, outs,
+                               list(range(len(outs))), plan, broadcast,
+                               None if collect else self.weights)
+        return result, losses, stats
+
+    def _train(self, plan, broadcast, lr: float):
+        tracer, align = self.obs.tracer, plan.align
+        outs, losses = [], []
+        keys = client_mod.lm_step_leaves(broadcast, self.cfg, plan.sub_layers,
+                                         plan.active_from)
+        for ix, starts in zip(self.shards, self.starts):
+            p_i = broadcast
+            o_i = self.opt.init({k: broadcast[k] for k in keys})
+            for t, start in enumerate(starts):
+                sel = ix[start:start + self.B]
+                with tracer.span("local_step", cat="step", t=t):
+                    p_i, o_i, m = self.step(
+                        p_i, o_i, {"tokens": self.tokens[sel],
+                                   "labels": self.labels[sel]},
+                        lr, cfg=self.cfg, opt=self.opt,
+                        sub_layers=plan.sub_layers,
+                        active_from=plan.active_from,
+                        global_params=broadcast if align else None,
+                        align_weight=ALIGN_WEIGHT if align else 0.0,
+                        tracer=tracer)
+            outs.append(p_i)
+            losses.append(float(m["loss"]))
+            del o_i
+        return outs, losses
+
+
+class LMVmapEngine(LMSequentialEngine):
+    """The clients' steps batched (``lm_stacked_clients``)."""
+    name = "vmap"
+
+    def __init__(self, *, remat: bool = False, **kw):
+        super().__init__(**kw)
+        _check_shards(self.counts, self.B)
+        self.remat = remat
+        shards = [ix.cpu().numpy() for ix in self.shards]
+        self.pool = {"tokens": stack_shards(self.tokens, shards)[0],
+                     "labels": stack_shards(self.labels, shards)[0]}
+        self.batch_idx = lm_batch_indices(self.starts, self.B).to(
+            self.tokens.device)
+
+    def _train(self, plan, broadcast, lr: float):
+        outs, losses = lm_stacked_clients(
+            broadcast, self.pool, self.batch_idx,
+            [len(s) for s in self.starts], lr, opt=self.opt, cfg=self.cfg,
+            sub_layers=plan.sub_layers, active_from=plan.active_from,
+            global_params=broadcast if plan.align else None,
+            align_weight=ALIGN_WEIGHT if plan.align else 0.0,
+            remat=self.remat)
+        return outs, losses.tolist()

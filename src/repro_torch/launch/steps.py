@@ -30,12 +30,12 @@ tensors.
 accumulation (``train_cfg.microbatch``) runs the microbatch slices one
 after another, so one microbatch's activations are live at a time, and
 ``train_cfg.remat`` recomputes each trained block in the backward.
-``make_fl_round_program`` is a whole LM FL round: every client's local
-steps batched, the losses' forward under ``torch.func.vmap`` and one
-``torch.autograd.grad`` of their sum (the LM counterpart of
-``federated.client.stacked_train_step``), then FedAvg, through the wire
-transport when one is given. The reference compiles that round into one
-XLA program; here a Python loop over local steps drives the batched step.
+``make_fl_round_program`` is a whole LM FL round: the LM vmap engine's
+batched local steps (``federated.engine.lm_stacked_clients``: the losses'
+forward under ``torch.func.vmap`` and one ``torch.autograd.grad`` of their
+sum), then FedAvg, through the wire transport when one is given. The
+reference compiles that round into one XLA program; here a Python loop
+over local steps drives the batched step.
 
 Both take the decoder-only LMs and the encoder-decoder (``is_encdec``: a
 config with cross attention and decoder layers). The encoder-decoder's
@@ -54,22 +54,15 @@ from typing import Optional
 import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
-from torch.func import vmap
 
-from repro_torch.core import losses
-from repro_torch.core.ssl import lm_ssl_loss
+from repro_torch.core.ssl import ALIGN_WEIGHT, is_encdec, lm_loss, lm_stages
 from repro_torch.federated import aggregate
-from repro_torch.federated.client import (grads_of, shared_opt_state,
-                                          stacked_opt_init)
-from repro_torch.federated.engine import keep_rows
+from repro_torch.federated.engine import lm_stacked_clients, upload
 from repro_torch.federated.masks import stage_update_mask
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.optim import make_optimizer
 from repro_torch.sharding.aten import AlignedLayouts
-
-ALIGN_WEIGHT = 0.01
-TAU = 0.2
 
 
 def cfg_for_shape(cfg, shape_name: str):
@@ -80,48 +73,6 @@ def cfg_for_shape(cfg, shape_name: str):
             and cfg.family in ("dense", "vlm", "audio", "moe"):
         return dataclasses.replace(cfg, window=8192)
     return cfg
-
-
-def is_encdec(cfg) -> bool:
-    return bool(cfg.cross_attention and cfg.dec_layers)
-
-
-def _stages(cfg) -> int:
-    """Stages of the layer-wise schedule: the encoder-decoder's are its
-    encoder blocks (``cfg.num_layers``), as the reference counts them."""
-    if is_encdec(cfg):
-        return cfg.num_layers
-    return lm_mod.num_stages(cfg)
-
-
-def _loss_for(cfg, params, batch, *, sub_layers, active_from, global_params,
-              align_weight, remat):
-    """The local loss and its metrics: ``lm_ssl_loss`` for a decoder-only
-    LM; for the encoder-decoder ``encdec_loss``, plus the alignment on the
-    mean-pooled encoder memory, encoded again from the local parameters
-    (as the reference does) and from the global ones without gradient."""
-    if not is_encdec(cfg):
-        return lm_ssl_loss(params, batch, cfg, sub_layers=sub_layers,
-                           active_from=active_from,
-                           global_params=global_params,
-                           align_weight=align_weight, tau=TAU, remat=remat)
-    loss, metrics = encdec_mod.encdec_loss(
-        params, batch, cfg, sub_layers=sub_layers, active_from=active_from,
-        remat=remat)
-    if align_weight and global_params is not None:
-        mem = encdec_mod.encode(params, batch["frontend"], cfg,
-                                sub_layers=sub_layers,
-                                active_from=active_from, remat=remat)
-        with torch.no_grad():
-            gmem = encdec_mod.encode(global_params, batch["frontend"], cfg,
-                                     sub_layers=sub_layers, active_from=0,
-                                     remat=remat)
-            zg = torch.mean(gmem.to(torch.float32), dim=1)
-        la = losses.info_nce(torch.mean(mem.to(torch.float32), dim=1), zg,
-                             TAU)
-        loss = loss + align_weight * la
-        metrics = {**metrics, "align": la}
-    return loss, metrics
 
 
 def _like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -141,7 +92,7 @@ def make_train_step(cfg, train_cfg, *, mode: str = "train",
     its first axis; their fp32 gradients are summed and divided by m, and
     the loss metric is the slices' mean."""
     opt = make_optimizer(train_cfg)
-    S = _stages(cfg)
+    S = lm_stages(cfg)
     lw = mode == "train_lw"
     sub_layers, active_from = S, (S - 1 if lw else 0)
     align_weight = ALIGN_WEIGHT if lw else 0.0
@@ -149,7 +100,7 @@ def make_train_step(cfg, train_cfg, *, mode: str = "train",
 
     def loss_and_grads(params, batch, global_params):
         p = {k: v.detach().requires_grad_() for k, v in params.items()}
-        loss, metrics = _loss_for(
+        loss, metrics = lm_loss(
             cfg, p, batch, sub_layers=sub_layers, active_from=active_from,
             global_params=global_params, align_weight=align_weight,
             remat=train_cfg.remat)
@@ -295,8 +246,9 @@ def make_fl_round_program(cfg, train_cfg, *, mode: str = "train",
                           active_from: Optional[int] = None,
                           align: Optional[bool] = None, transport=None,
                           plan=None, fedavg: bool = True):
-    """One LM FL round for C clients at once. Stage defaults follow
-    ``mode`` (end-to-end for ``train``, the final stage with alignment for
+    """One LM FL round for C clients at once: the LM vmap engine's
+    ``federated.engine.lm_stacked_clients``. Stage defaults follow ``mode``
+    (end-to-end for ``train``, the final stage with alignment for
     ``train_lw``); a stage schedule passes its plan's ``sub_layers``,
     ``active_from`` and ``align``.
 
@@ -305,92 +257,37 @@ def make_fl_round_program(cfg, train_cfg, *, mode: str = "train",
     ``global_params`` when aligning), every ``shards`` leaf is ``(C,
     n_max, ...)``, ``batch_idx`` (C, T, B) holds shard-local indices of
     each local step's batch and ``valid`` (C, T) marks the steps that
-    count: a step with ``valid`` False runs but its update is discarded
-    (a client's valid steps must come first, since the step count is
-    shared). Each local step runs the clients' local losses
-    (``lm_ssl_loss``, or the encoder-decoder's) under one
-    ``torch.func.vmap``, takes every client's gradient with one
-    ``torch.autograd.grad`` of their sum (client c's loss reads only row c
-    of the stacked leaves), and applies the optimizer's update under
-    ``vmap``, from ``opt.init`` of the broadcast, per client. Returns
-    (FedAvg of the clients' trees with ``weights``, or with
-    ``fedavg=False`` the list of their trees; the (C,) losses of each
-    client's last valid step).
+    count, a client's first ones: a step with ``valid`` False runs but its
+    update is discarded. Returns (FedAvg of the clients' trees with
+    ``weights``, or with ``fedavg=False`` the list of their trees; the (C,)
+    losses of each client's last valid step).
 
-    With ``transport`` (a ``federated.transport.Transport``) and the
-    round's ``plan``, the clients' trees go through the wire first:
-    ``broadcast`` then also holds ``server``, the server's tree the
-    uploads scatter onto, and the clients' ids for the error-feedback
-    residuals are 0..C-1; FedAvg (or, with ``fedavg=False``, nothing)
-    consumes the decoded uploads, and ``round_fn`` returns the upload
-    stats as a third value."""
+    With ``transport`` and the round's ``plan``, the clients' trees go
+    through the wire (``federated.engine.upload``, client ids 0..C-1) onto
+    ``broadcast["server"]``, and ``round_fn`` returns the upload stats as a
+    third value."""
     opt = make_optimizer(train_cfg)
-    S = _stages(cfg)
+    S = lm_stages(cfg)
     lw = mode == "train_lw"
     sub_layers = S if sub_layers is None else sub_layers
     active_from = (S - 1 if lw else 0) if active_from is None \
         else active_from
     align = lw if align is None else align
-    align_weight = ALIGN_WEIGHT if align else 0.0
-    masked = active_from > 0 or sub_layers < S
-
-    def client_loss(p, batch, global_params):
-        return _loss_for(
-            cfg, p, batch, sub_layers=sub_layers, active_from=active_from,
-            global_params=global_params if align else None,
-            align_weight=align_weight, remat=train_cfg.remat)[0]
-
-    def run_clients(broadcast, shards, batch_idx, valid, lr):
-        g = broadcast["params"]
-        gp = broadcast.get("global_params")
-        C, T = valid.shape
-        rows = torch.arange(C, device=batch_idx.device)[:, None]
-        params = {k: v.expand(C, *v.shape) for k, v in g.items()}
-        per_leaf, shared = shared_opt_state(stacked_opt_init(opt, params))
-        last = torch.zeros(C, dtype=torch.float32, device=valid.device)
-        for t in range(T):
-            batch = {k: v[rows, batch_idx[:, t]] for k, v in shards.items()}
-            leaves = {k: v.detach().requires_grad_()
-                      for k, v in params.items()}
-            loss = vmap(client_loss, in_dims=(0, 0, None))(leaves, batch, gp)
-            grads = grads_of(loss.sum(), leaves)
-            new_shared = {}
-
-            def one(p, o, d):
-                mask = (stage_update_mask(p, sub_layers, active_from)
-                        if masked else None)
-                p, new_opt = opt.update(d, {**o, **shared}, p, lr, mask)
-                o, s = shared_opt_state(new_opt)
-                new_shared.update(s)
-                return p, o
-
-            new_p, new_o = vmap(one)(params, per_leaf, grads)
-            loss = loss.detach()
-            keep = valid[:, t]
-            if bool(keep.all()):
-                params, per_leaf = new_p, new_o
-            else:
-                params = keep_rows(keep, new_p, params)
-                per_leaf = keep_rows(keep, new_o, per_leaf)
-            shared = new_shared
-            last = torch.where(keep, loss, last)
-        return [{k: v[c] for k, v in params.items()} for c in range(C)], \
-            last
 
     def round_fn(broadcast, shards, batch_idx, valid, weights, lr):
-        outs, losses = run_clients(broadcast, shards, batch_idx, valid, lr)
+        outs, losses = lm_stacked_clients(
+            broadcast["params"], shards, batch_idx, valid.sum(1).tolist(),
+            lr, opt=opt, cfg=cfg, sub_layers=sub_layers,
+            active_from=active_from,
+            global_params=broadcast.get("global_params") if align else None,
+            align_weight=ALIGN_WEIGHT if align else 0.0,
+            remat=train_cfg.remat)
         if transport is None:
             return (aggregate.fedavg(outs, weights) if fedavg else outs), \
                 losses
-        clients = list(range(len(outs)))
-        if fedavg:
-            tree, stats = transport.aggregate_uploads(
-                broadcast["server"], outs, clients, plan, weights,
-                ref_online=broadcast["params"])
-        else:
-            tree, stats = transport.decode_uploads(
-                broadcast["server"], outs, clients, plan,
-                ref_online=broadcast["params"])
+        tree, stats = upload(transport, broadcast["server"], outs,
+                             list(range(len(outs))), plan,
+                             broadcast["params"], weights if fedavg else None)
         return tree, losses, stats
 
     return round_fn, opt

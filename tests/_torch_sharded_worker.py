@@ -41,12 +41,12 @@ def _shard(tree, specs, mesh):
 
 
 def _loss_and_grads(cfg, train_cfg, params, batch):
-    from repro_torch.launch import steps
-    n = steps._stages(cfg)
+    from repro_torch.core import ssl
+    n = ssl.lm_stages(cfg)
     p = {k: v.detach().requires_grad_() for k, v in params.items()}
-    loss, _ = steps._loss_for(cfg, p, batch, sub_layers=n, active_from=0,
-                              global_params=None, align_weight=0.0,
-                              remat=train_cfg.remat)
+    loss, _ = ssl.lm_loss(cfg, p, batch, sub_layers=n, active_from=0,
+                          global_params=None, align_weight=0.0,
+                          remat=train_cfg.remat)
     return loss, torch.autograd.grad(loss, list(p.values()),
                                      allow_unused=True)
 

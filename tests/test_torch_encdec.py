@@ -22,6 +22,7 @@ from repro_torch import checkpoint as tckpt
 from repro_torch import convert
 from repro_torch.configs import base as tbase
 from repro_torch.core import schedule as sched
+from repro_torch.core import ssl as tssl
 from repro_torch.launch import steps
 from repro_torch.models import encdec
 from repro_torch.models.layers import attention
@@ -103,8 +104,8 @@ def test_config_copy_matches_reference():
               "param_dtype", "compute_dtype", "norm_eps"):
         assert getattr(full_t, f) == getattr(full_j, f), f
     assert ARCH in tbase.ARCH_IDS
-    assert steps.is_encdec(TCFG) and jsteps.is_encdec(JCFG)
-    assert steps._stages(TCFG) == 2 and steps._stages(full_t) == 12
+    assert tssl.is_encdec(TCFG) and jsteps.is_encdec(JCFG)
+    assert tssl.lm_stages(TCFG) == 2 and tssl.lm_stages(full_t) == 12
 
 
 def test_init_encdec_shapes_and_converted_parameters(jparams, tparams):

@@ -5,7 +5,8 @@ reference's replayed draws.
 A 2-block fp32 ViT with narrow heads, 2 rounds, batch 16. The ragged cases
 use a Dirichlet partition (shards of different sizes, so clients run
 different numbers of local steps and the vmap engine pads) and sample 2 of
-3 clients a round."""
+3 clients a round. The LM family's vmap engine runs through
+``run_lm_fedssl`` on ragged token shards."""
 import jax
 import numpy as np
 import pytest
@@ -18,7 +19,11 @@ from repro.federated.driver import run_fedssl as jax_run_fedssl
 from repro_torch import convert
 from repro_torch.configs import base as tbase
 from repro_torch.data import partition
-from repro_torch.federated.driver import run_fedssl
+from repro_torch.data.synthetic import synthetic_tokens
+from repro_torch.federated import engine as engine_mod
+from repro_torch.federated.driver import run_fedssl, run_lm_fedssl
+from repro_torch.launch import steps
+from repro_torch.models import lm as lm_mod
 from repro_torch.optim.schedules import learning_rate, scaled_base_lr
 
 from _torch_replay import JaxReplayDraws
@@ -39,6 +44,8 @@ ENGINE_ATOL = 1e-4
 # whose true gradient is exactly zero held to the run's rate budget.
 LOSS_RTOL = 1e-4
 PARAM_RTOL, PARAM_ATOL = 1e-4, 2e-5
+# the LM engines: the launcher tests' bar (tests/test_torch_lm_dense.py)
+LM_RTOL = 2e-6
 NOISE_LEAF = "online/proj/layers/2/bn/bias"
 
 
@@ -136,3 +143,39 @@ def test_vmap_engine_refuses_a_shard_smaller_than_the_batch():
     with pytest.raises(ValueError, match="every shard >= batch size"):
         run_fedssl(*_configs(tbase, "e2e"), images=imgs, client_indices=idx,
                    device="cpu", engine="vmap")
+
+
+def test_lm_vmap_engine_is_built_once_and_not_by_the_launcher(monkeypatch):
+    """``run_lm_fedssl(engine="vmap")`` builds its engine once a run and
+    never the launcher's round program; on ragged shards (2 and 1 local
+    steps) its losses and parameters are the sequential engine's."""
+    def refuse(*a, **k):
+        raise AssertionError("the driver built the launcher's round program")
+
+    monkeypatch.setattr(steps, "make_fl_round_program", refuse)
+    built = []
+    init = engine_mod.LMVmapEngine.__init__
+
+    def counted(self, **kw):
+        built.append(kw["batch_size"])
+        init(self, **kw)
+
+    monkeypatch.setattr(engine_mod.LMVmapEngine, "__init__", counted)
+    cfg = tbase.reduced(tbase.load_arch("internlm2-1.8b"))
+    toks, labs = synthetic_tokens(torch.Generator().manual_seed(1), 14, 32,
+                                  cfg.vocab_size)
+    params = lm_mod.init_lm(cfg, torch.Generator().manual_seed(0))
+    fl = tbase.FLConfig(num_clients=2, rounds=2, local_epochs=1,
+                        schedule="lw_fedssl")
+    runs = {e: run_lm_fedssl(
+        cfg, fl, tbase.TrainConfig(batch_size=4, base_lr=3e-4), tokens=toks,
+        labels=labs, shards=[np.arange(0, 8), np.arange(8, 14)],
+        params=params, device="cpu", engine=e)
+        for e in ("vmap", "sequential")}
+    assert built == [4]
+    (p_v, h_v), (p_s, h_s) = runs["vmap"], runs["sequential"]
+    assert h_v.round_stage == h_s.round_stage == [1, 2]
+    np.testing.assert_allclose(h_v.loss, h_s.loss, rtol=LM_RTOL)
+    for k, v in p_s.items():
+        np.testing.assert_allclose(p_v[k].numpy(), v.numpy(), rtol=0,
+                                   atol=LM_RTOL, err_msg=k)

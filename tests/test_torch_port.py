@@ -60,6 +60,20 @@ def test_sources_import_neither_jax_nor_reference():
         assert not pattern.search(f.read_text()), f
 
 
+def test_library_layers_do_not_import_the_launcher():
+    """The launcher sits on top of the library: no module of its lower
+    layers imports ``repro_torch.launch``."""
+    pattern = re.compile(r"^\s*(import\s+repro_torch\.launch\b|"
+                         r"from\s+repro_torch\.launch\b|"
+                         r"from\s+repro_torch\s+import\s+launch\b)", re.M)
+    files = [f for layer in ("federated", "core", "models", "kernels",
+                             "optim", "data")
+             for f in (SRC / "repro_torch" / layer).rglob("*.py")]
+    assert SRC / "repro_torch" / "federated" / "driver.py" in files
+    assert [f.relative_to(SRC) for f in files
+            if pattern.search(f.read_text())] == []
+
+
 def test_entry_points_refuse_to_fall_back(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced(load_arch("vit-tiny"), num_layers=1, d_model=32,

@@ -16,10 +16,15 @@
 - Each kernel-backed Function's ``vmap`` rule under the outer backward: the
   values and the summed loss's gradients equal a loop over the clients
   (a shared operand's gradient is the sum of the clients').
+- Held state: both vmap engines free the optimizer state a round began
+  from once later steps replace it.
 
 A 2-block fp32 ViT with narrow heads, batch 16 (``test_torch_engine``'s),
 and the dense LM of ``test_torch_lm_dense``'s round-program test.
 """
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +36,8 @@ from repro_torch.core import ssl as ssl_mod
 from repro_torch.data import augment
 from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.federated import client as client_mod
+from repro_torch.federated import engine as engine_mod
+from repro_torch.federated.driver import run_fedssl, run_lm_fedssl
 from repro_torch.kernels import ops
 from repro_torch.launch import steps
 from repro_torch.models import lm as lm_mod
@@ -239,16 +246,72 @@ def test_lm_round_program_with_remat_matches(mode):
 
 def test_no_torch_func_grad_on_the_training_paths():
     """The engines' training paths hold no ``torch.func`` differentiation:
-    ``federated.client`` and ``launch.steps`` take ``vmap`` alone from
-    ``torch.func`` and call no ``grad``, ``grad_and_value`` or ``vjp``."""
+    ``federated.client`` (both families' stacked steps) takes ``vmap`` alone
+    from ``torch.func``, ``federated.engine`` and ``launch.steps`` (the
+    rounds over them) take nothing, and none calls ``grad``,
+    ``grad_and_value`` or ``vjp``."""
     import inspect
-    for mod in (client_mod, steps):
+    for mod in (client_mod, engine_mod, steps):
         src = inspect.getsource(mod)
         imports = [ln for ln in src.splitlines() if "torch.func" in ln
                    and "import" in ln]
-        assert imports == ["from torch.func import vmap"], mod.__name__
+        assert imports == (["from torch.func import vmap"]
+                           if mod is client_mod else []), mod.__name__
         for name in ("grad_and_value", "torch.func.grad", "vjp("):
             assert name not in src, (mod.__name__, name)
+
+
+@pytest.mark.parametrize("family", ["vit", "lm"])
+def test_vmap_round_frees_each_steps_optimizer_state(family, monkeypatch):
+    """By a round's third batched step no tensor of the optimizer state the
+    round began from is alive: the vmap engines keep one step's C clients'
+    moments at a time, not the first step's besides (at the ViT cell's 16
+    clients those are gigabytes of the peak)."""
+    refs, alive, calls = [], [], [0]
+    init = client_mod.stacked_opt_init
+    name = "stacked_train_step" if family == "vit" else \
+        "lm_stacked_train_step"
+    real_step = getattr(client_mod, name)
+
+    def leaves(t):
+        return ([x for v in t.values() for x in leaves(v)]
+                if isinstance(t, dict) else [t] if torch.is_tensor(t) else [])
+
+    def recorded_init(opt, params):
+        out = init(opt, params)
+        refs[:] = [weakref.ref(t) for t in leaves(out)]
+        return out
+
+    def step(*a, **k):
+        calls[0] += 1
+        if calls[0] == 3:
+            gc.collect()
+            alive.append(sum(r() is not None for r in refs))
+        return real_step(*a, **k)
+
+    monkeypatch.setattr(client_mod, "stacked_opt_init", recorded_init)
+    monkeypatch.setattr(client_mod, name, step)
+    if family == "vit":
+        imgs = np.random.default_rng(0).uniform(
+            size=(6 * BATCH, 32, 32, 3)).astype(np.float32)
+        run_fedssl(MODEL, tbase.SSLConfig(**SSL),
+                   tbase.FLConfig(num_clients=2, rounds=1, local_epochs=3,
+                                  schedule="e2e"),
+                   tbase.TrainConfig(batch_size=BATCH), images=imgs,
+                   client_indices=[np.arange(3 * BATCH),
+                                   np.arange(3 * BATCH, 6 * BATCH)],
+                   device="cpu", engine="vmap")
+    else:
+        toks, labs = synthetic_tokens(torch.Generator().manual_seed(1), 24,
+                                      16, LM.vocab_size)
+        run_lm_fedssl(LM, tbase.FLConfig(num_clients=2, rounds=1,
+                                         local_epochs=1, schedule="e2e"),
+                      tbase.TrainConfig(batch_size=4), tokens=toks,
+                      labels=labs, shards=[np.arange(12), np.arange(12, 24)],
+                      params=lm_mod.init_lm(LM, torch.Generator()
+                                            .manual_seed(0)),
+                      device="cpu", engine="vmap")
+    assert refs and alive == [0], (alive, len(refs))
 
 
 def _np(shape, seed):
